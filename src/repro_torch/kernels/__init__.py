@@ -1,0 +1,6 @@
+"""Hand-written Hopper kernels, their plain PyTorch versions, and dispatch.
+
+Kernels: fused RMSNorm (Triton), flash-attention forward and ring-cache
+decode attention (CUDA C++).  ``ops`` picks the kernel for a CUDA tensor
+and the plain version (``ref``) for a CPU tensor.
+"""

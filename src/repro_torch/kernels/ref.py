@@ -1,0 +1,118 @@
+"""Plain PyTorch versions of every ported kernel (CPU path and oracles).
+
+Each function computes what its kernel computes, written the way the JAX
+package's ``models/`` code writes it (``repro.kernels.ref`` wraps the same
+functions), so the CPU path of the port matches the JAX model.  The
+kernels follow the Pallas kernels where the two differ: the attention
+kernels keep the softmax weights in f32 for P.V, while these versions
+cast them to the value dtype first (``models/attention.py``).  In f32 the
+two agree to summation order; in bf16 within 2e-2.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+__all__ = [
+    "rms_norm_ref",
+    "attention_bsnd",
+    "decode_bsnd",
+    "flash_attention_ref",
+    "decode_attention_ref",
+]
+
+_NEG_INF = -1e30  # finite masked-score sentinel (a fully masked row -> mean of v)
+
+
+def rms_norm_ref(x, w, *, eps: float = 1e-6, offset: bool = False):
+    """RMSNorm over the last dim in f32; ``offset`` scales by ``(1 + w)``."""
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    wf = w.float()
+    return (y * ((1.0 + wf) if offset else wf)).to(x.dtype)
+
+
+def _scores_mask(sq: int, skv: int, *, causal: bool, window: int, device):
+    qpos = torch.arange(sq, device=device)[:, None]
+    kpos = torch.arange(skv, device=device)[None, :]
+    ok = torch.ones(sq, skv, dtype=torch.bool, device=device)
+    if causal:
+        ok &= qpos >= kpos
+    if window:
+        ok &= (qpos - kpos) < window
+    return ok
+
+
+def attention_bsnd(q, k, v, *, causal: bool = True, window: int = 0,
+                   scale: Optional[float] = None, return_lse: bool = False):
+    """Naive attention in the model layout.
+
+    q: (B, Sq, NQ, HD); k, v: (B, Skv, NKV, HD), NQ % NKV == 0 (GQA kv head
+    ``q_head // G``).  Returns (B, Sq, NQ, HD) in q's dtype, plus the f32
+    log-sum-exp (B, NQ, Sq) when ``return_lse``.
+    """
+    B, Sq, NQ, HD = q.shape
+    Skv, NKV = k.shape[1], k.shape[2]
+    G = NQ // NKV
+    if scale is None:
+        scale = HD**-0.5
+    qg = q.reshape(B, Sq, NKV, G, HD)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * scale
+    ok = _scores_mask(Sq, Skv, causal=causal, window=window, device=q.device)
+    s = torch.where(ok, s, torch.full_like(s, _NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype), v)
+    out = out.reshape(B, Sq, NQ, HD).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(s, dim=-1).reshape(B, NQ, Sq)
+    return out
+
+
+def decode_bsnd(q, k_cache, v_cache, slot_pos, pos, *, window: int = 0,
+                scale: Optional[float] = None):
+    """One query token per row against a ring cache, in the model layout.
+
+    q: (B, 1, NQ, HD); caches: (B, S, NKV, HD); slot_pos: (B, S) absolute
+    position per slot (-1 empty); pos: (B,).  Valid slots satisfy
+    ``0 <= slot_pos <= pos`` (and ``slot_pos > pos - window``).
+    """
+    B, _, NQ, HD = q.shape
+    NKV = k_cache.shape[2]
+    G = NQ // NKV
+    if scale is None:
+        scale = HD**-0.5
+    qg = q.reshape(B, 1, NKV, G, HD)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k_cache.float()) * scale
+    pos = pos.to(slot_pos.dtype)[:, None]
+    ok = (slot_pos >= 0) & (slot_pos <= pos)
+    if window:
+        ok &= slot_pos > (pos - window)
+    s = torch.where(ok[:, None, None, None, :], s, torch.full_like(s, _NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p.to(v_cache.dtype), v_cache)
+    return out.reshape(B, 1, NQ, HD).to(q.dtype)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                        scale: Optional[float] = None, return_lse: bool = False):
+    """Kernel layout: q (B, NQ, S, D); k, v (B, NKV, S, D) -> (B, NQ, S, D)."""
+    res = attention_bsnd(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        causal=causal, window=window, scale=scale, return_lse=return_lse,
+    )
+    if return_lse:
+        return res[0].transpose(1, 2), res[1]
+    return res.transpose(1, 2)
+
+
+def decode_attention_ref(q, k_cache, v_cache, slot_pos, pos, *, window: int = 0,
+                         scale: Optional[float] = None):
+    """Kernel layout: q (B, NKV, G, D); caches (B, NKV, S, D) -> (B, NKV, G, D)."""
+    B, NKV, G, D = q.shape
+    out = decode_bsnd(
+        q.reshape(B, 1, NKV * G, D), k_cache.transpose(1, 2),
+        v_cache.transpose(1, 2), slot_pos, pos, window=window, scale=scale,
+    )
+    return out.reshape(B, NKV, G, D)

@@ -1,0 +1,48 @@
+"""Attention for the model, forward only, in the model's (B, S, N, HD) layout.
+
+:func:`flash_attention` (prefill) and :func:`decode_attention` (one token
+against the ring cache) go through :mod:`repro_torch.kernels.ops`: the
+hand-written kernels on CUDA, the plain versions on the CPU.  Both kernels
+read this layout through strides, so no call copies q, k, v or the cache.
+:func:`attention_reference` is the plain naive attention (the oracle).
+Prefix-LM masking and the backward pass are not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+from repro_torch.kernels import ops, ref
+
+__all__ = ["flash_attention", "attention_reference", "decode_attention"]
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    scale: Optional[float] = None):
+    """q: (B, S, NQ, HD); k, v: (B, S, NKV, HD) -> (B, S, NQ, HD) in q's dtype."""
+    out = ops.flash_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        causal=causal, window=window, scale=scale,
+    )
+    return out.transpose(1, 2)
+
+
+def attention_reference(q, k, v, *, causal: bool = True, window: int = 0,
+                        scale: Optional[float] = None):
+    """Naive O(S^2) attention, same layout and masks as :func:`flash_attention`."""
+    return ref.attention_bsnd(q, k, v, causal=causal, window=window, scale=scale)
+
+
+def decode_attention(q, k_cache, v_cache, slot_pos, pos, *, window: int = 0,
+                     scale: Optional[float] = None):
+    """Single-step attention over a ring cache.
+
+    q: (B, 1, NQ, HD); caches: (B, S, NKV, HD); slot_pos: (B, S) absolute
+    position per slot (-1 empty); pos: (B,) query positions.
+    """
+    B, _, NQ, HD = q.shape
+    NKV = k_cache.shape[2]
+    out = ops.decode_attention(
+        q.reshape(B, NKV, NQ // NKV, HD), k_cache.transpose(1, 2),
+        v_cache.transpose(1, 2), slot_pos, pos, window=window, scale=scale,
+    )
+    return out.reshape(B, 1, NQ, HD)

@@ -1,0 +1,354 @@
+"""Model assembly for the dense attention-only stacks: init, prefill, decode.
+
+Parameters are plain dicts of tensors built from *spec tables*
+(``{name: shape}``) with the JAX package's tree: ``embed``, ``final_norm``,
+optional ``head``, ``periods`` (one dict per pattern kind, every leaf
+stacked over the ``n_periods`` repeats) and ``epilogue``.  PyTorch runs
+eagerly, so the stack is a Python loop over periods instead of a scan.
+
+Caches keep the JAX layout: a ring buffer per attention layer, ``k``/``v``
+(B, S, NKV, HD) plus ``slot_pos`` (B, S) absolute positions (-1 empty),
+stacked over periods like the parameters.  Unlike the JAX package, which
+returns new cache arrays, :func:`prefill` fills a fresh cache and
+:func:`decode_step` writes the new token's slot **in place**
+(``index_copy_`` at the lockstep slot ``pos[0] % S``), then returns the
+same cache object.
+
+Only dense attention blocks (``attn``, ``local``) over token inputs are
+ported; MoE, recurrent and xLSTM blocks, the audio/vision frontends, the
+int8 KV cache and the paged (continuous-batching) path raise
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import zlib
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import layers
+from repro_torch.models.attention import decode_attention, flash_attention
+from repro_torch.models.config import ModelConfig
+
+__all__ = [
+    "check_supported",
+    "model_spec",
+    "init_params",
+    "params_from_numpy",
+    "params_to",
+    "forward_hidden",
+    "init_cache",
+    "prefill",
+    "decode_step",
+    "SeqContext",
+]
+
+_DENSE_KINDS = ("attn", "local")
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a config outside the ported subset."""
+    kinds = tuple(cfg.pattern) + tuple(cfg.epilogue)
+    bad = sorted({k for k in kinds if k not in _DENSE_KINDS})
+    if bad:
+        raise NotImplementedError(f"{cfg.name}: block kinds {bad} are not ported yet")
+    if cfg.frontend != "none" or cfg.prefix_lm:
+        raise NotImplementedError(f"{cfg.name}: frontends / prefix-LM are not ported yet")
+    if cfg.kv_cache_quant:
+        raise NotImplementedError(f"{cfg.name}: the int8 KV cache is not ported yet")
+
+
+# ---------------------------------------------------------------------------
+# Spec tables.
+# ---------------------------------------------------------------------------
+def _attn_spec(cfg: ModelConfig):
+    d, hd, nq, nkv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    spec = {
+        "wq": (d, nq * hd),
+        "wk": (d, nkv * hd),
+        "wv": (d, nkv * hd),
+        "wo": (nq * hd, d),
+    }
+    if cfg.qk_norm:
+        spec["q_norm"] = (hd,)
+        spec["k_norm"] = (hd,)
+    return spec
+
+
+def block_spec(cfg: ModelConfig, kind: str):
+    if kind not in _DENSE_KINDS:
+        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    d = cfg.d_model
+    return {
+        "ln1": (d,),
+        "attn": _attn_spec(cfg),
+        "ln2": (d,),
+        "mlp": layers.mlp_init_spec(d, cfg.d_ff, cfg.mlp_type),
+    }
+
+
+def model_spec(cfg: ModelConfig):
+    check_supported(cfg)
+    d = cfg.d_model
+    spec: Dict[str, Any] = {
+        "embed": {"tokens": (cfg.vocab_size, d)},
+        "final_norm": (d,),
+    }
+    if not cfg.tie_embeddings:
+        spec["head"] = (d, cfg.vocab_size)
+    spec["periods"] = tuple(block_spec(cfg, k) for k in cfg.pattern)
+    spec["epilogue"] = tuple(block_spec(cfg, k) for k in cfg.epilogue)
+    return spec
+
+
+def _is_leaf_spec(node) -> bool:
+    return isinstance(node, tuple) and bool(node) and all(isinstance(s, int) for s in node)
+
+
+def _walk_spec(spec, fn, path=()):  # fn(path, shape) -> leaf value
+    if _is_leaf_spec(spec):
+        return fn(path, spec)
+    if isinstance(spec, dict):
+        return {k: _walk_spec(v, fn, path + (k,)) for k, v in spec.items()}
+    if isinstance(spec, tuple):
+        return tuple(_walk_spec(v, fn, path + (str(i),)) for i, v in enumerate(spec))
+    raise TypeError(f"bad spec node at {path}: {type(spec)}")
+
+
+def _fp32_leaf(name: str) -> bool:
+    """Norm weights stay fp32 (as in the JAX package)."""
+    return name.startswith("ln") or name.endswith("_norm") or name == "final_norm"
+
+
+def _leaf_dtype(cfg: ModelConfig, name: str) -> torch.dtype:
+    return torch.float32 if _fp32_leaf(name) else getattr(torch, cfg.dtype)
+
+
+def _full_shape(cfg: ModelConfig, path, shape):
+    return (cfg.n_periods, *shape) if path[0] == "periods" else tuple(shape)
+
+
+# ---------------------------------------------------------------------------
+# Parameters.
+# ---------------------------------------------------------------------------
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
+                device="cuda"):
+    """Seeded init with the JAX package's recipe (norms 1, or 0 under
+    ``norm_offset``; weights truncated-normal).  Each leaf draws from its
+    own generator seeded by ``generator``'s seed and the leaf's path, so a
+    leaf's values do not depend on the order of the tree."""
+    dev = resolve_device(device)
+    base = 0 if generator is None else generator.initial_seed()
+
+    def init(path, shape):
+        name = path[-1]
+        full = _full_shape(cfg, path, shape)
+        dtype = _leaf_dtype(cfg, name)
+        if _fp32_leaf(name):
+            return torch.full(full, 0.0 if cfg.norm_offset else 1.0, dtype=dtype, device=dev)
+        g = torch.Generator(device=dev)
+        g.manual_seed((base * 1_000_003 + zlib.crc32("/".join(path).encode())) % (2**63))
+        return layers.truncated_normal_init(g, full, dtype, 1.0, dev)
+
+    return _walk_spec(model_spec(cfg), init)
+
+
+def _to_torch(arr) -> torch.Tensor:
+    arr = np.array(arr, copy=True, order="C")  # owned and writable
+    if arr.dtype.name == "bfloat16":  # ml_dtypes bfloat16: reinterpret the bits
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def params_from_numpy(cfg: ModelConfig, tree, device="cuda"):
+    """The weight bridge: the JAX package's ``init_params`` tree, mapped to
+    numpy arrays (``jax.tree.map(np.asarray, params)``), as this package's
+    parameters.  Same tree, same stacked-period leaves; shapes are checked
+    against the spec and dtypes follow the config (norms f32)."""
+    dev = resolve_device(device)
+
+    def take(path, shape):
+        node = tree
+        for key in path:
+            node = node[int(key)] if isinstance(node, (tuple, list)) else node[key]
+        full = _full_shape(cfg, path, shape)
+        if tuple(node.shape) != full:
+            raise ValueError(f"{'/'.join(path)}: shape {tuple(node.shape)} != {full}")
+        return _to_torch(node).to(device=dev, dtype=_leaf_dtype(cfg, path[-1]))
+
+    return _walk_spec(model_spec(cfg), take)
+
+
+def params_to(params, device):
+    """A copy of a parameter (or cache) tree on ``device``."""
+    dev = resolve_device(device)
+    if isinstance(params, dict):
+        return {k: params_to(v, dev) for k, v in params.items()}
+    if isinstance(params, tuple):
+        return tuple(params_to(v, dev) for v in params)
+    return params.to(dev)
+
+
+def _index(tree, i):
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+# ---------------------------------------------------------------------------
+# Block application.
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class SeqContext:
+    positions: torch.Tensor  # (B, S) int32 absolute positions
+    sin: torch.Tensor  # (B, S, head_dim // 2) rotary tables, computed once
+    cos: torch.Tensor
+    decode: bool = False
+
+
+def _norm(cfg, w, x):
+    return layers.rms_norm(x, w, eps=cfg.norm_eps, offset=cfg.norm_offset)
+
+
+def _attention(cfg, p, x, ctx: SeqContext, kind: str, cache):
+    B, S, _ = x.shape
+    hd, nq, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    q = (x @ p["wq"]).reshape(B, S, nq, hd)
+    k = (x @ p["wk"]).reshape(B, S, nkv, hd)
+    v = (x @ p["wv"]).reshape(B, S, nkv, hd)
+    if cfg.qk_norm:
+        q = layers.rms_norm(q, p["q_norm"], eps=cfg.norm_eps)
+        k = layers.rms_norm(k, p["k_norm"], eps=cfg.norm_eps)
+    q = layers.apply_rope(q, ctx.sin, ctx.cos)
+    k = layers.apply_rope(k, ctx.sin, ctx.cos)
+    window = cfg.window if kind == "local" else 0
+
+    if ctx.decode:
+        assert cache is not None and S == 1
+        pos = ctx.positions[:, 0]  # (B,)
+        # Rows advance in lockstep: one shared ring slot, pos[0] % S, taken
+        # on the device (no host sync) and written in place.
+        slot = (pos[:1] % cache["k"].shape[1]).long()
+        cache["k"].index_copy_(1, slot, k)
+        cache["v"].index_copy_(1, slot, v)
+        cache["slot_pos"].index_copy_(1, slot, pos[:, None].to(cache["slot_pos"].dtype))
+        out = decode_attention(q, cache["k"], cache["v"], cache["slot_pos"], pos,
+                               window=window)
+    else:
+        out = flash_attention(q, k, v, causal=cfg.causal, window=window)
+        if cache is not None:
+            # Prefill cache write: prompt positions 0..S-1 land in one or two
+            # static slices of the ring (the tail of the prompt if S > ring).
+            sc = cache["k"].shape[1]
+            keep = min(S, sc)
+            start = S - keep
+            slot0 = start % sc
+            first = min(keep, sc - slot0)
+            pos_tail = ctx.positions[:, start:].to(cache["slot_pos"].dtype)
+            cache["k"][:, slot0:slot0 + first] = k[:, start:start + first]
+            cache["v"][:, slot0:slot0 + first] = v[:, start:start + first]
+            cache["slot_pos"][:, slot0:slot0 + first] = pos_tail[:, :first]
+            if keep > first:  # wrapped remainder
+                rest = keep - first
+                cache["k"][:, :rest] = k[:, start + first:]
+                cache["v"][:, :rest] = v[:, start + first:]
+                cache["slot_pos"][:, :rest] = pos_tail[:, first:]
+    return out.reshape(B, S, nq * hd) @ p["wo"]
+
+
+def apply_block(cfg, kind: str, p, x, ctx: SeqContext, cache):
+    if kind not in _DENSE_KINDS:
+        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    x = x + _attention(cfg, p["attn"], _norm(cfg, p["ln1"], x), ctx, kind, cache)
+    return x + layers.mlp_apply(p["mlp"], _norm(cfg, p["ln2"], x), cfg.mlp_type)
+
+
+# ---------------------------------------------------------------------------
+# Caches.
+# ---------------------------------------------------------------------------
+def _block_cache(cfg, kind, batch, max_len, dtype, device, lead=()):
+    sc = max_len if kind != "local" else min(cfg.window, max_len)
+    shape = (*lead, batch, sc, cfg.n_kv_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "slot_pos": torch.full((*lead, batch, sc), -1, dtype=torch.int32, device=device),
+    }
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
+    check_supported(cfg)
+    dev = resolve_device(device)
+    dtype = getattr(torch, cfg.dtype)
+    periods = tuple(
+        _block_cache(cfg, k, batch, max_len, dtype, dev, lead=(cfg.n_periods,))
+        for k in cfg.pattern
+    )
+    epilogue = tuple(_block_cache(cfg, k, batch, max_len, dtype, dev) for k in cfg.epilogue)
+    return {"periods": periods, "epilogue": epilogue}
+
+
+# ---------------------------------------------------------------------------
+# Forward passes.
+# ---------------------------------------------------------------------------
+def _embed_inputs(cfg, params, batch_inputs):
+    """-> (x (B, S, D), positions (B, S) int32)."""
+    dtype = getattr(torch, cfg.dtype)
+    tokens = batch_inputs["tokens"]
+    x = params["embed"]["tokens"][tokens].to(dtype)
+    if cfg.emb_scale:
+        # sqrt(d_model) rounded to the model dtype first, as in the JAX model.
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dtype, device=x.device)
+    B, S = x.shape[:2]
+    pos = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
+    return x, pos
+
+
+def _run_stack(cfg, params, x, ctx: SeqContext, cache=None):
+    """The periods (in order) and the epilogue; caches are updated in place."""
+    for li in range(cfg.n_periods):
+        for i, kind in enumerate(cfg.pattern):
+            c = _index(cache["periods"][i], li) if cache is not None else None
+            x = apply_block(cfg, kind, _index(params["periods"][i], li), x, ctx, c)
+    for i, kind in enumerate(cfg.epilogue):
+        c = cache["epilogue"][i] if cache is not None else None
+        x = apply_block(cfg, kind, params["epilogue"][i], x, ctx, c)
+    return x
+
+
+def forward_hidden(cfg, params, batch_inputs, cache=None, decode=False, positions=None):
+    """Final-normed hidden states (B, S, D); ``cache`` is updated in place."""
+    x, pos = _embed_inputs(cfg, params, batch_inputs)
+    if positions is not None:
+        pos = positions
+    sin, cos = layers.rope(pos, cfg.head_dim, cfg.rope_theta)
+    ctx = SeqContext(positions=pos, sin=sin, cos=cos, decode=decode)
+    x = _run_stack(cfg, params, x, ctx, cache=cache)
+    return _norm(cfg, params["final_norm"], x)
+
+
+def _unembed(cfg, params, x):
+    w = params["embed"]["tokens"].T if cfg.tie_embeddings else params["head"]
+    return (x @ w.to(x.dtype)).float()
+
+
+def prefill(cfg, params, batch_inputs, max_len: int):
+    """Run the prompt, returning (cache, last-position logits (B, V) f32)."""
+    tokens = batch_inputs["tokens"]
+    cache = init_cache(cfg, tokens.shape[0], max_len, device=tokens.device)
+    x = forward_hidden(cfg, params, batch_inputs, cache=cache)
+    return cache, _unembed(cfg, params, x[:, -1:])[:, 0]
+
+
+def decode_step(cfg, params, cache, token, pos):
+    """One decode step.  token: (B,) int; pos: (B,) int32 positions.
+    Returns (logits (B, V) f32, cache) — the same cache, updated in place."""
+    x = forward_hidden(
+        cfg, params, {"tokens": token[:, None]}, cache=cache, decode=True,
+        positions=pos[:, None],
+    )
+    return _unembed(cfg, params, x)[:, 0], cache

@@ -1,0 +1,257 @@
+"""The port's kernels: plain versions against the JAX oracles and the Pallas
+kernels (interpret mode) on the CPU; hand-written kernels against their
+plain versions on an sm_90 card (skipped elsewhere).
+
+Inputs come from numpy with a fixed seed and go to both packages.
+Tolerances: f32 atol 2e-5 (summation order), bf16 atol 2e-2 (the
+``tests/test_kernels.py`` bound; the plain attention casts the softmax
+weights to bf16 for P.V where the Pallas kernels stay in f32).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.decode_attention import decode_attention_fwd as pallas_decode  # noqa: E402
+from repro.kernels.flash_attention import flash_attention_fwd as pallas_flash  # noqa: E402
+from repro.kernels.rmsnorm import rms_norm_fwd as pallas_rmsnorm  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+
+ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+# The JAX oracles, compiled once per shape instead of dispatched op by op.
+jref_rms_norm = jax.jit(jref.rms_norm_ref, static_argnames=("eps", "offset"))
+jref_flash = jax.jit(jref.flash_attention_ref, static_argnames=("causal", "window", "scale"))
+jref_decode = jax.jit(jref.decode_attention_ref, static_argnames=("window", "scale"))
+
+
+def _pair(rng, shape, dtype):
+    """The same normal draw as a jnp array and a torch tensor of ``dtype``."""
+    x = rng.standard_normal(shape).astype(np.float32)
+    j = jnp.asarray(x).astype(dtype)
+    t = torch.from_numpy(np.array(j.astype(jnp.float32))).to(getattr(torch, dtype))
+    return j, t
+
+
+def _close(torch_out, jax_out, dtype):
+    np.testing.assert_allclose(
+        torch_out.float().numpy(), np.asarray(jnp.asarray(jax_out, jnp.float32)),
+        atol=ATOL[dtype], rtol=0,
+    )
+
+
+def _ring_slots(B, S):
+    """Ring-buffer positions as in tests/test_kernels.py: wrapped, all valid."""
+    pos = np.full((B,), S + S // 2, np.int32)
+    slot = (pos[:, None] - S + 1) + (np.arange(S) + S // 2) % S
+    return slot.astype(np.int32), pos
+
+
+# ---------------------------------------------------------------------------
+# Plain versions against the JAX oracles and the Pallas kernels (CPU).
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("offset", [False, True])
+@pytest.mark.parametrize("shape", [(3, 7, 512), (1, 1, 64), (2, 5, 16)])
+def test_rmsnorm_plain_matches_jax(shape, offset, dtype):
+    rng = np.random.default_rng(shape[-1])
+    xj, xt = _pair(rng, shape, dtype)
+    wj, wt = _pair(rng, shape[-1:], "float32")
+    out = ops.rms_norm(xt, wt, offset=offset)
+    assert out.dtype == xt.dtype
+    _close(out, jref_rms_norm(xj, wj, offset=offset), dtype)
+    _close(out, pallas_rmsnorm(xj, wj, offset=offset, block_rows=8, interpret=True), dtype)
+
+
+FLASH_CASES = [
+    # (B, NQ, NKV, S, D, causal, window)
+    (2, 4, 2, 128, 32, True, 0),
+    (1, 4, 1, 128, 64, True, 0),  # MQA
+    (1, 10, 2, 64, 16, True, 0),  # G = 5
+    (1, 4, 1, 128, 64, True, 32),  # window
+    (2, 2, 2, 64, 32, False, 0),  # bidirectional
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+def test_flash_plain_matches_jax(case, dtype):
+    B, NQ, NKV, S, D, causal, window = case
+    rng = np.random.default_rng(S + NQ + D)
+    qj, qt = _pair(rng, (B, NQ, S, D), dtype)
+    kj, kt = _pair(rng, (B, NKV, S, D), dtype)
+    vj, vt = _pair(rng, (B, NKV, S, D), dtype)
+    out = ops.flash_attention(qt, kt, vt, causal=causal, window=window)
+    assert out.shape == (B, NQ, S, D) and out.dtype == qt.dtype
+    _close(out, jref_flash(qj, kj, vj, causal=causal, window=window), dtype)
+    kernel = pallas_flash(qj, kj, vj, causal=causal, window=window, block_q=64,
+                          block_k=64, interpret=True)
+    _close(out, kernel, dtype)
+
+
+def test_flash_plain_lse_matches_pallas():
+    rng = np.random.default_rng(5)
+    qj, qt = _pair(rng, (1, 2, 64, 32), "float32")
+    kj, kt = _pair(rng, (1, 2, 64, 32), "float32")
+    vj, vt = _pair(rng, (1, 2, 64, 32), "float32")
+    _, lse = ops.flash_attention(qt, kt, vt, return_lse=True)
+    _, want = pallas_flash(qj, kj, vj, block_q=32, block_k=32, interpret=True,
+                           return_lse=True)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want), atol=2e-5)
+
+
+DECODE_CASES = [
+    # (B, NKV, G, S, D, window)
+    (2, 2, 2, 128, 32, 0),
+    (2, 2, 1, 128, 64, 64),  # windowed ring
+    (1, 2, 5, 64, 16, 0),  # G = 5
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", DECODE_CASES, ids=str)
+def test_decode_plain_matches_jax(case, dtype):
+    B, NKV, G, S, D, window = case
+    rng = np.random.default_rng(S + G)
+    qj, qt = _pair(rng, (B, NKV, G, D), dtype)
+    kj, kt = _pair(rng, (B, NKV, S, D), dtype)
+    vj, vt = _pair(rng, (B, NKV, S, D), dtype)
+    slot, pos = _ring_slots(B, S)
+    out = ops.decode_attention(qt, kt, vt, torch.from_numpy(slot), torch.from_numpy(pos),
+                               window=window)
+    assert out.shape == (B, NKV, G, D) and out.dtype == qt.dtype
+    sj, pj = jnp.asarray(slot), jnp.asarray(pos)
+    _close(out, jref_decode(qj, kj, vj, sj, pj, window=window), dtype)
+    _close(out, pallas_decode(qj, kj, vj, sj, pj, window=window, block_k=64,
+                              interpret=True), dtype)
+
+
+@pytest.mark.parametrize("pos_value", [9, -1], ids=["first10", "all_masked"])
+def test_decode_plain_empty_slots(pos_value):
+    rng = np.random.default_rng(3)
+    B, NKV, G, S, D = 2, 2, 2, 64, 32
+    qj, qt = _pair(rng, (B, NKV, G, D), "float32")
+    kj, kt = _pair(rng, (B, NKV, S, D), "float32")
+    vj, vt = _pair(rng, (B, NKV, S, D), "float32")
+    slot = np.broadcast_to(np.where(np.arange(S) < 10, np.arange(S), -1), (B, S))
+    slot = np.ascontiguousarray(slot, dtype=np.int32)
+    pos = np.full((B,), pos_value, np.int32)
+    out = ops.decode_attention(qt, kt, vt, torch.from_numpy(slot), torch.from_numpy(pos))
+    want = pallas_decode(qj, kj, vj, jnp.asarray(slot), jnp.asarray(pos), block_k=32,
+                         interpret=True)
+    _close(out, want, "float32")
+    assert torch.isfinite(out).all()
+
+
+def test_cpu_dispatch_never_launches_a_kernel():
+    ops.reset_launch_counts()
+    x = torch.randn(2, 3, 16)
+    ops.rms_norm(x, torch.ones(16))
+    q = torch.randn(1, 2, 8, 16)
+    ops.flash_attention(q, q, q)
+    assert ops.launch_counts() == {name: 0 for name in ops.COUNTERS}
+
+
+def test_launch_counter_is_exact_across_threads():
+    """Async dispatch launches from worker threads: no increment may be lost."""
+    import sys
+    import threading
+
+    from repro_torch.kernels.counters import LaunchCounter
+
+    counter = LaunchCounter("stress")
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        workers = [threading.Thread(target=lambda: [counter.add() for _ in range(2000)])
+                   for _ in range(16)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=60)
+        assert not any(w.is_alive() for w in workers)
+    finally:
+        sys.setswitchinterval(old)
+    assert counter.count == 16 * 2000
+    counter.reset()
+    assert counter.count == 0
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    from repro_torch.kernels.decode_attention import decode_attention_fwd
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.rmsnorm import rms_norm_fwd
+
+    x = torch.randn(1, 2, 8, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        rms_norm_fwd(x, torch.ones(16))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_fwd(x, x, x)
+    with pytest.raises(ValueError, match="CUDA"):
+        decode_attention_fwd(x, x, x, torch.zeros(1, 8, dtype=torch.int32),
+                             torch.zeros(1, dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# Hand-written kernels against the plain versions (an sm_90 card only).
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def sm90():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    if torch.cuda.get_device_capability(0) < (9, 0):
+        pytest.skip("needs an sm_90 card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _gpu_close(got, want, dtype):
+    tol = dict(atol=1e-4, rtol=0) if dtype == torch.float32 else dict(atol=2e-2, rtol=1e-2)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(4, 128, 256), (3, 7, 5120), (2, 5, 16)])
+def test_rmsnorm_kernel_matches_plain(sm90, shape, dtype):
+    from repro_torch.kernels.rmsnorm import rms_norm_fwd
+
+    dt = getattr(torch, dtype)
+    x = torch.randn(shape, device=sm90).to(dt)
+    w = torch.randn(shape[-1], device=sm90)
+    for offset in (False, True):
+        _gpu_close(rms_norm_fwd(x, w, offset=offset), ref.rms_norm_ref(x, w, offset=offset), dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FLASH_CASES + [(2, 40, 8, 100, 128, True, 0)], ids=str)
+def test_flash_kernel_matches_plain(sm90, case, dtype):
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+
+    B, NQ, NKV, S, D, causal, window = case
+    dt = getattr(torch, dtype)
+    q = torch.randn(B, S, NQ, D, device=sm90).to(dt).transpose(1, 2)
+    k = torch.randn(B, S, NKV, D, device=sm90).to(dt).transpose(1, 2)
+    v = torch.randn(B, S, NKV, D, device=sm90).to(dt).transpose(1, 2)
+    _gpu_close(flash_attention_fwd(q, k, v, causal=causal, window=window),
+               ref.flash_attention_ref(q, k, v, causal=causal, window=window), dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", DECODE_CASES + [(2, 8, 5, 152, 128, 0)], ids=str)
+def test_decode_kernel_matches_plain(sm90, case, dtype):
+    from repro_torch.kernels.decode_attention import decode_attention_fwd
+
+    B, NKV, G, S, D, window = case
+    dt = getattr(torch, dtype)
+    q = torch.randn(B, NKV, G, D, device=sm90).to(dt)
+    kc = torch.randn(B, S, NKV, D, device=sm90).to(dt).transpose(1, 2)
+    vc = torch.randn(B, S, NKV, D, device=sm90).to(dt).transpose(1, 2)
+    slot, pos = (torch.from_numpy(a).to(sm90) for a in _ring_slots(B, S))
+    _gpu_close(decode_attention_fwd(q, kc, vc, slot, pos, window=window),
+               ref.decode_attention_ref(q, kc, vc, slot, pos, window=window), dt)
