@@ -19,6 +19,7 @@ __all__ = [
     "rms_norm",
     "flash_attention",
     "decode_attention",
+    "decode_attention_paged",
     "COUNTERS",
     "launch_counts",
     "reset_launch_counts",
@@ -28,6 +29,7 @@ COUNTERS = {
     "rms_norm_fwd": _rmsnorm.launches,
     "flash_attention_fwd": _flash.launches,
     "decode_attention_fwd": _decode.launches,
+    "decode_attention_paged_fwd": _decode.paged_launches,
 }
 
 
@@ -58,6 +60,18 @@ def decode_attention(q, k_cache, v_cache, slot_pos, pos, *, window: int = 0,
         )
     return _decode.decode_attention_fwd(
         q, k_cache, v_cache, slot_pos, pos, window=window, scale=scale
+    )
+
+
+def decode_attention_paged(q, k_pool, v_pool, page_tables, pos, *, window: int = 0,
+                           scale=None):
+    """Kernel layout: q (B, NKV, G, D); pools (P, NKV, page, D)."""
+    if q.device.type == "cpu":
+        return ref.decode_attention_paged_ref(
+            q, k_pool, v_pool, page_tables, pos, window=window, scale=scale
+        )
+    return _decode.decode_attention_paged_fwd(
+        q, k_pool, v_pool, page_tables, pos, window=window, scale=scale
     )
 
 

@@ -20,6 +20,8 @@ __all__ = [
     "decode_bsnd",
     "flash_attention_ref",
     "decode_attention_ref",
+    "paged_decode_bsnd",
+    "decode_attention_paged_ref",
 ]
 
 _NEG_INF = -1e30  # finite masked-score sentinel (a fully masked row -> mean of v)
@@ -95,6 +97,28 @@ def decode_bsnd(q, k_cache, v_cache, slot_pos, pos, *, window: int = 0,
     return out.reshape(B, 1, NQ, HD).to(q.dtype)
 
 
+def paged_decode_bsnd(q, k_pool, v_pool, page_tables, pos, *, window: int = 0,
+                      scale: Optional[float] = None):
+    """One query token per row against a block-paged pool, in the model layout.
+
+    q: (B, 1, NQ, HD); pools: (P, page, NKV, HD); page_tables: (B, NB) page
+    ids per row; pos: (B,).  Pages are append-only, so the entry at a row's
+    dense index ``i`` (page ``i // page``, offset ``i % page``) holds
+    absolute position ``i``: gather the dense (B, NB * page) view and mask
+    it with ``slot_pos = arange``, as ``models/attention.py`` of the JAX
+    package does.
+    """
+    P, page, NKV, HD = k_pool.shape
+    B, NB = page_tables.shape
+    S = NB * page
+    offs = torch.arange(page, device=page_tables.device)
+    flat = (page_tables.long()[:, :, None] * page + offs).reshape(B, S)
+    k_dense = k_pool.reshape(P * page, NKV, HD)[flat]  # (B, S, NKV, HD)
+    v_dense = v_pool.reshape(P * page, NKV, HD)[flat]
+    slot_pos = torch.arange(S, dtype=torch.int32, device=q.device).expand(B, S)
+    return decode_bsnd(q, k_dense, v_dense, slot_pos, pos, window=window, scale=scale)
+
+
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
                         scale: Optional[float] = None, return_lse: bool = False):
     """Kernel layout: q (B, NQ, S, D); k, v (B, NKV, S, D) -> (B, NQ, S, D)."""
@@ -114,5 +138,16 @@ def decode_attention_ref(q, k_cache, v_cache, slot_pos, pos, *, window: int = 0,
     out = decode_bsnd(
         q.reshape(B, 1, NKV * G, D), k_cache.transpose(1, 2),
         v_cache.transpose(1, 2), slot_pos, pos, window=window, scale=scale,
+    )
+    return out.reshape(B, NKV, G, D)
+
+
+def decode_attention_paged_ref(q, k_pool, v_pool, page_tables, pos, *, window: int = 0,
+                               scale: Optional[float] = None):
+    """Kernel layout: q (B, NKV, G, D); pools (P, NKV, page, D) -> (B, NKV, G, D)."""
+    B, NKV, G, D = q.shape
+    out = paged_decode_bsnd(
+        q.reshape(B, 1, NKV * G, D), k_pool.transpose(1, 2),
+        v_pool.transpose(1, 2), page_tables, pos, window=window, scale=scale,
     )
     return out.reshape(B, NKV, G, D)

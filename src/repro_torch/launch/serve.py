@@ -16,13 +16,22 @@ hedge-xs variant), so duplication resolves on measured wall time.
 duplicate.  ``--dispatch async`` (the default) runs the remote batch and
 the duplicate concurrently; ``--dispatch sync`` serializes them.
 
+``--continuous`` serves the remote tiers on a ``ContinuousBatchingBackend``:
+fixed-shape prefill/graft/decode entry points (``--bs-ladder`` prefill
+batch sizes) over a block-paged KV pool; requests join the persistent
+decode batch at step boundaries, and ``--dispatch`` becomes ``stepped``
+(the tier's decode clock) unless ``sync`` is asked for.  ``--stream``
+(with ``--continuous``) first streams one request token by token through
+``InferenceClient``.
+
 Everything runs on the CUDA device (``--device cuda``, the default) through
 the port's hand-written kernels; ``--device cpu`` runs the plain PyTorch
-versions.  The JAX driver's cluster, transport, continuous-batching,
-tenancy, controller and tracing flags are not ported yet (ROADMAP.md).
+versions.  The JAX driver's cluster, transport, tenancy, controller and
+tracing flags are not ported yet (ROADMAP.md).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --requests 50 --sla 2000
+  PYTHONPATH=src python -m repro_torch.launch.serve --continuous --stream
 """
 from __future__ import annotations
 
@@ -34,6 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.archs import reduced
+from repro_torch.configs.mdinference_zoo import ServingGeometry
 from repro_torch.core.network import NAMED_TRACES, LognormalNetwork
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
@@ -75,10 +85,12 @@ def build_engine(
     max_len: int, seed: int = 0, measured_hedge: bool = True,
     dispatch: str = "async", device="cuda",
     configs: Optional[Sequence[Tuple[str, ModelConfig, float]]] = None,
+    geometry: Optional[ServingGeometry] = None,
 ) -> ServingEngine:
-    """The serving engine: a ``JitBackend`` hosting the remote tiers
-    (``configs``, default :func:`tier_configs`) with seeded weights, plus
-    the zoo's hedge tier unless ``measured_hedge`` is off."""
+    """The serving engine: the remote tiers (``configs``, default
+    :func:`tier_configs`) with seeded weights, plus the zoo's hedge tier
+    unless ``measured_hedge`` is off.  The remote tier is a ``JitBackend``,
+    or with ``geometry`` a ``ContinuousBatchingBackend`` sized by it."""
     dev = resolve_device(device)
     hedge = (
         OnDeviceBackend.from_zoo(max_len=max_len, seed=seed, device=dev)
@@ -87,11 +99,58 @@ def build_engine(
     )
     engine = ServingEngine(
         max_len=max_len, hedge_backend=hedge, dispatch=dispatch, device=dev,
+        continuous=geometry is not None, geometry=geometry,
     )
     for name, cfg, quality in (tier_configs() if configs is None else configs):
         params = T.init_params(cfg, torch.Generator().manual_seed(seed), dev)
         engine.register(Variant(name, cfg, params, quality))
     return engine
+
+
+def prewarm_hedge(engine: ServingEngine, prompt: int, gen: int, n_slots: int) -> None:
+    """Run the hedge tier once at every power-of-two tick shape up to
+    ``n_slots``: its first run at a shape otherwise burns real SLA budget
+    mid-race and spuriously releases hedged slots."""
+    hb = engine.hedge_backend
+    N = 1
+    while N <= n_slots:
+        hb.run_batch(hb.hedge_name, np.zeros((N, prompt), np.int32), gen)
+        N *= 2
+
+
+def stream_demo(engine: ServingEngine, sched, prompt: np.ndarray, gen: int, sla: float):
+    """One request through its own loop (its completion stays out of the
+    trace's metrics), printed chunk by chunk as the decode steps emit
+    tokens.  Returns ``(chunks, resolved-at-yield flags, completed request)``."""
+    from repro_torch.serving.client import InferenceClient
+
+    fut = InferenceClient(engine.make_loop(sched)).submit(prompt, gen, sla=sla)
+    print("streaming demo: tokens as the decode steps emit them")
+    chunks, done_at_yield = [], []
+    for chunk in fut.stream():
+        chunks.append(chunk)
+        done_at_yield.append(fut.done())
+        print(f"  chunk[{chunk.index}] token={chunk.token:5d} "
+              f"+{chunk.wall_ms - chunks[0].wall_ms:7.2f}ms")
+    c = fut.result()
+    ttft = "n/a" if c.ttft_ms is None else f"{c.ttft_ms:.2f}ms"
+    print(f"  resolved on {c.model_name}: {len(chunks)} chunks ttft={ttft} "
+          f"exec={c.exec_ms:.1f}ms")
+    return chunks, done_at_yield, c
+
+
+def continuous_summary(backend, completions, compiles_after_warmup: int) -> str:
+    """The ``continuous tier`` summary line; checks slot/page conservation."""
+    growth = backend.compile_count - compiles_after_warmup
+    ttfts = np.asarray([c.ttft_ms for c in completions if c.ttft_ms is not None])
+    ttft_note = (
+        f"ttft p50/p99={quantile(ttfts, 50):.1f}/{quantile(ttfts, 99):.1f}ms "
+        if ttfts.size else ""
+    )
+    backend.check_conservation()
+    return (f"continuous tier   : joined={backend.joined_total} "
+            f"recycled={backend.recycled_total} {ttft_note}"
+            f"post-warmup recompiles={growth} (conservation ok)")
 
 
 def main(argv=None):
@@ -134,10 +193,26 @@ def main(argv=None):
         "or on-device profile samples (sampled)",
     )
     ap.add_argument(
-        "--dispatch", default="async", choices=["async", "sync"],
-        help="dispatch the tiers' batches concurrently (async) or "
-        "serialized (sync, the deterministic fallback)",
+        "--dispatch", default="async", choices=["async", "sync", "stepped"],
+        help="dispatch the tiers' batches concurrently (async), "
+        "serialized (sync, the deterministic fallback), or stepped "
+        "(continuous-batching decode clock; implied by --continuous)",
     )
+    ap.add_argument("--continuous", action="store_true",
+                    help="serve the remote tier with cross-tick continuous "
+                    "batching: fixed-shape prefill/decode entry points (no "
+                    "new shapes after warmup) over a block-paged slot "
+                    "cache; requests join the persistent decode batch at "
+                    "step boundaries and slots recycle on early resolution")
+    ap.add_argument("--bs-ladder", default="1,2,4,8", metavar="N,N,...",
+                    help="prefill batch-size ladder for --continuous: "
+                    "sorted powers of two; submissions decompose onto "
+                    "these fixed shapes (default 1,2,4,8)")
+    ap.add_argument("--stream", action="store_true",
+                    help="demonstrate token streaming before the trace: "
+                    "submit one request and print each StreamChunk as the "
+                    "continuous tier's decode steps emit it (requires "
+                    "--continuous)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the tiers run: cuda (the hand-written "
                     "kernels, the default) or cpu (the plain PyTorch "
@@ -149,13 +224,37 @@ def main(argv=None):
             f"--overload-policy {args.overload_policy} requires "
             "--max-pending (the capacity whose overflow it governs)"
         )
+    if args.stream and not args.continuous:
+        ap.error("--stream requires --continuous (the streaming decode tier)")
+    geometry = None
+    dispatch = args.dispatch
+    if args.continuous:
+        try:
+            ladder = tuple(int(x) for x in args.bs_ladder.split(","))
+        except ValueError:
+            ap.error(f"--bs-ladder must be comma-separated ints, got {args.bs_ladder!r}")
+        page = 8
+        try:
+            geometry = ServingGeometry(
+                max_len=args.prompt + args.gen + 8,
+                prompt_width=-(-args.prompt // page) * page,  # whole pages
+                bs_ladder=ladder,
+                n_slots=max(ladder),
+                page_size=page,
+                max_steps=args.gen,
+            )
+        except ValueError as e:
+            ap.error(f"--bs-ladder: {e}")
+        if dispatch == "async":
+            dispatch = "stepped"  # the continuous tier's native clock
     device = resolve_device(args.device)
 
     measured = args.hedge == "measured"
     print(f"building + profiling tiers on {device} (real execution)...")
     engine = build_engine(
         max_len=args.prompt + args.gen + 8, seed=args.seed,
-        measured_hedge=measured, dispatch=args.dispatch, device=device,
+        measured_hedge=measured, dispatch=dispatch, device=device,
+        geometry=geometry,
     )
     registry = engine.measure_profiles(
         prompt_len=args.prompt, gen_tokens=args.gen, trials=3, seed=args.seed
@@ -173,6 +272,16 @@ def main(argv=None):
     else:
         ondevice = registry[int(np.argmin(registry.mu))]
         print(f"  hedge tier (sampled profile): {ondevice.name}")
+
+    compiles_after_warmup = 0
+    if args.continuous:
+        engine.backend.warmup()
+        compiles_after_warmup = engine.backend.compile_count
+        print(f"continuous tier: ladder={geometry.bs_ladder} "
+              f"n_slots={geometry.n_slots} page_size={geometry.page_size} "
+              f"entry-point shapes={compiles_after_warmup} (fixed from here)")
+        if measured:
+            prewarm_hedge(engine, args.prompt, args.gen, geometry.n_slots)
 
     sched = MDInferenceScheduler(
         registry, ondevice, SchedulerConfig(t_sla_ms=args.sla, seed=args.seed)
@@ -197,6 +306,8 @@ def main(argv=None):
     admission = AdmissionConfig(
         max_pending=args.max_pending, max_chunk=args.max_chunk, policy=policy,
     )
+    if args.stream:
+        stream_demo(engine, sched, prompts[0], args.gen, args.sla)
     loop = engine.make_loop(sched, admission=admission)
     service_model = (
         (lambda res: args.service_ms * res.stats.max_replica_rows)
@@ -260,7 +371,7 @@ def main(argv=None):
     )
     print(
         f"\nserved {len(completions)} requests in {time.time()-t_start:.1f}s wall "
-        f"(offered {trace.offered_rps:.1f} rps, dispatch={args.dispatch}, "
+        f"(offered {trace.offered_rps:.1f} rps, dispatch={engine.dispatch}, "
         f"device={device_note})\n"
         f"aggregate quality : {metrics.aggregate_accuracy:.2f}\n"
         f"SLA attainment    : {np.mean(lats <= args.sla)*100:.1f}%  "
@@ -274,6 +385,8 @@ def main(argv=None):
         f"(time-to-schedule mean {metrics.mean_time_to_schedule_ms:.0f}ms)\n"
         f"p50/p99 latency   : {quantile(lats, 50):.0f}/{quantile(lats, 99):.0f} ms"
     )
+    if args.continuous:
+        print(continuous_summary(engine.backend, completions, compiles_after_warmup))
     return 0
 
 

@@ -1,9 +1,11 @@
 """Attention for the model, forward only, in the model's (B, S, N, HD) layout.
 
-:func:`flash_attention` (prefill) and :func:`decode_attention` (one token
-against the ring cache) go through :mod:`repro_torch.kernels.ops`: the
-hand-written kernels on CUDA, the plain versions on the CPU.  Both kernels
-read this layout through strides, so no call copies q, k, v or the cache.
+:func:`flash_attention` (prefill), :func:`decode_attention` (one token
+against the ring cache) and :func:`paged_decode_attention` (one token
+against the continuous tier's page pool) go through
+:mod:`repro_torch.kernels.ops`: the hand-written kernels on CUDA, the plain
+versions on the CPU.  The kernels read this layout through strides, so no
+call copies q, k, v, the cache or the pool.
 :func:`attention_reference` is the plain naive attention (the oracle).
 Prefix-LM masking and the backward pass are not ported yet.
 """
@@ -13,7 +15,8 @@ from typing import Optional
 
 from repro_torch.kernels import ops, ref
 
-__all__ = ["flash_attention", "attention_reference", "decode_attention"]
+__all__ = ["flash_attention", "attention_reference", "decode_attention",
+           "paged_decode_attention"]
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -44,5 +47,24 @@ def decode_attention(q, k_cache, v_cache, slot_pos, pos, *, window: int = 0,
     out = ops.decode_attention(
         q.reshape(B, NKV, NQ // NKV, HD), k_cache.transpose(1, 2),
         v_cache.transpose(1, 2), slot_pos, pos, window=window, scale=scale,
+    )
+    return out.reshape(B, 1, NQ, HD)
+
+
+def paged_decode_attention(q, k_pool, v_pool, page_tables, pos, *, window: int = 0,
+                           scale: Optional[float] = None):
+    """Single-step attention over a block-paged KV pool.
+
+    q: (B, 1, NQ, HD); pools: (P, page, NKV, HD) shared by every row;
+    page_tables: (B, NB) int32 page ids per row; pos: (B,) query positions.
+    Pages are append-only (a row's dense index ``i`` holds absolute
+    position ``i``), so validity is ``i <= pos``; table entries past a
+    row's reservation point at the trash page 0 and are always masked.
+    """
+    B, _, NQ, HD = q.shape
+    NKV = k_pool.shape[2]
+    out = ops.decode_attention_paged(
+        q.reshape(B, NKV, NQ // NKV, HD), k_pool.transpose(1, 2),
+        v_pool.transpose(1, 2), page_tables, pos, window=window, scale=scale,
     )
     return out.reshape(B, 1, NQ, HD)

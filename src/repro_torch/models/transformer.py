@@ -14,10 +14,18 @@ returns new cache arrays, :func:`prefill` fills a fresh cache and
 (``index_copy_`` at the lockstep slot ``pos[0] % S``), then returns the
 same cache object.
 
+The continuous-batching tier keeps the JAX package's block-paged layout:
+per attention layer one physical pool ``kp``/``vp`` (P, page, NKV, HD)
+shared by every row, each row owning a page table into it (page 0 is the
+trash page inactive rows write into).  :func:`prefill_ragged` runs
+right-padded prompts, :func:`graft_prefill_batch` copies their caches into
+the rows' pages (one ``index_copy_`` per leaf into the flattened pool) and
+:func:`paged_decode_step` scatters each row's new k/v into its page slot,
+all in place.
+
 Only dense attention blocks (``attn``, ``local``) over token inputs are
-ported; MoE, recurrent and xLSTM blocks, the audio/vision frontends, the
-int8 KV cache and the paged (continuous-batching) path raise
-``NotImplementedError``.
+ported; MoE, recurrent and xLSTM blocks, the audio/vision frontends and
+the int8 KV cache raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -31,7 +39,11 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers
-from repro_torch.models.attention import decode_attention, flash_attention
+from repro_torch.models.attention import (
+    decode_attention,
+    flash_attention,
+    paged_decode_attention,
+)
 from repro_torch.models.config import ModelConfig
 
 __all__ = [
@@ -44,6 +56,13 @@ __all__ = [
     "init_cache",
     "prefill",
     "decode_step",
+    "supports_paged_decode",
+    "prefill_ragged",
+    "init_paged_cache",
+    "graft_prefill",
+    "graft_prefill_batch",
+    "prefill_cache_width",
+    "paged_decode_step",
     "SeqContext",
 ]
 
@@ -208,6 +227,10 @@ class SeqContext:
     sin: torch.Tensor  # (B, S, head_dim // 2) rotary tables, computed once
     cos: torch.Tensor
     decode: bool = False
+    # Block-paged decode (continuous batching): per-row page tables into a
+    # shared physical KV pool.  None => the dense ring-buffer cache path.
+    page_tables: Optional[torch.Tensor] = None  # (B, NB) int32 page ids
+    page_size: int = 0
 
 
 def _norm(cfg, w, x):
@@ -230,6 +253,21 @@ def _attention(cfg, p, x, ctx: SeqContext, kind: str, cache):
     if ctx.decode:
         assert cache is not None and S == 1
         pos = ctx.positions[:, 0]  # (B,)
+        if ctx.page_tables is not None:
+            # Block-paged decode: rows advance at independent positions,
+            # each writing its new k/v into its own page slot of the shared
+            # pool, in place.  Inactive rows carry pos=0 and an all-trash
+            # table, so their (duplicate) writes land in the trash page.
+            page = ctx.page_size
+            tbl = ctx.page_tables
+            p64 = pos.long()
+            rows = torch.arange(B, device=pos.device)
+            flat_idx = tbl[rows, p64 // page].long() * page + p64 % page  # (B,)
+            P = cache["kp"].shape[0]
+            cache["kp"].view(P * page, nkv, hd).index_copy_(0, flat_idx, k[:, 0])
+            cache["vp"].view(P * page, nkv, hd).index_copy_(0, flat_idx, v[:, 0])
+            out = paged_decode_attention(q, cache["kp"], cache["vp"], tbl, pos, window=window)
+            return out.reshape(B, S, nq * hd) @ p["wo"]
         # Rows advance in lockstep: one shared ring slot, pos[0] % S, taken
         # on the device (no host sync) and written in place.
         slot = (pos[:1] % cache["k"].shape[1]).long()
@@ -320,13 +358,16 @@ def _run_stack(cfg, params, x, ctx: SeqContext, cache=None):
     return x
 
 
-def forward_hidden(cfg, params, batch_inputs, cache=None, decode=False, positions=None):
-    """Final-normed hidden states (B, S, D); ``cache`` is updated in place."""
+def forward_hidden(cfg, params, batch_inputs, cache=None, decode=False, positions=None,
+                   page_tables=None, page_size: int = 0):
+    """Final-normed hidden states (B, S, D); ``cache`` is updated in place.
+    With ``page_tables`` (decode only) ``cache`` is a paged pool."""
     x, pos = _embed_inputs(cfg, params, batch_inputs)
     if positions is not None:
         pos = positions
     sin, cos = layers.rope(pos, cfg.head_dim, cfg.rope_theta)
-    ctx = SeqContext(positions=pos, sin=sin, cos=cos, decode=decode)
+    ctx = SeqContext(positions=pos, sin=sin, cos=cos, decode=decode,
+                     page_tables=page_tables, page_size=page_size)
     x = _run_stack(cfg, params, x, ctx, cache=cache)
     return _norm(cfg, params["final_norm"], x)
 
@@ -352,3 +393,135 @@ def decode_step(cfg, params, cache, token, pos):
         positions=pos[:, None],
     )
     return _unembed(cfg, params, x)[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# Block-paged decode (continuous batching).
+# ---------------------------------------------------------------------------
+def supports_paged_decode(cfg: ModelConfig) -> bool:
+    """Whether the paged continuous-batching path can serve this config
+    (the JAX package's predicate: a causal attention-only stack without KV
+    quantization; MoE blocks qualify there but are not ported here)."""
+    kinds = tuple(cfg.pattern) + tuple(cfg.epilogue)
+    return (
+        cfg.causal
+        and not cfg.kv_cache_quant
+        and all(k in ("attn", "local", "moe") for k in kinds)
+    )
+
+
+def prefill_ragged(cfg, params, batch_inputs, lengths, max_len: int):
+    """Prefill a right-padded batch with per-row prompt lengths.
+
+    ``tokens`` is (B, S) right-padded, ``lengths`` (B,) each row's real
+    prompt length; the logits (B, V) f32 are gathered at each row's last
+    real position.  Causal masking makes the padding inert, so they equal
+    the unpadded prefill's.  Cache entries past a row's length hold
+    pad-token k/v that the paged mask never exposes.
+    """
+    tokens = batch_inputs["tokens"]
+    B, S = tokens.shape
+    cache = init_cache(cfg, B, max_len, device=tokens.device)
+    x = forward_hidden(cfg, params, batch_inputs, cache=cache)
+    idx = (lengths.long() - 1).clamp(0, S - 1)
+    x_last = x[torch.arange(B, device=x.device), idx][:, None]  # (B, 1, D)
+    return cache, _unembed(cfg, params, x_last)[:, 0]
+
+
+def _paged_block_cache(cfg, kind, n_pages, page_size, dtype, device, lead=()):
+    if kind not in ("attn", "moe", "local"):
+        raise ValueError(f"paged decode supports attention blocks only, got {kind!r}")
+    shape = (*lead, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
+    return {
+        "kp": torch.zeros(shape, dtype=dtype, device=device),
+        "vp": torch.zeros(shape, dtype=dtype, device=device),
+    }
+
+
+def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int, device="cuda"):
+    """Physical KV page pools for every attention layer (no batch dim:
+    rows share the pool through their page tables), stacked over periods."""
+    if not supports_paged_decode(cfg):
+        raise ValueError(
+            f"config {cfg.name!r} cannot use the paged decode path "
+            "(needs a causal attention-only stack without kv quant)"
+        )
+    check_supported(cfg)
+    dev = resolve_device(device)
+    dtype = getattr(torch, cfg.dtype)
+    periods = tuple(
+        _paged_block_cache(cfg, k, n_pages, page_size, dtype, dev, lead=(cfg.n_periods,))
+        for k in cfg.pattern
+    )
+    epilogue = tuple(
+        _paged_block_cache(cfg, k, n_pages, page_size, dtype, dev) for k in cfg.epilogue
+    )
+    return {"periods": periods, "epilogue": epilogue}
+
+
+def _graft(paged_cache, prefill_cache, flat_idx, take):
+    """Copies ``take(prefill leaf)`` (*lead, N, NKV, HD) into the flattened
+    pools at ``flat_idx`` (N,), in place, for every k/v leaf."""
+    for group in ("periods", "epilogue"):
+        for pc, pf in zip(paged_cache[group], prefill_cache[group]):
+            for pool, pre in ((pc["kp"], pf["k"]), (pc["vp"], pf["v"])):
+                lead = pool.shape[:-4]
+                P, page, nkv, hd = pool.shape[-4:]
+                flat = pool.view(*lead, P * page, nkv, hd)
+                flat.index_copy_(len(lead), flat_idx, take(pre, lead))
+    return paged_cache
+
+
+def graft_prefill(cfg, paged_cache, prefill_cache, row: int, page_table, page_size: int):
+    """Copy one prefilled row's KV state into its slot's pages, in place.
+
+    ``prefill_cache`` comes from :func:`prefill_ragged` over a cache of
+    exactly the prompt width ``W`` (no ring wrap, so dense index ==
+    absolute position).  All ``W`` positions scatter through
+    ``page_table`` (NB,): positions past the row's reservation land in the
+    trash page, pad positions are overwritten by decode before the mask
+    exposes them.  Returns ``paged_cache``.
+    """
+    idx = torch.arange(prefill_cache_width(prefill_cache), device=page_table.device)
+    flat_idx = page_table.long()[idx // page_size] * page_size + idx % page_size
+    return _graft(paged_cache, prefill_cache, flat_idx,
+                  lambda pre, lead: pre.select(len(lead), row))
+
+
+def graft_prefill_batch(cfg, paged_cache, prefill_cache, page_tables, page_size: int):
+    """Copy every prefilled row's KV state into its slot's pages at once.
+
+    ``page_tables`` is (B, NB), one table per prefill row; all ``B * W``
+    positions scatter in one ``index_copy_`` per leaf.  Padded ladder rows
+    carry an all-trash table: their writes collapse into the trash page
+    (overlapping writes there are harmless).  Returns ``paged_cache``.
+    """
+    idx = torch.arange(prefill_cache_width(prefill_cache), device=page_tables.device)
+    flat_idx = (page_tables.long()[:, idx // page_size] * page_size
+                + idx % page_size).reshape(-1)  # (B*W,)
+    return _graft(paged_cache, prefill_cache, flat_idx,
+                  lambda pre, lead: pre.reshape(*lead, -1, *pre.shape[-2:]))
+
+
+def prefill_cache_width(prefill_cache) -> int:
+    """Sequence width of a dense prefill cache (its ring length)."""
+    for group in (prefill_cache["periods"], prefill_cache["epilogue"]):
+        for layer in group:
+            if "k" in layer:
+                return layer["k"].shape[-3]
+    raise ValueError("prefill cache has no attention layers")
+
+
+def paged_decode_step(cfg, params, paged_cache, page_tables, token, pos, page_size: int):
+    """One decode step over the shared page pool.
+
+    token/pos: (B,) per-row tokens and int32 positions (rows need not be in
+    lockstep); ``page_tables``: (B, NB) int32.  Inactive rows should carry
+    pos=0 and an all-trash table.  Returns (logits (B, V) f32, paged_cache)
+    with the pool updated in place.
+    """
+    x = forward_hidden(
+        cfg, params, {"tokens": token[:, None]}, cache=paged_cache, decode=True,
+        positions=pos[:, None], page_tables=page_tables, page_size=page_size,
+    )
+    return _unembed(cfg, params, x)[:, 0], paged_cache

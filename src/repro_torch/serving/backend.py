@@ -18,8 +18,9 @@ Both tiers share the continuous-batching cost model through
 kernels' build and load, Triton's JIT, the allocator's first blocks) are
 never charged to requests or folded into live latency profiles.
 
-The continuous-batching tier (``ContinuousBatchingBackend``) is not ported
-yet.
+:class:`ContinuousBatchingBackend` is the continuous-batching remote tier:
+fixed-shape prefill/graft/decode entry points over a block-paged KV pool,
+requests joining the persistent decode batch at step boundaries.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ import contextlib
 import dataclasses
 import threading
 import time
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Set, Tuple
 
 import numpy as np
 import torch
@@ -36,11 +37,13 @@ from repro_torch.configs.mdinference_zoo import (
     ONDEVICE_HEDGE,
     SERVING_GEOMETRY,
     HedgeVariantSpec,
+    ServingGeometry,
 )
 from repro_torch.core.registry import ModelProfile
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
+from repro_torch.serving.block_cache import BlockPagedSlotCache, NoFreeSlot
 
 __all__ = [
     "Variant",
@@ -48,6 +51,7 @@ __all__ = [
     "ExecutionBackend",
     "JitBackend",
     "OnDeviceBackend",
+    "ContinuousBatchingBackend",
     "build_hedge_variant",
 ]
 
@@ -457,3 +461,463 @@ class OnDeviceBackend(JitBackend):
         return super().measure_profile(
             self.hedge_name if name is None else name, *args, **kwargs
         )
+
+
+# ---------------------------------------------------------------------------
+# Continuous batching.
+# ---------------------------------------------------------------------------
+class _ContinuousBatchHandle(BatchHandle):
+    """Handle over rows living inside the persistent decode batch.
+
+    Rows complete *individually* — each occupies a slot of the continuous
+    batch until it emits ``n_steps`` tokens (or is released early via
+    :meth:`release_rows`: hedge win / cancel).  :meth:`poll` is passive;
+    :meth:`wait` pumps the backend's decode loop until every row is done.
+
+    ``ttft_wall_ms[i]`` is row *i*'s time-to-first-token: prefill + graft
+    latency from submit, stamped the moment its first token exists — the
+    quantity continuous batching exists to shrink (a joining request no
+    longer waits for the in-flight batch to finish).
+    """
+
+    def __init__(self, backend, name: str, n_rows: int, n_steps: int):
+        super().__init__(name, n_rows)
+        self._backend = backend
+        self.n_steps = n_steps
+        self.row_slots: list = [None] * n_rows  # slot index while in-flight
+        self.emitted: list = [[] for _ in range(n_rows)]
+        self.done_rows = [False] * n_rows
+        self.released_rows: Dict[int, str] = {}  # row -> release reason
+        self.ttft_wall_ms: list = [None] * n_rows
+        self._wall_ms: Optional[float] = None
+        # Streaming channel: called as on_token(row, token, wall_ms) the
+        # moment a token is appended to ``emitted`` — same wall stamp as
+        # the TTFT accounting, so chunk timestamps and ttft_ms agree.
+        self.on_token = None
+
+    @property
+    def all_done(self) -> bool:
+        return all(self.done_rows)
+
+    def poll(self) -> bool:
+        return self.all_done
+
+    def result(self) -> np.ndarray:
+        out = np.zeros((self.n_rows, self.n_steps), dtype=np.int32)
+        for i, toks in enumerate(self.emitted):
+            if toks:
+                out[i, : len(toks)] = toks[: self.n_steps]
+        return out
+
+    def wait(self, timeout=None):
+        deadline = None if timeout is None else time.perf_counter() + timeout
+        while not self.all_done:
+            if deadline is not None and time.perf_counter() > deadline:
+                raise TimeoutError(
+                    f"continuous batch on {self.name!r} unfinished "
+                    f"after {timeout}s"
+                )
+            if not self._backend.pump(self.name):
+                raise RuntimeError(
+                    f"continuous batch on {self.name!r} stalled: "
+                    "no active slots but rows incomplete"
+                )
+        assert self._wall_ms is not None
+        return self.result(), self._wall_ms
+
+    def release_rows(self, rows, reason: str) -> None:
+        """Free the slots of still-running rows early (hedge win / cancel).
+
+        The freed pages return to the pool immediately — the next join
+        reuses them.  Released rows keep whatever tokens they emitted."""
+        self._backend._release_handle_rows(self, rows, reason)
+
+
+@dataclasses.dataclass
+class _SlotRuntime:
+    """Host-side state of one occupied decode slot."""
+
+    handle: _ContinuousBatchHandle
+    row: int  # row index within the handle
+    tok: int  # last emitted token (next decode input)
+    pos: int  # its absolute position (== tokens fed so far)
+
+
+class _ContinuousEngine:
+    """Per-variant fixed-shape entry points, the page pool and slot bookkeeping.
+
+    The entry points run eagerly (no compiler); ``signatures`` records each
+    distinct (entry point, input shapes) pair that has run — the port's
+    analogue of the JAX engine's jit-cache entries.  After warmup it holds
+    one prefill and one graft per ladder rung and the one decode shape.
+    """
+
+    def __init__(self, variant: Variant, geometry: ServingGeometry, device):
+        cfg = variant.cfg
+        if not T.supports_paged_decode(cfg):
+            raise ValueError(
+                f"variant {variant.name!r} cannot run on the continuous "
+                "tier (needs a causal attention-only stack without kv "
+                "quantization)"
+            )
+        self.variant = variant
+        self.geometry = geometry
+        self.device = device
+        g = geometry
+        self.cache_mgr = BlockPagedSlotCache(
+            g.n_slots, g.total_pages, g.page_size, g.pages_per_slot
+        )
+        self.pool = T.init_paged_cache(cfg, g.total_pages, g.page_size, device=device)
+        self.slot_rt: Dict[int, _SlotRuntime] = {}
+        self.warmed = False
+        self.signatures: Set[tuple] = set()
+
+    def _to_device(self, *arrays: np.ndarray):
+        """The int32 host arrays as device tensors, in one transfer."""
+        flat = np.concatenate([np.asarray(a, np.int32).ravel() for a in arrays])
+        dev = torch.from_numpy(flat).to(self.device)
+        out, at = [], 0
+        for a in arrays:
+            n = int(np.size(a))
+            out.append(dev[at:at + n].view(np.shape(a)))
+            at += n
+        return out
+
+    def prefill(self, tokens: np.ndarray, lengths: np.ndarray):
+        """(N, prompt_width) right-padded tokens -> (dense cache, first
+        greedy tokens (N,) int32 on the host)."""
+        self.signatures.add(("prefill", tokens.shape, lengths.shape))
+        toks, lens = self._to_device(tokens, lengths)
+        with torch.inference_mode():
+            cache, logits = T.prefill_ragged(
+                self.variant.cfg, self.variant.params, {"tokens": toks}, lens,
+                max_len=self.geometry.prompt_width,
+            )
+            return cache, logits.argmax(-1).to(torch.int32).cpu().numpy()
+
+    def graft(self, prefill_cache, tables: np.ndarray) -> None:
+        """All rows of a prefill chunk into their pages (padded rows through
+        all-trash tables), one ``index_copy_`` per leaf, in place."""
+        self.signatures.add(("graft", T.prefill_cache_width(prefill_cache), tables.shape))
+        (tbl,) = self._to_device(tables)
+        with torch.inference_mode():
+            T.graft_prefill_batch(self.variant.cfg, self.pool, prefill_cache, tbl,
+                                  self.geometry.page_size)
+
+    def decode(self, tables: np.ndarray, token: np.ndarray, pos: np.ndarray) -> np.ndarray:
+        """One step of the persistent (n_slots)-row batch: the page tables,
+        tokens and positions go to the device in one transfer; returns the
+        next greedy tokens (n_slots,) int32 on the host."""
+        self.signatures.add(("decode", tables.shape, token.shape, pos.shape))
+        tbl, tok, ps = self._to_device(tables, token, pos)
+        with torch.inference_mode():
+            logits, _ = T.paged_decode_step(
+                self.variant.cfg, self.variant.params, self.pool, tbl, tok, ps,
+                self.geometry.page_size,
+            )
+            return logits.argmax(-1).to(torch.int32).cpu().numpy()
+
+    @property
+    def compile_count(self) -> int:
+        return len(self.signatures)
+
+
+class ContinuousBatchingBackend(ExecutionBackend):
+    """Cross-tick continuous batching behind fixed-shape entry points.
+
+    The phase split: **prefill** runs out-of-band at submit time at one of
+    the per-batch-size shapes (``bs_ladder`` powers of two, partial chunks
+    padded with masked rows), the resulting KV state is **grafted** into a
+    free slot of the block-paged pool, and the request then rides the
+    single persistent fixed-shape **decode** step — joining the in-flight
+    batch at the next step boundary instead of waiting for it to finish.
+    Slots recycle the moment a row resolves (``n_steps`` reached, hedge
+    win, cancel), so the decode batch composition changes every step while
+    its *shape* never does: after :meth:`warmup`, :attr:`compile_count`
+    (distinct entry-point shapes run) never grows.
+
+    The pools live on ``device`` (``"cuda"`` unless asked) and are updated
+    in place; the decode attention runs through the hand-written paged
+    kernel there.
+
+    Dispatch modes: ``submit_batch(sync=True)`` drives the engine inline to
+    completion; ``sync=False`` is **stepped** — prefill + graft happen at
+    submit (stamping per-row TTFT), decode advances one step per
+    :meth:`pump` call.  No worker threads: deterministic under CI, and the
+    serving loop's ``poll()`` becomes the step clock.
+    """
+
+    # The serving loop skips its power-of-two row padding: submissions are
+    # decomposed onto the bs ladder here, so loop-side padding would just
+    # burn decode slots on phantom rows.
+    pads_internally = True
+    # Token-by-token decode: the loop may pass submit_batch an on_token
+    # callback, fired per emitted token before the row resolves.
+    supports_streaming = True
+
+    def __init__(self, geometry: ServingGeometry = SERVING_GEOMETRY, device="cuda"):
+        super().__init__()
+        self.geometry = geometry
+        self.device = resolve_device(device)
+        self._engines: Dict[str, _ContinuousEngine] = {}
+
+    # -- registration / warmup ------------------------------------------------
+    def register(self, v: Variant) -> None:
+        self.variants[v.name] = v
+        self._engines[v.name] = _ContinuousEngine(v, self.geometry, self.device)
+        if self._obs is not None:
+            self._engines[v.name].cache_mgr.attach_observability(
+                self._obs, variant=v.name
+            )
+
+    def attach_observability(self, obs, track: Optional[str] = None) -> None:
+        super().attach_observability(obs, track)
+        # The slot ledger emits graft/free counters and free-capacity
+        # gauges; engines registered later attach in register().
+        for nm, eng in self._engines.items():
+            eng.cache_mgr.attach_observability(obs, variant=nm)
+
+    def warmup(self, name: Optional[str] = None) -> None:
+        """Run every fixed-shape entry point once (idempotent).
+
+        One prefill + graft per ladder batch size, one decode step.  After
+        this, :attr:`compile_count` must never grow — the regression gate
+        the tests assert."""
+        names = [name] if name is not None else list(self._engines)
+        for nm in names:
+            eng = self._engines[nm]
+            if eng.warmed:
+                continue
+            g = self.geometry
+            for N in g.bs_ladder:
+                toks = np.zeros((N, g.prompt_width), np.int32)
+                lens = np.full((N,), g.prompt_width, np.int32)
+                pcache, _ = eng.prefill(toks, lens)
+                # Graft through all-trash tables: every write lands in the
+                # reserved trash page, so live slots are untouched.
+                eng.graft(pcache, np.zeros((N, g.pages_per_slot), np.int32))
+            zeros = np.zeros((g.n_slots,), np.int32)
+            eng.decode(np.zeros((g.n_slots, g.pages_per_slot), np.int32), zeros, zeros)
+            eng.warmed = True
+
+    @property
+    def compile_count(self) -> int:
+        """Distinct (entry point, input shapes) signatures run, over every
+        engine.  Constant after :meth:`warmup` — the 'zero post-warmup
+        recompiles' counter the tests and the chip smoke assert on."""
+        return sum(e.compile_count for e in self._engines.values())
+
+    @property
+    def joined_total(self) -> int:
+        """Requests grafted into the continuous batch (lifetime)."""
+        return sum(e.cache_mgr.grafted_total for e in self._engines.values())
+
+    @property
+    def recycled_total(self) -> int:
+        """Slots freed back to the pool (lifetime, all release reasons)."""
+        return sum(e.cache_mgr.freed_total for e in self._engines.values())
+
+    def slot_stats(self, name: str) -> Dict[str, int]:
+        return self._engines[name].cache_mgr.stats()
+
+    def check_conservation(self) -> None:
+        for eng in self._engines.values():
+            eng.cache_mgr.check_conservation()
+
+    # -- submission -----------------------------------------------------------
+    def _ladder_chunks(self, n: int):
+        """Decompose ``n`` rows into ladder batch sizes (largest-first).
+
+        Remainders below the smallest rung are padded up to it with masked
+        rows — never a new shape."""
+        ladder = self.geometry.bs_ladder
+        out = []
+        left = n
+        while left > 0:
+            fit = [N for N in ladder if N <= left]
+            N = max(fit) if fit else ladder[0]
+            out.append((N, min(N, left)))  # (padded size, real rows)
+            left -= min(N, left)
+        return out
+
+    def _acquire_slot(self, eng: _ContinuousEngine, prompt_len: int,
+                      n_steps: int):
+        """Claim a slot + pages, pumping the decode loop until one frees."""
+        while True:
+            try:
+                return eng.cache_mgr.begin_prefill(prompt_len, n_steps)
+            except NoFreeSlot:
+                if not eng.slot_rt:
+                    raise  # nothing in flight can ever free capacity
+                self._pump_engine(eng)
+
+    def submit_batch(
+        self, name, batch, n_steps, *, sync: bool = False, on_token=None
+    ):
+        """Join ``batch`` rows into the continuous decode batch.
+
+        ``sync=True`` runs the engine inline until every row completes.
+        ``sync=False`` ('stepped'): prefill + graft happen now — TTFT is
+        paid immediately, not at batch end — and decode advances via
+        :meth:`pump` (the serving loop's ``poll()`` drives it).
+
+        ``on_token(row, token, wall_ms)`` fires per emitted token — the
+        first token at graft (the same wall stamp as ``ttft_wall_ms``),
+        every later token from the decode pump — always *before* the row
+        completes, under both dispatch modes."""
+        g = self.geometry
+        eng = self._engines[name]
+        batch = np.asarray(batch, dtype=np.int32)
+        B, S = batch.shape
+        if S > g.prompt_width:
+            raise ValueError(
+                f"prompt width {S} exceeds ServingGeometry.prompt_width "
+                f"({g.prompt_width})"
+            )
+        n_steps = int(n_steps)
+        if n_steps > g.max_steps:
+            raise ValueError(
+                f"n_steps {n_steps} exceeds ServingGeometry.max_steps "
+                f"({g.max_steps})"
+            )
+        self.warmup(name)
+        self._note_dispatch(B)
+        handle = _ContinuousBatchHandle(self, name, B, max(n_steps, 0))
+        handle.on_token = on_token
+        if n_steps <= 0:
+            for i in range(B):
+                handle.done_rows[i] = True
+            self._finalize_handle(handle)
+            return handle
+
+        wide = np.zeros((B, g.prompt_width), dtype=np.int32)
+        wide[:, :S] = batch
+        row0 = 0
+        for N, n_real in self._ladder_chunks(B):
+            chunk = np.zeros((N, g.prompt_width), dtype=np.int32)
+            chunk[:n_real] = wide[row0 : row0 + n_real]
+            lengths = np.full((N,), S, dtype=np.int32)
+            slots = [
+                self._acquire_slot(eng, S, n_steps) for _ in range(n_real)
+            ]
+            pcache, first = eng.prefill(chunk, lengths)
+            # One batched graft for the whole chunk: real rows through
+            # their slots' tables, padded rows through all-trash tables.
+            tables = np.zeros((N, g.pages_per_slot), dtype=np.int32)
+            for r, slot in enumerate(slots):
+                tables[r] = eng.cache_mgr.page_table(slot.index)
+            eng.graft(pcache, tables)
+            for r, slot in enumerate(slots):
+                row = row0 + r
+                eng.cache_mgr.commit_graft(slot.index)
+                tok = int(first[r])
+                # One wall stamp for both the TTFT accounting and the
+                # streamed chunk: first_chunk.wall_ms - dispatch == ttft.
+                now_wall = time.perf_counter() * 1e3
+                handle.emitted[row].append(tok)
+                handle.ttft_wall_ms[row] = now_wall - handle.dispatch_wall_ms
+                if self._obs is not None:
+                    self._obs.histogram(
+                        "continuous_ttft_ms", variant=name
+                    ).record(handle.ttft_wall_ms[row])
+                    self._obs.tracer.instant(
+                        "graft",
+                        parent=self._obs.tracer.ambient_id(),
+                        cat="continuous",
+                        track=self._obs_track,
+                        t_ms=now_wall,
+                        variant=name,
+                        slot=slot.index,
+                    )
+                if handle.on_token is not None:
+                    handle.on_token(row, tok, now_wall)
+                eng.slot_rt[slot.index] = _SlotRuntime(handle, row, tok, S)
+                if n_steps == 1:
+                    self._retire_slot(eng, slot.index, "resolved")
+                else:
+                    handle.row_slots[row] = slot.index
+            row0 += n_real
+        if sync:
+            handle.wait()
+        return handle
+
+    # -- the decode loop ------------------------------------------------------
+    def pump(self, name: Optional[str] = None) -> bool:
+        """Advance the persistent decode batch one step boundary.
+
+        Returns True if any engine had active slots to step.  This is the
+        continuous tier's clock: the serving loop calls it from ``poll()``,
+        and :meth:`_ContinuousBatchHandle.wait` spins it."""
+        engines = (
+            [self._engines[name]] if name is not None
+            else list(self._engines.values())
+        )
+        advanced = False
+        for eng in engines:
+            advanced |= self._pump_engine(eng)
+        return advanced
+
+    def _pump_engine(self, eng: _ContinuousEngine) -> bool:
+        if not eng.slot_rt:
+            return False
+        g = self.geometry
+        token = np.zeros((g.n_slots,), dtype=np.int32)
+        pos = np.zeros((g.n_slots,), dtype=np.int32)
+        for s, rt in eng.slot_rt.items():
+            token[s] = rt.tok
+            pos[s] = rt.pos
+        next_tok = eng.decode(eng.cache_mgr.page_tables(), token, pos)
+        now_wall = time.perf_counter() * 1e3
+        for s in list(eng.slot_rt):
+            rt = eng.slot_rt[s]
+            rt.tok = int(next_tok[s])
+            rt.pos += 1
+            rt.handle.emitted[rt.row].append(rt.tok)
+            if rt.handle.on_token is not None:
+                rt.handle.on_token(rt.row, rt.tok, now_wall)
+            if len(rt.handle.emitted[rt.row]) >= rt.handle.n_steps:
+                self._retire_slot(eng, s, "resolved")
+        return True
+
+    # -- retirement / early release -------------------------------------------
+    def _retire_slot(self, eng: _ContinuousEngine, slot: int,
+                     reason: str) -> None:
+        rt = eng.slot_rt.pop(slot)
+        eng.cache_mgr.release(slot, reason)
+        rt.handle.row_slots[rt.row] = None
+        rt.handle.done_rows[rt.row] = True
+        if rt.handle.all_done:
+            self._finalize_handle(rt.handle)
+
+    def _release_handle_rows(self, handle: _ContinuousBatchHandle, rows,
+                             reason: str) -> None:
+        eng = self._engines[handle.name]
+        for row in rows:
+            if handle.done_rows[row]:
+                continue
+            slot = handle.row_slots[row]
+            handle.released_rows[row] = reason
+            if slot is not None:
+                self._retire_slot(eng, slot, reason)
+            else:
+                handle.done_rows[row] = True
+                if handle.all_done:
+                    self._finalize_handle(handle)
+
+    def _finalize_handle(self, handle: _ContinuousBatchHandle) -> None:
+        if handle._wall_ms is not None:
+            return
+        handle.done_wall_ms = time.perf_counter() * 1e3
+        handle._wall_ms = handle.done_wall_ms - handle.dispatch_wall_ms
+        self._note_done(handle.n_rows, handle._wall_ms)
+
+    # -- ExecutionBackend protocol --------------------------------------------
+    def generate(self, name, tokens, n_steps):
+        handle = self.submit_batch(name, tokens, n_steps, sync=True)
+        return handle.result(), handle._wall_ms
+
+    def run_batch(self, name, batch, n_steps):
+        # Fixed-shape entries make the base per-(shape, n_steps) warm-once
+        # bookkeeping unnecessary: one warmup covers every request shape.
+        self.warmup(name)
+        return self.generate(name, batch, n_steps)

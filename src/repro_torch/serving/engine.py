@@ -27,9 +27,16 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.configs.mdinference_zoo import SERVING_GEOMETRY
 from repro_torch.core.registry import ModelRegistry
 from repro_torch.core.sla import RequestMetrics
-from repro_torch.serving.backend import ExecutionBackend, JitBackend, OnDeviceBackend, Variant
+from repro_torch.serving.backend import (
+    ContinuousBatchingBackend,
+    ExecutionBackend,
+    JitBackend,
+    OnDeviceBackend,
+    Variant,
+)
 from repro_torch.serving.lifecycle import CompletedRequest, QueuedRequest
 
 __all__ = ["Variant", "ServingEngine", "QueuedRequest", "CompletedRequest"]
@@ -50,17 +57,21 @@ class ServingEngine:
         # serialized reference behavior legacy callers measured against;
         # the new API (ServingLoop) defaults to async dispatch.
         # ``continuous=True`` swaps the remote tier for the
-        # continuous-batching backend (fixed-shape compiled entries,
+        # continuous-batching backend (fixed-shape entry points,
         # block-paged slot cache) and defaults dispatch to "stepped";
         # ``geometry`` (a ServingGeometry) then sizes its ladder and pool.
-        # ``device`` places the default remote tier (CUDA unless asked).
+        # ``device`` places the default remote tier, dense or continuous
+        # (CUDA unless asked).
         if backend is None:
             if continuous:
-                raise NotImplementedError(
-                    "the continuous-batching tier is not ported to "
-                    "repro_torch yet (see ROADMAP.md)"
+                backend = ContinuousBatchingBackend(
+                    SERVING_GEOMETRY if geometry is None else geometry,
+                    device=device,
                 )
-            backend = JitBackend(max_len, device=device)
+                if dispatch == "sync":
+                    dispatch = "stepped"
+            else:
+                backend = JitBackend(max_len, device=device)
         self.backend = backend
         self.hedge_backend = hedge_backend
         self.dispatch = dispatch

@@ -16,6 +16,10 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.decode_attention import decode_attention_fwd as pallas_decode  # noqa: E402
+from repro.kernels.decode_attention import (  # noqa: E402
+    decode_attention_paged_fwd as pallas_paged,
+)
+from repro.models.attention import paged_decode_attention as j_paged_model  # noqa: E402
 from repro.kernels.flash_attention import flash_attention_fwd as pallas_flash  # noqa: E402
 from repro.kernels.rmsnorm import rms_norm_fwd as pallas_rmsnorm  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
@@ -26,6 +30,7 @@ ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
 jref_rms_norm = jax.jit(jref.rms_norm_ref, static_argnames=("eps", "offset"))
 jref_flash = jax.jit(jref.flash_attention_ref, static_argnames=("causal", "window", "scale"))
 jref_decode = jax.jit(jref.decode_attention_ref, static_argnames=("window", "scale"))
+jref_paged = jax.jit(jref.decode_attention_paged_ref, static_argnames=("window", "scale"))
 
 
 def _pair(rng, shape, dtype):
@@ -146,6 +151,83 @@ def test_decode_plain_empty_slots(pos_value):
     assert torch.isfinite(out).all()
 
 
+def _paged_case(rng, B, dtype, NKV=2, G=2, D=32, page=8, NB=3):
+    """One pool + per-row page tables as in tests/test_kernels.py (page 0 is
+    the trash page): jnp arrays and torch tensors of the same values."""
+    P = 1 + B * NB
+    qj, qt = _pair(rng, (B, NKV, G, D), dtype)
+    kj, kt = _pair(rng, (P, NKV, page, D), dtype)
+    vj, vt = _pair(rng, (P, NKV, page, D), dtype)
+    tables = (1 + np.arange(B * NB, dtype=np.int32)).reshape(B, NB)
+    pos = ((3 + 5 * np.arange(B)) % (NB * page)).astype(np.int32)
+    return (qj, kj, vj), (qt, kt, vt), tables, pos
+
+
+def _paged_check(jax_in, torch_in, tables, pos, dtype, window=0):
+    """The port's paged plain version against the JAX oracle and the Pallas
+    kernel in interpret mode; returns the port's output."""
+    out = ops.decode_attention_paged(*torch_in, torch.from_numpy(tables),
+                                     torch.from_numpy(pos), window=window)
+    assert out.shape == torch_in[0].shape and out.dtype == torch_in[0].dtype
+    tj, pj = jnp.asarray(tables), jnp.asarray(pos)
+    _close(out, jref_paged(*jax_in, tj, pj, window=window), dtype)
+    _close(out, pallas_paged(*jax_in, tj, pj, window=window, interpret=True), dtype)
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B", [1, 2, 4, 8])
+def test_paged_plain_every_ladder_size(B, dtype):
+    _paged_check(*_paged_case(np.random.default_rng(B), B, dtype), dtype)
+
+
+@pytest.mark.parametrize("window", [0, 8])
+def test_paged_plain_windowed(window):
+    _paged_check(*_paged_case(np.random.default_rng(17), 4, "float32"), "float32",
+                 window=window)
+
+
+@pytest.mark.parametrize("n_real", [1, 3, 5, 7])
+def test_paged_plain_masked_rows_inert(n_real):
+    """Inactive rows (pos 0, all-trash tables) of a padded 8-row batch do
+    not perturb the real rows (bitwise) and are not NaN."""
+    jax_in, torch_in, tables, pos = _paged_case(np.random.default_rng(n_real), 8, "float32")
+    tables[n_real:] = 0
+    pos[n_real:] = 0
+    padded = _paged_check(jax_in, torch_in, tables, pos, "float32")
+    assert not torch.isnan(padded).any()
+    alone = ops.decode_attention_paged(torch_in[0][:n_real], *torch_in[1:],
+                                       torch.from_numpy(tables[:n_real]),
+                                       torch.from_numpy(pos[:n_real]))
+    assert torch.equal(padded[:n_real], alone)
+
+
+def test_paged_model_layout_matches_jax():
+    """The model-layout entry point over (P, page, NKV, HD) pools, G = 5."""
+    from repro_torch.models.attention import paged_decode_attention
+
+    rng = np.random.default_rng(23)
+    B, NKV, G, D, page, NB = 3, 2, 5, 16, 8, 4
+    P = 1 + B * NB
+    qj, qt = _pair(rng, (B, 1, NKV * G, D), "float32")
+    kj, kt = _pair(rng, (P, page, NKV, D), "float32")
+    vj, vt = _pair(rng, (P, page, NKV, D), "float32")
+    tables = rng.permutation(np.arange(1, P, dtype=np.int32)).reshape(B, NB)
+    pos = np.array([31, 0, 17], np.int32)
+    out = paged_decode_attention(qt, kt, vt, torch.from_numpy(tables), torch.from_numpy(pos))
+    want = jax.jit(j_paged_model)(qj, kj, vj, jnp.asarray(tables), jnp.asarray(pos))
+    _close(out, want, "float32")
+
+
+def test_paged_wrapper_refuses_cpu_tensors():
+    from repro_torch.kernels.decode_attention import decode_attention_paged_fwd
+
+    x = torch.randn(1, 2, 8, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        decode_attention_paged_fwd(x, x, x, torch.zeros(1, 2, dtype=torch.int32),
+                                   torch.zeros(1, dtype=torch.int32))
+
+
 def test_cpu_dispatch_never_launches_a_kernel():
     ops.reset_launch_counts()
     x = torch.randn(2, 3, 16)
@@ -255,3 +337,30 @@ def test_decode_kernel_matches_plain(sm90, case, dtype):
     slot, pos = (torch.from_numpy(a).to(sm90) for a in _ring_slots(B, S))
     _gpu_close(decode_attention_fwd(q, kc, vc, slot, pos, window=window),
                ref.decode_attention_ref(q, kc, vc, slot, pos, window=window), dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B", [1, 2, 4, 8])
+def test_paged_kernel_matches_plain(sm90, B, dtype):
+    """Kernel-layout pools and the model's transposed (P, page, NKV, D)
+    views; ladder sizes, a window, and G = 5 at D = 128."""
+    from repro_torch.kernels.decode_attention import decode_attention_paged_fwd
+
+    dt = getattr(torch, dtype)
+    for NKV, G, D, window, model_layout in ((2, 2, 32, 0, False), (2, 2, 32, 8, True),
+                                            (8, 5, 128, 0, True)):
+        NB, page = 3, 8
+        P = 1 + B * NB
+        q = torch.randn(B, NKV, G, D, device=sm90).to(dt)
+        if model_layout:
+            kp = torch.randn(P, page, NKV, D, device=sm90).to(dt).transpose(1, 2)
+            vp = torch.randn(P, page, NKV, D, device=sm90).to(dt).transpose(1, 2)
+        else:
+            kp = torch.randn(P, NKV, page, D, device=sm90).to(dt)
+            vp = torch.randn(P, NKV, page, D, device=sm90).to(dt)
+        tables = torch.randperm(P - 1, device=sm90).add(1).to(torch.int32)[:B * NB]
+        tables = tables.reshape(B, NB)
+        pos = ((3 + 5 * torch.arange(B, device=sm90)) % (NB * page)).to(torch.int32)
+        _gpu_close(decode_attention_paged_fwd(q, kp, vp, tables, pos, window=window),
+                   ref.decode_attention_paged_ref(q, kp, vp, tables, pos, window=window), dt)
