@@ -19,12 +19,19 @@ Phases (each passes or raises; any failure exits non-zero with no result):
    the bound, plus the kernel's eager time with its launch cost.
    The paged decode kernel runs the sweep of tests/test_kernels.py (every
    ladder size, windows, masked rows bitwise inert, D 16..256, G=5) and a
-   full-width row at the continuous serve phase's pool geometry.
+   full-width row at the continuous serve phase's pool geometry.  The
+   flash backward kernel runs the tests/test_kernels.py cases plus D 128 /
+   256, G 5 / 8, ragged S, windowed and bidirectional, in f32 and bf16 (the
+   forward kernel's LSE is checked in both dtypes too), and a full-width
+   row at the train phase's gemma-2b shape, whose library time is the
+   backward of ``F.scaled_dot_product_attention`` alone.
 4. model: the three reduced serving tiers and the hedge variant, prefill
    plus 16 greedy decode steps in f32, on the card through the kernels and
    on the CPU through the plain versions: logits allclose, tokens equal;
    then the same on the paged path (``prefill_ragged`` + graft + 16
-   ``paged_decode_step``s, rows at different positions).
+   ``paged_decode_step``s, rows at different positions); then, for the
+   three tiers, ``loss_fn`` and every parameter gradient (remat on), card
+   against CPU: a gradient cut on the card would show here.
 5. serve: a ``ServingEngine`` whose ``JitBackend`` hosts tier-s, tier-m
    (reduced as served) and tier-l at the full qwen3-14b configuration
    (bf16, seeded weights on the card), plus the zoo's measured hedge; then
@@ -44,18 +51,30 @@ Phases (each passes or raises; any failure exits non-zero with no result):
    ``generate`` at batch 1 and 4 on the dense and on the continuous
    backend — device busy share, device time by kernel family, port-kernel
    launches per generate.
+8. train: once the serve phases have released their weights, full-width
+   gemma-2b (all 18 layers, bf16, remat, tied 256k vocab; seeded weights)
+   trains for 12 steps of ``make_train_step`` (the code path of
+   ``python -m repro_torch.launch.train``) on batch 2 x 2048 tokens of
+   ``SyntheticTokens`` seed 0.  Prints loss, grad norm and ms per step,
+   tokens/s, model FLOPs utilisation against 989 TFLOP/s, peak device
+   memory and kernel launches per step.  Checks finite losses, the mean of
+   the last 3 below the first, a finite non-zero gradient for every leaf
+   at step 0, and 2 forward / 1 backward flash launches per layer and
+   step.  With ``--profile``, one more step under ``torch.profiler``.
 
-Every run measures every column of the kernels line: each serve phase
-sets the launch counters to 0 just before it and reads them just after,
-and a kernel's ``launches`` is the sum over the two serve phases of the
-same run.  The last lines are the card line, one ``{"kernels": [...]}``
-JSON line and the ``{"ok": true, "device": ...}`` JSON line.
+Every run measures every column of the kernels line: each serve phase and
+the train phase set the launch counters to 0 just before they start and
+read them just after, and a kernel's ``launches`` is the sum over those
+three phases of the same run.  The last lines are the card line, one
+``{"kernels": [...]}`` JSON line and the ``{"ok": true, "device": ...}``
+JSON line.
 ``--tier-l-layers`` cuts tier-l's depth (never its width) if a time limit
 forces it.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import statistics
 import subprocess
@@ -79,12 +98,18 @@ SLA_MS = 2000.0
 # The continuous serve phase's geometry (its pool: 1 + 8 * 18 = 145 pages).
 PAGE = 8
 N_SLOTS = 8
+# The train phase: full-width gemma-2b, batch x sequence, steps.
+TRAIN_ARCH = "gemma-2b"
+TRAIN_BATCH = 2
+TRAIN_SEQ = 2048
+TRAIN_STEPS = 12
 
 
 # The kernels each serve phase's path must launch (the hedge tier's dense
 # decode may or may not run during the continuous phase).
 DENSE_PATH_KERNELS = ("rms_norm_fwd", "flash_attention_fwd", "decode_attention_fwd")
 PAGED_PATH_KERNELS = ("rms_norm_fwd", "flash_attention_fwd", "decode_attention_paged_fwd")
+TRAIN_PATH_KERNELS = ("rms_norm_fwd", "flash_attention_fwd", "flash_attention_bwd")
 
 
 def fail(msg: str) -> None:
@@ -259,8 +284,8 @@ def phase_kernels(torch, full):
                                                      window=window, return_lse=True)
             tag = f"flash{(B, NQ, NKV, S, D)} causal={causal} window={window} {dtype}"
             _compare(torch, tag, out, want, dtype)
-            if dtype == f32:
-                _compare(torch, tag + " lse", lse, want_lse, f32)
+            # The LSE is f32 in both dtypes (the backward recomputes from it).
+            _compare(torch, tag + " lse", lse, want_lse, f32)
             n += 1
     # -- Decode sweep: (B, NKV, G, S, D, window); ring slots as in the tests.
     decode_cases = [
@@ -292,6 +317,7 @@ def phase_kernels(torch, full):
                  ref.decode_attention_ref(q, kc, vc, sp, pos), f32)
         n += 1
     n += _paged_sweep(torch, gen)
+    n += _bwd_sweep(torch, gen)
     print(f"[kernels] {n} kernel-vs-plain comparisons within tolerance", flush=True)
 
     entries = []
@@ -303,7 +329,9 @@ def phase_kernels(torch, full):
             entries = rows
     paged = _full_width_paged(torch, full, gen)
     _print_entry(paged)
-    return entries + [paged]
+    bwd = _full_width_bwd(torch, gen)
+    _print_entry(bwd)
+    return entries + [paged, bwd]
 
 
 def _print_entry(e):
@@ -371,6 +399,98 @@ def _paged_sweep(torch, gen) -> int:
                                                 pos[:n_real]), f32)
         n += 1
     return n
+
+
+def _bwd_sweep(torch, gen) -> int:
+    """The flash backward kernel against ``flash_attention_bwd_ref``, both
+    fed the forward kernel's output and LSE, on model-layout views: the
+    tests/test_kernels.py cases, then D 128 / 256, G 5 / 8 (MQA), ragged S,
+    windowed and bidirectional; f32 (the CUDA-core kernels), bf16 and f16
+    (the tensor-core kernels)."""
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import flash_attention_bwd as bk
+    from repro_torch.kernels import ref
+
+    cases = [
+        # (B, NQ, NKV, S, D, causal, window)
+        (1, 2, 2, 128, 32, True, 0), (1, 4, 2, 128, 32, True, 0), (1, 4, 1, 128, 32, True, 0),
+        (1, 2, 2, 128, 32, False, 0), (1, 2, 1, 128, 32, True, 48),
+        (1, 10, 2, 256, 128, True, 0), (2, 8, 1, 256, 256, True, 0),
+        (1, 8, 1, 200, 256, True, 0), (2, 10, 2, 130, 128, False, 40),
+        (1, 5, 1, 200, 64, True, 64), (2, 6, 2, 100, 16, True, 0), (1, 4, 4, 77, 256, False, 0),
+    ]
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for B, NQ, NKV, S, D, causal, window in cases:
+            q = _randn(torch, (B, S, NQ, D), dtype, gen).transpose(1, 2)
+            k = _randn(torch, (B, S, NKV, D), dtype, gen).transpose(1, 2)
+            v = _randn(torch, (B, S, NKV, D), dtype, gen).transpose(1, 2)
+            dout = _randn(torch, (B, S, NQ, D), dtype, gen).transpose(1, 2)
+            out, lse = fk.flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                              return_lse=True)
+            got = bk.flash_attention_bwd(q, k, v, out, dout, lse, causal=causal, window=window)
+            want = ref.flash_attention_bwd_ref(q, k, v, out, dout, lse, causal=causal,
+                                               window=window)
+            tag = f"flash bwd{(B, NQ, NKV, S, D)} causal={causal} window={window} {dtype}"
+            for part, g, w in zip(("dq", "dk", "dv"), got, want):
+                _compare(torch, f"{tag} {part}", g, w, dtype)
+            n += 1
+    return n
+
+
+def _full_width_bwd(torch, gen):
+    """The flash backward kernel at the train phase's gemma-2b shape: q
+    (2, 8, 2048, 256), one kv head, bf16, causal."""
+    from repro_torch.configs.archs import get_config
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import flash_attention_bwd as bk
+    from repro_torch.kernels import ref
+
+    cfg = get_config(TRAIN_ARCH)
+    bf16 = torch.bfloat16
+    B, S, NQ, NKV, D = TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = _randn(torch, (B, S, NQ, D), bf16, gen).transpose(1, 2)
+    k = _randn(torch, (B, S, NKV, D), bf16, gen).transpose(1, 2)
+    v = _randn(torch, (B, S, NKV, D), bf16, gen).transpose(1, 2)
+    dout = _randn(torch, (B, S, NQ, D), bf16, gen).transpose(1, 2)
+    out, lse = fk.flash_attention_fwd(q, k, v, return_lse=True)
+
+    def kernel():
+        return bk.flash_attention_bwd(q, k, v, out, dout, lse)
+
+    def plain():
+        return ref.flash_attention_bwd_ref(q, k, v, out, dout, lse)
+
+    err = max(_compare(torch, f"flash bwd full width {part}", g, w, bf16)
+              for part, g, w in zip(("dq", "dk", "dv"), kernel(), plain()))
+    # The library yardstick: the backward of SDPA alone (its forward runs
+    # once, outside the timing), through torch.autograd.grad.
+    qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+    o = _sdpa(torch, qq, kk, vv, is_causal=True)
+
+    def library():
+        return torch.autograd.grad(o, (qq, kk, vv), dout, retain_graph=True)
+
+    # q, k, v, out, dout and the f32 LSE read once; dq, dk, dv written once.
+    nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
+    # The function needs five S x S x D products over the causal (q, k)
+    # pairs: s = q.k^T, dp = dout.v^T, dv = p^T.dout, dq = ds.k, dk = ds^T.q.
+    # (This kernel's two-launch split recomputes s and dp, seven in all:
+    # that is its own cost, not the bound's.)
+    flops = 5 * 2 * D * B * NQ * (S * (S + 1) // 2)
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_BF16_FLOPS * 1e3
+    return dict(
+        name="flash_attention_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/flash_attention_bwd.py:161", max_abs_err=err,
+        shape=f"q {tuple(q.shape)} kv heads {NKV} bf16 causal (gemma-2b training)",
+        ms=time_ms(torch, kernel, launches=5),
+        eager_ms=time_ms(torch, kernel, launches=5, graph=False),
+        plain_ms=time_ms(torch, plain, launches=5),
+        library_ms=time_ms(torch, library, launches=5, graph=False),
+        library="SDPA backward (eager)",
+        bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+    )
 
 
 def _full_width_paged(torch, full, gen):
@@ -541,6 +661,53 @@ def phase_model(torch):
         print(f"[model] {name:6s} {cfg.name}: prefill + {steps} greedy steps, card vs CPU "
               f"logits max|err| {err:.3g} (atol 1e-3), tokens equal", flush=True)
         _model_paged(torch, name, cfg, cpu_params, gpu_params)
+        if name != "hedge":
+            _model_grads(torch, name, cfg, cpu_params)
+
+
+def _model_grads(torch, name, cfg, cpu_params):
+    """``loss_fn`` and every parameter gradient (remat on, labels < 0
+    ignored), card against CPU, in f32.  Tolerance: the loss to atol 1e-4;
+    each gradient leaf elementwise within 2e-3 of its own largest entry
+    plus rtol 1e-3 — the reduced tiers' stacked weights are drawn with
+    fan-in = period count, so activations grow through the stack and
+    amplify summation-order differences; a gradient cut at a norm or an
+    attention is off by the whole leaf.  Every leaf must be finite and
+    non-zero on the card."""
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import named_leaves, tree_map
+
+    B, S = 2, 64
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=torch.Generator().manual_seed(3))
+    labels = toks[:, 1:].clone()
+    labels[0, :5] = -1
+    runs = {}
+    for device in ("cuda", "cpu"):
+        params = tree_map(lambda p: p.detach().to(device, copy=True).requires_grad_(True),
+                          cpu_params)
+        named = list(named_leaves(params))
+        batch = {"tokens": toks[:, :-1].to(device), "labels": labels.to(device)}
+        loss, metrics = T.loss_fn(cfg, params, batch)
+        grads = torch.autograd.grad(loss, [leaf for _, leaf in named])
+        runs[device] = (float(loss.detach()), float(metrics["tokens"]),
+                        [(path, g.float().cpu()) for (path, _), g in zip(named, grads)])
+    (loss_c, tok_c, card), (loss_h, tok_h, host) = runs["cuda"], runs["cpu"]
+    check(tok_c == tok_h == B * S - 5, f"model {name} grads: {tok_c} / {tok_h} valid labels")
+    check(abs(loss_c - loss_h) <= 1e-4,
+          f"model {name} grads: loss card {loss_c} vs CPU {loss_h} beyond atol 1e-4")
+    worst = 0.0
+    for (path, a), (_, b) in zip(card, host):
+        scale = float(b.abs().max())
+        check(bool(torch.isfinite(a).all()), f"model {name}: gradient {path} not finite on the card")
+        check(float(a.abs().max()) > 0, f"model {name}: gradient {path} is zero on the card")
+        rel = float((a - b).abs().max()) / scale
+        check(bool(torch.allclose(a, b, atol=2e-3 * scale, rtol=1e-3)),
+              f"model {name}: gradient {path} card vs CPU max |err| {rel:.3g} of its "
+              "largest entry, beyond 2e-3 + rtol 1e-3")
+        worst = max(worst, rel)
+    print(f"[model] {name:6s} loss_fn + grads (remat): loss card {loss_c:.6f} CPU {loss_h:.6f}; "
+          f"{len(card)} gradient leaves, all non-zero on the card, worst max|err| "
+          f"{worst:.3g} of the leaf's largest entry (tolerance 2e-3)", flush=True)
 
 
 def _model_paged(torch, name, cfg, cpu_params, gpu_params):
@@ -598,6 +765,7 @@ def phase_serve(torch, tier_l_layers, card):
     from repro_torch.observability.quantile import quantile
     from repro_torch.serving.loadgen import PoissonArrivals, make_trace
     from repro_torch.serving.scheduler import MDInferenceScheduler, SchedulerConfig
+    from repro_torch.tree import tree_leaves
 
     full = get_config("qwen3-14b")
     tier_l = get_config("qwen3-14b", n_layers=tier_l_layers)
@@ -613,7 +781,7 @@ def phase_serve(torch, tier_l_layers, card):
     engine = serve.build_engine(max_len=max_len, seed=0, measured_hedge=True,
                                 dispatch="sync", device="cuda", configs=configs)
     torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in _leaves(engine.variants["tier-l"].params))
+    n_params = sum(p.numel() for p in tree_leaves(engine.variants["tier-l"].params))
     print(f"[serve] engine built in {time.perf_counter() - t0:.1f}s; tier-l "
           f"{tier_l.name} {n_params / 1e9:.2f}B params bf16, "
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB "
@@ -784,67 +952,170 @@ def phase_continuous(torch, engine, card):
 
 
 # ---------------------------------------------------------------------------
+# Phase 8: train full-width gemma-2b.
+# ---------------------------------------------------------------------------
+def phase_train(torch, card, profile: bool):
+    """12 steps of ``make_train_step`` on full-width gemma-2b (the code
+    path of ``python -m repro_torch.launch.train --arch gemma-2b
+    --full-config``, with its optimizer settings)."""
+    import numpy as np
+    from repro_torch.configs.archs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.training import (
+        DataConfig, OptimizerConfig, TrainConfig, init_train_state, make_pipeline,
+        make_train_step,
+    )
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(TRAIN_ARCH)
+    B, S, L = TRAIN_BATCH, TRAIN_SEQ, cfg.n_layers
+    opt_cfg = OptimizerConfig(learning_rate=3e-4, warmup_steps=min(100, TRAIN_STEPS // 10 + 1),
+                              total_steps=TRAIN_STEPS)
+    step_fn = make_train_step(cfg, opt_cfg, TrainConfig())
+    pipe = make_pipeline(DataConfig(batch_size=B, seq_len=S, seed=0), cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+
+    ops.reset_launch_counts()  # the train path starts here
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, torch.Generator().manual_seed(0), TrainConfig(), device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in tree_leaves(state["params"]))
+    print(f"[train] {cfg.name}: {L} layers, d {cfg.d_model}, {cfg.n_heads} q / "
+          f"{cfg.n_kv_heads} kv heads x {cfg.head_dim}, d_ff {cfg.d_ff} {cfg.mlp_type}, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype}, remat={cfg.remat}; {n_params / 1e9:.3f}B params; "
+          f"state built in {time.perf_counter() - t0:.1f}s, "
+          f"{(torch.cuda.memory_allocated() - before) / 2**30:.1f} GiB; batch {B} x {S} "
+          f"tokens, {TRAIN_STEPS} steps", flush=True)
+
+    losses, step_ms = [], []
+    for step in range(TRAIN_STEPS):
+        batch = {k: torch.from_numpy(v).to("cuda") for k, v in pipe.batch_at(step).items()}
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(loss)
+        if step == 0:
+            # mu = (1 - beta1) * clip * grad after the first update: each
+            # leaf's gradient was finite and non-zero iff its mu is.
+            for i, mu in enumerate(tree_leaves(state["opt"]["mu"])):
+                check(bool(torch.isfinite(mu).all()) and float(mu.abs().max()) > 0,
+                      f"train: leaf {i} {tuple(mu.shape)} got a zero or non-finite gradient")
+        print(f"[train] step {step:2d}  loss {loss:.4f}  gnorm {gnorm:.3f}  "
+              f"lr {float(metrics['lr']):.2e}  {step_ms[-1]:.1f} ms", flush=True)
+    counts = ops.launch_counts()  # the train path ends here
+    peak = torch.cuda.max_memory_allocated()
+
+    check(all(np.isfinite(losses)), f"train: non-finite losses {losses}")
+    check(float(np.mean(losses[-3:])) < losses[0],
+          f"train: mean of the last 3 losses {np.mean(losses[-3:]):.4f} not below the "
+          f"first {losses[0]:.4f}")
+    for name in TRAIN_PATH_KERNELS:
+        check(counts[name] > 0, f"train: kernel {name} was never launched on the train path")
+    check(counts["flash_attention_fwd"] == 2 * L * TRAIN_STEPS
+          and counts["flash_attention_bwd"] == L * TRAIN_STEPS,
+          f"train: flash launches {counts['flash_attention_fwd']} fwd / "
+          f"{counts['flash_attention_bwd']} bwd, expected {2 * L} / {L} per step (remat)")
+    steady = statistics.median(step_ms[1:])
+    tokens = B * S
+    # Model FLOPs (remat's recompute not counted): 6 per parameter and
+    # token, plus attention's 12 * D per causal (q, k) pair and q head.
+    flops = 6 * n_params * tokens + 12 * L * cfg.head_dim * B * cfg.n_heads * (S * (S + 1) // 2)
+    result = dict(
+        arch=cfg.name, params=n_params, batch=B, seq=S, steps=TRAIN_STEPS, losses=losses,
+        step_ms=step_ms, median_step_ms=steady, tokens_per_s=tokens / steady * 1e3,
+        mfu=flops / (steady / 1e3) / H100_BF16_FLOPS, model_flops_per_step=flops,
+        peak_gib=peak / 2**30, launches_per_step={k: v / TRAIN_STEPS for k, v in counts.items()},
+    )
+    print(f"[train] median step {steady:.1f} ms (steps 1-{TRAIN_STEPS - 1}; step 0 "
+          f"{step_ms[0]:.1f} ms): {result['tokens_per_s']:.0f} tokens/s, MFU "
+          f"{100 * result['mfu']:.2f} % of 989 TFLOP/s bf16 ({flops / 1e12:.1f} TFLOP model "
+          f"FLOPs per step); peak memory {result['peak_gib']:.1f} GiB; loss {losses[0]:.4f} -> "
+          f"{np.mean(losses[-3:]):.4f} (mean of last 3); card {card}", flush=True)
+    print(f"[train] kernel launches per step: {result['launches_per_step']}", flush=True)
+    if profile:
+        batch = {k: torch.from_numpy(v).to("cuda") for k, v in pipe.batch_at(TRAIN_STEPS).items()}
+        result["profile"] = _profile_step(torch, lambda: step_fn(state, batch), "train step",
+                                          card)
+    del state
+    torch.cuda.empty_cache()
+    return counts, result
+
+
+# ---------------------------------------------------------------------------
 # Optional phase: where a tier-l request's time goes.
 # ---------------------------------------------------------------------------
-_PORT_KERNELS = ("rms_norm_kernel", "flash_fwd_kernel", "decode_fwd_kernel",
-                 "decode_paged_fwd_kernel")
+_PORT_KERNELS = ("rms_norm_kernel", "flash_fwd_kernel", "flash_bwd_dq_kernel",
+                 "flash_bwd_dkv_kernel", "flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel",
+                 "flash_bwd_group_sum_kernel", "decode_fwd_kernel", "decode_paged_fwd_kernel")
+
+
+def _families(prof):
+    """(device ms by kernel name, by family, kernel count) of a profile."""
+    import collections
+
+    from torch.autograd import DeviceType
+
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = collections.Counter()
+    for e in kernels:
+        by_name[e.name] += e.time_range.elapsed_us() / 1e3
+    families = collections.Counter()
+    for name, ms in by_name.items():
+        fam = next((k for k in _PORT_KERNELS if k in name), None)
+        if fam is None:
+            low = name.lower()
+            fam = "matmul" if any(s in low for s in (
+                "gemm", "gemv", "xmma", "cutlass", "nvjet")) else "other"
+        families[fam] += ms
+    return by_name, families, len(kernels)
+
+
+def _profile_step(torch, fn, label, card):
+    """torch.profiler over one call of ``fn``: wall, device busy share and
+    device time by kernel family."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name, families, n = _families(prof)
+    busy = sum(by_name.values())
+    print(f"[profile] {label}: wall {wall_ms:.1f} ms (profiled), device busy {busy:.1f} ms "
+          f"({100 * busy / wall_ms:.1f}%), {n} kernels; card {card}", flush=True)
+    for fam, ms in families.most_common():
+        print(f"[profile]   {fam:22s} {ms:9.3f} ms ({100 * ms / busy:.1f}% of busy)", flush=True)
+    for name, ms in by_name.most_common(8):
+        print(f"[profile]   top {ms:9.3f} ms  {name[:90]}", flush=True)
+    return dict(wall_ms=wall_ms, device_busy_ms=busy, device_kernels=n,
+                busy_share=busy / wall_ms, families=dict(families),
+                top=by_name.most_common(8))
 
 
 def phase_profile(torch, backends, card):
     """torch.profiler over one timed tier-l ``generate`` per backend and
     batch size: device busy share and device time by kernel family."""
-    import collections
-
     import numpy as np
     from repro_torch.kernels import ops
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     out = {}
     for (label, backend), B in ((lb, B) for lb in backends.items() for B in (1, 4)):
         tokens = np.random.default_rng(B).integers(0, 256, (B, PROMPT))
         backend.generate("tier-l", tokens, GEN)  # warm this shape
         ops.reset_launch_counts()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            _, wall_ms = backend.generate("tier-l", tokens, GEN)
-        launches = ops.launch_counts()
-        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        by_name = collections.Counter()
-        for e in kernels:
-            by_name[e.name] += e.time_range.elapsed_us() / 1e3
-        families = collections.Counter()
-        for name, ms in by_name.items():
-            fam = next((k for k in _PORT_KERNELS if k in name), None)
-            if fam is None:
-                low = name.lower()
-                fam = "matmul" if any(s in low for s in (
-                    "gemm", "gemv", "xmma", "cutlass", "nvjet")) else "other"
-            families[fam] += ms
-        busy = sum(by_name.values())
-        out[f"{label} B={B}"] = dict(
-            wall_ms=wall_ms, device_busy_ms=busy, device_kernels=len(kernels),
-            busy_share=busy / wall_ms, families=dict(families),
-            top=by_name.most_common(8), launches=launches)
-        print(f"[profile] {label} tier-l B={B} prompt {PROMPT} gen {GEN}: wall "
-              f"{wall_ms:.1f} ms (profiled), device busy {busy:.1f} ms "
-              f"({100 * busy / wall_ms:.1f}%), {len(kernels)} kernels, port kernel "
-              f"launches {launches}; card {card}", flush=True)
-        for fam, ms in families.most_common():
-            print(f"[profile]   {fam:18s} {ms:9.3f} ms", flush=True)
-        for name, ms in by_name.most_common(8):
-            print(f"[profile]   top {ms:9.3f} ms  {name[:90]}", flush=True)
+        row = _profile_step(torch, lambda: backend.generate("tier-l", tokens, GEN),
+                            f"{label} tier-l B={B} prompt {PROMPT} gen {GEN}", card)
+        row["launches"] = ops.launch_counts()
+        print(f"[profile]   port kernel launches {row['launches']}", flush=True)
+        out[f"{label} B={B}"] = row
     return out
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, tuple):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 def main(argv=None) -> int:
@@ -852,7 +1123,8 @@ def main(argv=None) -> int:
     ap.add_argument("--tier-l-layers", type=int, default=40,
                     help="tier-l depth (qwen3-14b has 40); width is never cut")
     ap.add_argument("--profile", action="store_true",
-                    help="after the serve phases, profile one tier-l generate per backend")
+                    help="profile one tier-l generate per backend after the serve "
+                    "phases, and one train step after the train phase")
     ap.add_argument("--ptxas", action="store_true", help="print nvcc -Xptxas -v register use")
     ap.add_argument("--json-out", default=None, help="also write the results here")
     args = ap.parse_args(argv)
@@ -878,21 +1150,28 @@ def main(argv=None) -> int:
     paged_counts, serve_results["continuous"], cbackend = phase_continuous(torch, engine, card)
     profile = (phase_profile(torch, {"dense": engine.backend, "continuous": cbackend}, card)
                if args.profile else {})
-    del engine, cbackend
-    counts = {k: dense_counts[k] + paged_counts[k] for k in dense_counts}
+    del engine, cbackend  # release tier-l's weights before training
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[serve] released: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated",
+          flush=True)
+    train_counts, train = phase_train(torch, card, args.profile)
+    counts = {k: dense_counts[k] + paged_counts[k] + train_counts[k] for k in dense_counts}
     names = {e["name"] for e in entries}
     check(names == set(counts), f"kernels timed {sorted(names)} != kernels counted {sorted(counts)}")
     for e in entries:
         e["launches"] = counts[e["name"]]
-        check(e["launches"] > 0, f"kernel {e['name']} was never launched by the serve phases")
+        check(e["launches"] > 0,
+              f"kernel {e['name']} was never launched by the serve and train phases")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels_line = {"kernels": [{k: e[k] for k in keys} for e in entries]}
     if args.json_out:
         Path(args.json_out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json_out).write_text(json.dumps(
-            dict(card=card, kernels=entries, serve=serve_results, launches=counts,
-                 launches_dense=dense_counts, launches_continuous=paged_counts,
+            dict(card=card, kernels=entries, serve=serve_results, train=train,
+                 launches=counts, launches_dense=dense_counts,
+                 launches_continuous=paged_counts, launches_train=train_counts,
                  profile=profile,
                  seconds=time.perf_counter() - t_start), indent=1))
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)

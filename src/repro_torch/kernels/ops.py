@@ -5,13 +5,23 @@ The model calls these.  A CPU tensor goes to the plain PyTorch version in
 :mod:`repro_torch.kernels.ref`; any other tensor goes to the kernel, whose
 wrapper launches it or raises.  There is no fallback: a kernel that fails
 to build or launch raises.
+
+Training differentiates :func:`rms_norm` and :func:`flash_attention`
+through the autograd Functions :class:`RMSNorm` and :class:`FlashAttention`
+(the port of the JAX model's ``custom_vjp``).  They are used only when
+autograd records: with grad disabled (serving runs under
+``torch.inference_mode()``), or when no input requires grad, the call goes
+straight to the kernel wrapper, so serving pays no autograd overhead.
 """
 from __future__ import annotations
 
 from typing import Dict
 
+import torch
+
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import flash_attention_bwd as _flash_bwd
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rmsnorm
 
@@ -20,6 +30,8 @@ __all__ = [
     "flash_attention",
     "decode_attention",
     "decode_attention_paged",
+    "RMSNorm",
+    "FlashAttention",
     "COUNTERS",
     "launch_counts",
     "reset_launch_counts",
@@ -28,20 +40,72 @@ __all__ = [
 COUNTERS = {
     "rms_norm_fwd": _rmsnorm.launches,
     "flash_attention_fwd": _flash.launches,
+    "flash_attention_bwd": _flash_bwd.launches,
     "decode_attention_fwd": _decode.launches,
     "decode_attention_paged_fwd": _decode.paged_launches,
 }
 
 
-def rms_norm(x, w, *, eps: float = 1e-6, offset: bool = False):
+def _records(*tensors) -> bool:
+    """Whether autograd records this call (grad on, some input needs it)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+class RMSNorm(torch.autograd.Function):
+    """RMSNorm with a gradient.  Forward: the Triton kernel on CUDA, the
+    plain version on the CPU.  Backward: plain PyTorch on either device
+    (:func:`ref.rms_norm_bwd_ref`, recomputing ``rsqrt`` in f32): the JAX
+    package has no Pallas backward for RMSNorm either; its gradient is
+    ``jax.grad`` of the ``jnp`` norm."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps, offset):
+        y = _rms_norm_fwd(x, w, eps=eps, offset=offset)
+        ctx.save_for_backward(x, w)
+        ctx.eps, ctx.offset = eps, offset
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx, dw = ref.rms_norm_bwd_ref(x, w, dy, eps=ctx.eps, offset=ctx.offset)
+        return dx, dw, None, None
+
+
+class FlashAttention(torch.autograd.Function):
+    """Prefill attention with a gradient (kernel layout).  Forward: the
+    flash kernel with its f32 LSE on CUDA, the plain version on the CPU;
+    saves q, k, v, out and the LSE.  Backward: the hand-written backward
+    kernel on CUDA, :func:`ref.flash_attention_bwd_ref` on the CPU, both
+    recomputing from the LSE as the JAX model's ``custom_vjp`` does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        out, lse = _flash_fwd(q, k, v, causal=causal, window=window, scale=scale,
+                              return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window, ctx.scale = causal, window, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        if dout.stride(-1) != 1:
+            dout = dout.contiguous()
+        bwd = (ref.flash_attention_bwd_ref if q.device.type == "cpu"
+               else _flash_bwd.flash_attention_bwd)
+        dq, dk, dv = bwd(q, k, v, out, dout, lse, causal=ctx.causal, window=ctx.window,
+                         scale=ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
+def _rms_norm_fwd(x, w, *, eps, offset):
     if x.device.type == "cpu":
         return ref.rms_norm_ref(x, w, eps=eps, offset=offset)
     return _rmsnorm.rms_norm_fwd(x, w, eps=eps, offset=offset)
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    scale=None, return_lse: bool = False):
-    """Kernel layout: q (B, NQ, S, D); k, v (B, NKV, S, D)."""
+def _flash_fwd(q, k, v, *, causal, window, scale, return_lse):
     if q.device.type == "cpu":
         return ref.flash_attention_ref(
             q, k, v, causal=causal, window=window, scale=scale, return_lse=return_lse
@@ -49,6 +113,22 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     return _flash.flash_attention_fwd(
         q, k, v, causal=causal, window=window, scale=scale, return_lse=return_lse
     )
+
+
+def rms_norm(x, w, *, eps: float = 1e-6, offset: bool = False):
+    if _records(x, w):
+        return RMSNorm.apply(x, w, eps, offset)
+    return _rms_norm_fwd(x, w, eps=eps, offset=offset)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    scale=None, return_lse: bool = False):
+    """Kernel layout: q (B, NQ, S, D); k, v (B, NKV, S, D).  Differentiable
+    (through :class:`FlashAttention`) unless ``return_lse``."""
+    if not return_lse and _records(q, k, v):
+        return FlashAttention.apply(q, k, v, causal, window, scale)
+    return _flash_fwd(q, k, v, causal=causal, window=window, scale=scale,
+                      return_lse=return_lse)
 
 
 def decode_attention(q, k_cache, v_cache, slot_pos, pos, *, window: int = 0,

@@ -22,6 +22,8 @@ __all__ = [
     "decode_attention_ref",
     "paged_decode_bsnd",
     "decode_attention_paged_ref",
+    "flash_attention_bwd_ref",
+    "rms_norm_bwd_ref",
 ]
 
 _NEG_INF = -1e30  # finite masked-score sentinel (a fully masked row -> mean of v)
@@ -34,6 +36,25 @@ def rms_norm_ref(x, w, *, eps: float = 1e-6, offset: bool = False):
     y = xf * torch.rsqrt(var + eps)
     wf = w.float()
     return (y * ((1.0 + wf) if offset else wf)).to(x.dtype)
+
+
+def rms_norm_bwd_ref(x, w, dy, *, eps: float = 1e-6, offset: bool = False):
+    """Gradients ``(dx, dw)`` of :func:`rms_norm_ref` for the cotangent ``dy``.
+
+    Recomputes ``r = rsqrt(mean(x^2) + eps)`` in f32 and returns
+    ``dx = r * (g - x * r^2 * mean(g * x))`` with ``g = dy * w'`` (``w' = w``
+    or ``1 + w``) in x's dtype, and ``dw = sum(dy * x * r)`` over every
+    leading dim in w's dtype.  This is what ``jax.grad`` of the JAX
+    package's ``jnp`` norm computes; the JAX package has no Pallas backward
+    for RMSNorm.
+    """
+    xf, gy = x.float(), dy.float()
+    r = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    wf = w.float()
+    g = gy * ((1.0 + wf) if offset else wf)
+    dx = r * (g - xf * r.square() * (g * xf).mean(dim=-1, keepdim=True))
+    dw = (gy * xf * r).reshape(-1, x.shape[-1]).sum(dim=0)
+    return dx.to(x.dtype), dw.to(w.dtype)
 
 
 def _scores_mask(sq: int, skv: int, *, causal: bool, window: int, device):
@@ -151,3 +172,36 @@ def decode_attention_paged_ref(q, k_pool, v_pool, page_tables, pos, *, window: i
         v_pool.transpose(1, 2), page_tables, pos, window=window, scale=scale,
     )
     return out.reshape(B, NKV, G, D)
+
+
+def flash_attention_bwd_ref(q, k, v, out, dout, lse, *, causal: bool = True,
+                            window: int = 0, scale: Optional[float] = None):
+    """Backward of :func:`flash_attention_ref`, recomputed from the LSE.
+
+    Kernel layout: q, out, dout (B, NQ, S, D); k, v (B, NKV, S, D); lse
+    (B, NQ, S) f32 from the forward.  The math of the Pallas backward
+    (``repro/kernels/flash_attention_bwd.py``), all in f32:
+    ``delta = rowsum(dout * out)``, ``p = exp(s - lse)`` with masked
+    scores at the finite sentinel -1e30, ``ds = p * (dp - delta) * scale``;
+    dk and dv are summed over each kv head's GQA group.  Returns
+    ``(dq, dk, dv)`` in the dtypes of q, k and v.
+    """
+    B, NQ, S, D = q.shape
+    NKV = k.shape[1]
+    G = NQ // NKV
+    if scale is None:
+        scale = D**-0.5
+    qf = q.float().reshape(B, NKV, G, S, D)
+    dof = dout.float().reshape(B, NKV, G, S, D)
+    kf, vf = k.float(), v.float()
+    delta = (dout.float() * out.float()).sum(-1).reshape(B, NKV, G, S, 1)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qf, kf) * scale
+    ok = _scores_mask(S, S, causal=causal, window=window, device=q.device)
+    s = torch.where(ok, s, torch.full_like(s, _NEG_INF))
+    p = torch.exp(s - lse.float().reshape(B, NKV, G, S, 1))
+    dp = torch.einsum("bkgqd,bksd->bkgqs", dof, vf)
+    ds = p * (dp - delta) * scale
+    dq = torch.einsum("bkgqs,bksd->bkgqd", ds, kf).reshape(B, NQ, S, D)
+    dk = torch.einsum("bkgqs,bkgqd->bksd", ds, qf)
+    dv = torch.einsum("bkgqs,bkgqd->bksd", p, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -1,13 +1,16 @@
-"""Attention for the model, forward only, in the model's (B, S, N, HD) layout.
+"""Attention for the model, in the model's (B, S, N, HD) layout.
 
-:func:`flash_attention` (prefill), :func:`decode_attention` (one token
-against the ring cache) and :func:`paged_decode_attention` (one token
-against the continuous tier's page pool) go through
+:func:`flash_attention` (prefill and training), :func:`decode_attention`
+(one token against the ring cache) and :func:`paged_decode_attention` (one
+token against the continuous tier's page pool) go through
 :mod:`repro_torch.kernels.ops`: the hand-written kernels on CUDA, the plain
 versions on the CPU.  The kernels read this layout through strides, so no
-call copies q, k, v, the cache or the pool.
+call copies q, k, v, the cache or the pool.  :func:`flash_attention` is
+differentiable: when autograd records, it runs through
+``ops.FlashAttention`` (forward kernel with its LSE, backward kernel
+recomputing from it), the counterpart of the JAX model's ``custom_vjp``.
 :func:`attention_reference` is the plain naive attention (the oracle).
-Prefix-LM masking and the backward pass are not ported yet.
+Prefix-LM masking is not ported yet.
 """
 from __future__ import annotations
 
@@ -21,7 +24,8 @@ __all__ = ["flash_attention", "attention_reference", "decode_attention",
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     scale: Optional[float] = None):
-    """q: (B, S, NQ, HD); k, v: (B, S, NKV, HD) -> (B, S, NQ, HD) in q's dtype."""
+    """q: (B, S, NQ, HD); k, v: (B, S, NKV, HD) -> (B, S, NQ, HD) in q's dtype.
+    Differentiable in q, k and v; the gradients come back in this layout."""
     out = ops.flash_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         causal=causal, window=window, scale=scale,

@@ -34,7 +34,8 @@ def truncated_normal_init(generator, shape, dtype, scale: float, device="cuda"):
 
 
 def rms_norm(x, weight, *, eps: float = 1e-6, offset: bool = False):
-    """RMSNorm (the fused kernel on CUDA); ``offset=True`` is gemma's (1 + w)."""
+    """RMSNorm (the fused kernel on CUDA); ``offset=True`` is gemma's (1 + w).
+    Differentiable in x and weight (``ops.RMSNorm``'s plain backward)."""
     return ops.rms_norm(x, weight, eps=eps, offset=offset)
 
 

@@ -1,4 +1,5 @@
-"""Model assembly for the dense attention-only stacks: init, prefill, decode.
+"""Model assembly for the dense attention-only stacks: init, prefill,
+decode, and the training loss.
 
 Parameters are plain dicts of tensors built from *spec tables*
 (``{name: shape}``) with the JAX package's tree: ``embed``, ``final_norm``,
@@ -23,6 +24,13 @@ the rows' pages (one ``index_copy_`` per leaf into the flattened pool) and
 :func:`paged_decode_step` scatters each row's new k/v into its page slot,
 all in place.
 
+Training: :func:`loss_fn` is the JAX package's chunked softmax-xent.  With
+autograd recording, the norms and the prefill attention run through the
+autograd Functions of :mod:`repro_torch.kernels.ops` (the kernels on CUDA),
+``cfg.remat`` checkpoints each period (``torch.utils.checkpoint``, the
+counterpart of ``jax.checkpoint``) and each loss chunk is checkpointed too,
+so no (B, S, vocab) logits tensor is ever held for the backward pass.
+
 Only dense attention blocks (``attn``, ``local``) over token inputs are
 ported; MoE, recurrent and xLSTM blocks, the audio/vision frontends and
 the int8 KV cache raise ``NotImplementedError``.
@@ -36,6 +44,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers
@@ -51,8 +60,10 @@ __all__ = [
     "model_spec",
     "init_params",
     "params_from_numpy",
+    "numpy_to_torch",
     "params_to",
     "forward_hidden",
+    "loss_fn",
     "init_cache",
     "prefill",
     "decode_step",
@@ -176,7 +187,8 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     return _walk_spec(model_spec(cfg), init)
 
 
-def _to_torch(arr) -> torch.Tensor:
+def numpy_to_torch(arr) -> torch.Tensor:
+    """An owned CPU tensor of a numpy array (ml_dtypes bfloat16 included)."""
     arr = np.array(arr, copy=True, order="C")  # owned and writable
     if arr.dtype.name == "bfloat16":  # ml_dtypes bfloat16: reinterpret the bits
         return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
@@ -197,7 +209,7 @@ def params_from_numpy(cfg: ModelConfig, tree, device="cuda"):
         full = _full_shape(cfg, path, shape)
         if tuple(node.shape) != full:
             raise ValueError(f"{'/'.join(path)}: shape {tuple(node.shape)} != {full}")
-        return _to_torch(node).to(device=dev, dtype=_leaf_dtype(cfg, path[-1]))
+        return numpy_to_torch(node).to(device=dev, dtype=_leaf_dtype(cfg, path[-1]))
 
     return _walk_spec(model_spec(cfg), take)
 
@@ -346,12 +358,42 @@ def _embed_inputs(cfg, params, batch_inputs):
     return x, pos
 
 
+def _unstack(tree, n: int):
+    """The ``n`` per-period trees of a stacked-period tree, as views.  One
+    ``unbind`` per leaf: its backward writes the stacked gradient once,
+    where indexing each period would add a full-size zero-padded gradient
+    per period."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    return list(tree.unbind(0))
+
+
+def _period(cfg, layer_params, x, ctx: SeqContext, layer_caches):
+    """One period of the stack: one block per pattern kind."""
+    for i, kind in enumerate(cfg.pattern):
+        c = layer_caches[i] if layer_caches is not None else None
+        x = apply_block(cfg, kind, layer_params[i], x, ctx, c)
+    return x
+
+
 def _run_stack(cfg, params, x, ctx: SeqContext, cache=None):
-    """The periods (in order) and the epilogue; caches are updated in place."""
-    for li in range(cfg.n_periods):
-        for i, kind in enumerate(cfg.pattern):
-            c = _index(cache["periods"][i], li) if cache is not None else None
-            x = apply_block(cfg, kind, _index(params["periods"][i], li), x, ctx, c)
+    """The periods (in order) and the epilogue; caches are updated in place.
+    With ``cfg.remat`` and autograd recording (training), each period is
+    checkpointed: only its input is kept, and the backward pass runs it
+    again."""
+    remat = cfg.remat and cache is None and not ctx.decode and torch.is_grad_enabled()
+    n = cfg.n_periods
+    kinds = [_unstack(p, n) for p in params["periods"]]  # [kind][period]
+    for li in range(n):
+        lp = tuple(k[li] for k in kinds)
+        if remat:
+            x = checkpoint(_period, cfg, lp, x, ctx, None,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            lc = (tuple(_index(c, li) for c in cache["periods"]) if cache is not None
+                  else None)
+            x = _period(cfg, lp, x, ctx, lc)
     for i, kind in enumerate(cfg.epilogue):
         c = cache["epilogue"][i] if cache is not None else None
         x = apply_block(cfg, kind, params["epilogue"][i], x, ctx, c)
@@ -372,9 +414,60 @@ def forward_hidden(cfg, params, batch_inputs, cache=None, decode=False, position
     return _norm(cfg, params["final_norm"], x)
 
 
-def _unembed(cfg, params, x):
-    w = params["embed"]["tokens"].T if cfg.tie_embeddings else params["head"]
+def _head_weight(cfg, params):
+    """The (D, V) head weight: the tied embedding's transpose, or ``head``."""
+    return params["embed"]["tokens"].T if cfg.tie_embeddings else params["head"]
+
+
+def _logits(x, w):
     return (x @ w.to(x.dtype)).float()
+
+
+def _unembed(cfg, params, x):
+    return _logits(x, _head_weight(cfg, params))
+
+
+def _xent_chunk(x, w, labels):
+    """Summed negative log-likelihood of one chunk's valid labels (>= 0)
+    and their count, both f32."""
+    lp = torch.log_softmax(_logits(x, w), dim=-1)
+    valid = labels >= 0
+    nll = -lp.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    return (nll * valid).sum(), valid.sum().float()
+
+
+def loss_fn(cfg, params, batch):
+    """Chunked softmax-xent.  ``batch``: ``tokens`` (B, S) and ``labels``
+    (B, S_out); labels < 0 are ignored (prefix / padding).  Returns
+    ``(loss, metrics)`` with ``loss = xent + 0.01 * aux`` and the metrics
+    ``xent``, ``aux`` (0 for these dense stacks: only MoE blocks add one)
+    and ``tokens`` (valid labels), all f32, as the JAX package's
+    ``loss_fn``.  Each ``cfg.loss_chunk`` slice of the sequence is
+    checkpointed when autograd records, so the backward pass holds one
+    chunk's logits at a time."""
+    x = forward_hidden(cfg, params, batch)
+    labels = batch["labels"].long()
+    B, S = labels.shape
+    x = x[:, -S:]
+    C = min(cfg.loss_chunk, S)
+    while S % C:
+        C -= 1
+    w = _head_weight(cfg, params)
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(S // C):
+        xs, ls = x[:, i * C:(i + 1) * C], labels[:, i * C:(i + 1) * C]
+        if torch.is_grad_enabled():
+            t, c = checkpoint(_xent_chunk, xs, w, ls, use_reentrant=False,
+                              preserve_rng_state=False)
+        else:
+            t, c = _xent_chunk(xs, w, ls)
+        tot = tot + t
+        cnt = cnt + c
+    xent = tot / cnt.clamp_min(1.0)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    loss = xent + 0.01 * aux
+    return loss, {"xent": xent, "aux": aux, "tokens": cnt}
 
 
 def prefill(cfg, params, batch_inputs, max_len: int):

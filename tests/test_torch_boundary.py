@@ -77,7 +77,9 @@ def test_entry_points_default_to_cuda(monkeypatch):
     from repro_torch.configs.mdinference_zoo import ONDEVICE_HEDGE
     from repro_torch.device import resolve_device
     from repro_torch.models import transformer as T
+    from repro_torch.launch import train
     from repro_torch.serving.backend import JitBackend, OnDeviceBackend
+    from repro_torch.training import init_train_state
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for build in (
@@ -85,6 +87,8 @@ def test_entry_points_default_to_cuda(monkeypatch):
         lambda: OnDeviceBackend.from_zoo(max_len=64),
         lambda: T.init_params(ONDEVICE_HEDGE.config()),
         lambda: T.init_cache(ONDEVICE_HEDGE.config(), 1, 8),
+        lambda: init_train_state(ONDEVICE_HEDGE.config()),
+        lambda: train.main(["--arch", "gemma-2b", "--d-model", "32", "--steps", "1"]),
     ):
         with pytest.raises(RuntimeError, match="cuda"):
             build()

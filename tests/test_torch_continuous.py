@@ -438,9 +438,40 @@ def test_stream_yields_every_decode_token_before_resolution(dispatch):
     engine.backend.check_conservation()
 
 
+@pytest.mark.parametrize("dispatch", ["stepped", "sync"])
+def test_stream_of_a_hedge_won_row_may_end_early(dispatch):
+    """A hedged row whose SLA budget is spent once its duplicate has
+    finished is released (the ``InferenceFuture.stream()`` note): its stream
+    may stop short of ``n_steps``, and ``result()`` stays the answer."""
+    _, tv = _twin_variant("m", seed=0)
+    hedge = backend.OnDeviceBackend.from_zoo(max_len=GEO.max_len, device="cpu")
+    engine = ServingEngine(hedge_backend=hedge, continuous=True, geometry=GEO,
+                           dispatch=dispatch, device="cpu")
+    engine.register(tv)
+    registry = engine.measure_profiles(prompt_len=PROMPT, gen_tokens=GEN, trials=2)
+    ondevice = hedge.measure_profile(prompt_len=PROMPT, gen_tokens=GEN, trials=2)
+    # The paper's policy (always hedge) with a 1 ms SLA: the budget is spent
+    # before the remote decode can finish.
+    sched = MDInferenceScheduler(registry, ondevice, SchedulerConfig(t_sla_ms=1.0, seed=0))
+    chunks, _, c = serve.stream_demo(engine, sched, _prompts(1, seed=9)[0], GEN, 1.0)
+    assert c.hedged
+    # The stepped tier runs the duplicate inline, so it has finished before
+    # the loop's first release check: the remote row is always released
+    # before its last decode step, whatever the machine's speed.
+    assert engine.backend.slot_stats("m")["freed_hedge_win"] == 1
+    assert 1 <= len(chunks) < GEN
+    assert [ch.index for ch in chunks] == list(range(len(chunks)))
+    assert c.tokens.shape == (GEN,) and int(c.tokens.min()) >= 0
+    engine.backend.check_conservation()
+
+
 def test_serve_main_continuous_stream_on_cpu(capsys):
+    # The streamed request is hedged (the paper's policy); a huge SLA keeps
+    # its budget from running out, so its remote stream is never released
+    # early and runs to all four tokens however slow the machine is.  The
+    # early-release case is test_stream_of_a_hedge_won_row_may_end_early.
     assert serve.main(["--device", "cpu", "--continuous", "--stream", "--requests", "4",
-                       "--gen", "4"]) == 0
+                       "--gen", "4", "--sla", "600000"]) == 0
     out = capsys.readouterr().out
     assert "streaming demo" in out and "chunk[3]" in out
     assert "served 4 requests" in out and "dispatch=stepped" in out

@@ -364,3 +364,81 @@ def test_paged_kernel_matches_plain(sm90, B, dtype):
         pos = ((3 + 5 * torch.arange(B, device=sm90)) % (NB * page)).to(torch.int32)
         _gpu_close(decode_attention_paged_fwd(q, kp, vp, tables, pos, window=window),
                    ref.decode_attention_paged_ref(q, kp, vp, tables, pos, window=window), dt)
+
+
+# ---------------------------------------------------------------------------
+# Flash-attention backward: the plain version against the Pallas backward
+# (interpret mode, fed the Pallas forward's out and LSE) and jax.grad of the
+# JAX oracle, at tests/test_kernels.py's atol 3e-5 in f32; the hand-written
+# kernel against the plain version on an sm_90 card.
+# ---------------------------------------------------------------------------
+BWD_CASES = [
+    # (B, NQ, NKV, S, D, block, causal, window): the tests/test_kernels.py
+    # cases, plus a ragged S (one Pallas block of the whole sequence).
+    (1, 2, 2, 128, 32, 64, True, 0),
+    (1, 4, 2, 128, 32, 64, True, 0),  # GQA group sum
+    (1, 4, 1, 128, 32, 32, True, 0),  # MQA
+    (1, 2, 2, 128, 32, 64, False, 0),  # bidirectional
+    (1, 2, 1, 128, 32, 32, True, 48),  # windowed
+    (2, 6, 2, 100, 16, 100, True, 0),  # ragged S, G = 3
+]
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=str)
+def test_flash_bwd_plain_matches_jax(case):
+    from repro.kernels.flash_attention_bwd import flash_attention_bwd as pallas_bwd
+
+    B, NQ, NKV, S, D, blk, causal, window = case
+    rng = np.random.default_rng(S + NQ + window)
+    qj, qt = _pair(rng, (B, NQ, S, D), "float32")
+    kj, kt = _pair(rng, (B, NKV, S, D), "float32")
+    vj, vt = _pair(rng, (B, NKV, S, D), "float32")
+    doj, dot = _pair(rng, (B, NQ, S, D), "float32")
+    outj, lsej = pallas_flash(qj, kj, vj, causal=causal, window=window, block_q=blk,
+                              block_k=blk, interpret=True, return_lse=True)
+    want = pallas_bwd(qj, kj, vj, outj, doj, lsej, causal=causal, window=window,
+                      block_q=blk, block_k=blk, interpret=True)
+    got = ref.flash_attention_bwd_ref(
+        qt, kt, vt, torch.from_numpy(np.array(outj)), dot,
+        torch.from_numpy(np.array(lsej)), causal=causal, window=window)
+
+    def loss(q, k, v):
+        return jnp.sum(jref.flash_attention_ref(q, k, v, causal=causal, window=window) * doj)
+
+    grads = jax.grad(loss, argnums=(0, 1, 2))(qj, kj, vj)
+    for g, w, oracle in zip(got, want, grads):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=3e-5, rtol=0)
+        np.testing.assert_allclose(g.numpy(), np.asarray(oracle), atol=3e-5, rtol=0)
+
+
+def test_bwd_wrapper_refuses_cpu_tensors():
+    from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
+
+    x = torch.randn(1, 2, 8, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_bwd(x, x, x, x, x, torch.zeros(1, 2, 8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("case", BWD_CASES + [(1, 8, 1, 200, 256, 0, True, 0),
+                                              (2, 10, 2, 130, 128, 0, False, 40)], ids=str)
+def test_flash_bwd_kernel_matches_plain(sm90, case, dtype):
+    """Model-layout views, D 16..256, G up to 8 (MQA), ragged S, windowed
+    and bidirectional; the kernel's LSE feeds both."""
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
+
+    B, NQ, NKV, S, D, _, causal, window = case
+    dt = getattr(torch, dtype)
+    q = torch.randn(B, S, NQ, D, device=sm90).to(dt).transpose(1, 2)
+    k = torch.randn(B, S, NKV, D, device=sm90).to(dt).transpose(1, 2)
+    v = torch.randn(B, S, NKV, D, device=sm90).to(dt).transpose(1, 2)
+    dout = torch.randn(B, S, NQ, D, device=sm90).to(dt).transpose(1, 2)
+    out, lse = flash_attention_fwd(q, k, v, causal=causal, window=window, return_lse=True)
+    got = flash_attention_bwd(q, k, v, out, dout, lse, causal=causal, window=window)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, dout, lse, causal=causal, window=window)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == dt
+        _gpu_close(g, w, dt)
