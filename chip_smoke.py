@@ -12,26 +12,41 @@ Phases (each passes or raises; any failure exits non-zero with no result):
 2. build: compiles every CUDA kernel (one ``nvcc`` per source, in
    parallel) and JITs the Triton kernel; prints the seconds.
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the kernel-test sweep shapes and at the full-width serving shapes, with
-   f32 atol 1e-4 (summation order) and bf16 atol 2e-2 + rtol 1e-2 (one
-   bf16 rounding step); times (CUDA events over CUDA-graph replays, median)
-   of the kernel, the plain version, one PyTorch call as a yardstick, and
-   the bound, plus the kernel's eager time with its launch cost.
-   The paged decode kernel runs the sweep of tests/test_kernels.py (every
+   the kernel-test sweep shapes and at the full-width shapes of the main
+   path, with f32 atol 1e-4 (summation order) and bf16 atol 2e-2 + rtol
+   1e-2 (one bf16 rounding step); times (CUDA events over CUDA-graph
+   replays, median) of the kernel, the plain version, one PyTorch call as
+   a yardstick where one exists, and the bound, plus the kernel's eager
+   time with its launch cost.  The flash forward, ring decode and flash
+   backward sweeps include recurrentgemma's G = 10, D = 256 heads.  The
+   paged decode kernel runs the sweep of tests/test_kernels.py (every
    ladder size, windows, masked rows bitwise inert, D 16..256, G=5) and a
    full-width row at the continuous serve phase's pool geometry.  The
    flash backward kernel runs the tests/test_kernels.py cases plus D 128 /
-   256, G 5 / 8, ragged S, windowed and bidirectional, in f32 and bf16 (the
-   forward kernel's LSE is checked in both dtypes too), and a full-width
-   row at the train phase's gemma-2b shape, whose library time is the
-   backward of ``F.scaled_dot_product_attention`` alone.
-4. model: the three reduced serving tiers and the hedge variant, prefill
-   plus 16 greedy decode steps in f32, on the card through the kernels and
-   on the CPU through the plain versions: logits allclose, tokens equal;
-   then the same on the paged path (``prefill_ragged`` + graft + 16
-   ``paged_decode_step``s, rows at different positions); then, for the
-   three tiers, ``loss_fn`` and every parameter gradient (remat on), card
-   against CPU: a gradient cut on the card would show here.
+   256, G 5 / 8 / 10, ragged S, windowed and bidirectional, in f32, bf16
+   and f16 (the forward kernel's LSE is checked too), and a full-width row
+   at the train phase's gemma-2b shape, whose library time is the backward
+   of ``F.scaled_dot_product_attention`` alone.  The RG-LRU scan kernel
+   runs the tests/test_kernels.py sweep (f32 and bf16), the carry across
+   blocks, ragged S and W with a non-zero h0, and its backward (the kernel
+   over the reversed sequence) against the plain adjoint; full-width rows
+   at the hybrid serve shape (4, 128, 2560) and the recurrentgemma train
+   shape (2, 2048, 2560), f32 as the model runs it.  No single PyTorch call
+   computes a linear recurrence, so its library time is null.  The norm and
+   the flash forward and backward are also held against their plain
+   versions at the shapes the recurrentgemma phases give them: the serve
+   prefill (norm (4, 128, 2560), flash q (4, 10, 128, 256)) and the train
+   step (norm (2, 2048, 2560), flash and its backward q (2, 10, 2048, 256)
+   with window 2048), bf16, the norm with the ``(1 + w)`` offset.
+4. model: the three reduced serving tiers, the hedge variant and reduced
+   recurrentgemma (5 layers: one period and the epilogue), prefill plus
+   16 greedy decode steps in f32, on the card through the kernels and on
+   the CPU through the plain versions: logits allclose, tokens equal; then
+   for the attention-only stacks the same on the paged path
+   (``prefill_ragged`` + graft + 16 ``paged_decode_step``s, rows at
+   different positions); then, for the three tiers and recurrentgemma,
+   ``loss_fn`` and every parameter gradient (remat on), card against CPU:
+   a gradient cut on the card would show here.
 5. serve: a ``ServingEngine`` whose ``JitBackend`` hosts tier-s, tier-m
    (reduced as served) and tier-l at the full qwen3-14b configuration
    (bf16, seeded weights on the card), plus the zoo's measured hedge; then
@@ -47,25 +62,37 @@ Phases (each passes or raises; any failure exits non-zero with no result):
    ``compile_count``, tier-l traffic with finite logits, TTFT on every
    completion, the stream's chunks before resolution, and that the paged
    path's kernels were launched.
-7. profile (only with ``--profile``): ``torch.profiler`` over one tier-l
+7. hybrid serve: once tier-l is released, a ``JitBackend`` engine whose one
+   remote tier, tier-rg, is recurrentgemma-2b at its full published
+   configuration (26 layers, bf16, seeded weights) with the measured
+   hedge; ``measure_profiles`` and ``drain_trace`` under sync and async
+   dispatch, as in phase 5.  Checks conservation, requests on tier-rg,
+   finite logits, that the hybrid path's kernels (the scan included) were
+   launched, and, counted on their own afterwards, the launches of one
+   prefill and one decode step against those worked out from the layer
+   kinds (18 scans and 8 flash launches per prefill, 8 ring-decode
+   launches and no scan per decode step).
+8. profile (only with ``--profile``): ``torch.profiler`` over one tier-l
    ``generate`` at batch 1 and 4 on the dense and on the continuous
-   backend — device busy share, device time by kernel family, port-kernel
-   launches per generate.
-8. train: once the serve phases have released their weights, full-width
-   gemma-2b (all 18 layers, bf16, remat, tied 256k vocab; seeded weights)
-   trains for 12 steps of ``make_train_step`` (the code path of
-   ``python -m repro_torch.launch.train``) on batch 2 x 2048 tokens of
+   backend and one tier-rg ``generate`` at batch 4 — device busy share,
+   device time by kernel family, port-kernel launches per generate.
+9. train: once the serve phases have released their weights, full-width
+   gemma-2b (all 18 layers, bf16, remat, tied 256k vocab; seeded weights),
+   then full-width recurrentgemma-2b (all 26 layers) each train for 12
+   steps of ``make_train_step`` (the code path of ``python -m
+   repro_torch.launch.train --full-config``) on batch 2 x 2048 tokens of
    ``SyntheticTokens`` seed 0.  Prints loss, grad norm and ms per step,
    tokens/s, model FLOPs utilisation against 989 TFLOP/s, peak device
    memory and kernel launches per step.  Checks finite losses, the mean of
    the last 3 below the first, a finite non-zero gradient for every leaf
-   at step 0, and 2 forward / 1 backward flash launches per layer and
-   step.  With ``--profile``, one more step under ``torch.profiler``.
+   at step 0, and the flash and scan launches per step worked out from the
+   layer kinds (remat reruns the periods' forward, not the epilogue's).
+   With ``--profile``, one more step of each under ``torch.profiler``.
 
 Every run measures every column of the kernels line: each serve phase and
-the train phase set the launch counters to 0 just before they start and
+each train run set the launch counters to 0 just before they start and
 read them just after, and a kernel's ``launches`` is the sum over those
-three phases of the same run.  The last lines are the card line, one
+phases of the same run.  The last lines are the card line, one
 ``{"kernels": [...]}`` JSON line and the ``{"ok": true, "device": ...}``
 JSON line.
 ``--tier-l-layers`` cuts tier-l's depth (never its width) if a time limit
@@ -87,6 +114,7 @@ SRC = ROOT / "src"
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12  # dense tensor-core bf16
+H100_F32_FLOPS = 67e12  # f32 outside the tensor cores
 
 # The serve phase's request shape and the batch of the full-width kernel
 # timings.
@@ -98,8 +126,14 @@ SLA_MS = 2000.0
 # The continuous serve phase's geometry (its pool: 1 + 8 * 18 = 145 pages).
 PAGE = 8
 N_SLOTS = 8
-# The train phase: full-width gemma-2b, batch x sequence, steps.
-TRAIN_ARCH = "gemma-2b"
+# The hybrid serve phase: recurrentgemma-2b at full width as tier-rg, with
+# the JAX package's quality for it (src/repro/serving/profiles.py:38).
+HYBRID_ARCH = "recurrentgemma-2b"
+HYBRID_TIER = "tier-rg"
+HYBRID_QUALITY = 42.0
+# The train phase: full-width gemma-2b, then recurrentgemma-2b; batch x
+# sequence, steps.
+TRAIN_ARCHS = ("gemma-2b", "recurrentgemma-2b")
 TRAIN_BATCH = 2
 TRAIN_SEQ = 2048
 TRAIN_STEPS = 12
@@ -109,6 +143,7 @@ TRAIN_STEPS = 12
 # decode may or may not run during the continuous phase).
 DENSE_PATH_KERNELS = ("rms_norm_fwd", "flash_attention_fwd", "decode_attention_fwd")
 PAGED_PATH_KERNELS = ("rms_norm_fwd", "flash_attention_fwd", "decode_attention_paged_fwd")
+HYBRID_PATH_KERNELS = DENSE_PATH_KERNELS + ("rglru_scan_fwd",)
 TRAIN_PATH_KERNELS = ("rms_norm_fwd", "flash_attention_fwd", "flash_attention_bwd")
 
 
@@ -244,6 +279,7 @@ def _sdpa(torch, q, k, v, **kw):
 
 def phase_kernels(torch, full):
     """Sweep + full-width comparisons; returns the kernels JSON entries."""
+    from repro_torch.configs.archs import get_config
     from repro_torch.kernels import decode_attention as dk
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import ref
@@ -272,6 +308,8 @@ def phase_kernels(torch, full):
         (1, 10, 2, 100, 128, True, 0), (2, 2, 1, 37, 16, True, 0),
         (1, 8, 1, 70, 256, True, 0), (1, 4, 2, 200, 64, False, 48),
         (2, 40, 8, 128, 128, True, 0),
+        # recurrentgemma's local layers: G = 10, D = 256, windowed
+        (2, 10, 1, 256, 256, True, 0), (1, 10, 1, 300, 256, True, 128),
     ]
     for dtype in (f32, bf16):
         for B, NQ, NKV, S, D, causal, window in flash_cases:
@@ -292,6 +330,8 @@ def phase_kernels(torch, full):
         (2, 2, 2, 256, 64, 0), (1, 1, 8, 512, 128, 0), (2, 2, 1, 256, 64, 64),
         (1, 4, 2, 128, 32, 0), (2, 8, 5, 152, 128, 0), (2, 1, 2, 40, 16, 0),
         (1, 1, 10, 96, 256, 0), (3, 2, 4, 33, 64, 16),
+        # recurrentgemma's local layers: G = 10 (two blocks of <= 8 q heads)
+        (4, 1, 10, 152, 256, 0), (2, 1, 10, 300, 256, 128),
     ]
     for dtype in (f32, bf16):
         for B, NKV, G, S, D, window in decode_cases:
@@ -318,6 +358,8 @@ def phase_kernels(torch, full):
         n += 1
     n += _paged_sweep(torch, gen)
     n += _bwd_sweep(torch, gen)
+    n += _rglru_sweep(torch, gen)
+    n += _hybrid_shapes(torch, gen)
     print(f"[kernels] {n} kernel-vs-plain comparisons within tolerance", flush=True)
 
     entries = []
@@ -331,15 +373,97 @@ def phase_kernels(torch, full):
     _print_entry(paged)
     bwd = _full_width_bwd(torch, gen)
     _print_entry(bwd)
-    return entries + [paged, bwd]
+    print("[kernels] rglru_scan_fwd has no library yardstick: no single PyTorch call "
+          "computes a linear recurrence (library_ms null)", flush=True)
+    hybrid = get_config(HYBRID_ARCH)
+    for B, S, label in ((full["batch"], full["prompt"], "hybrid serve prefill"),
+                        (TRAIN_BATCH, TRAIN_SEQ, "recurrentgemma training")):
+        scan = _full_width_rglru(torch, gen, B, S, hybrid.lru_width, label)
+        _print_entry(scan)
+    return entries + [paged, bwd, scan]
 
 
 def _print_entry(e):
+    lib = "none" if e["library_ms"] is None else f"{e['library_ms']:.4f} ms"
     print(f"[kernels] {e['name']:26s} {e['shape']}: kernel {e['ms']:.4f} ms "
           f"(eager with launch cost {e['eager_ms']:.4f} ms), "
-          f"plain {e['plain_ms']:.4f} ms, library {e['library_ms']:.4f} ms, "
+          f"plain {e['plain_ms']:.4f} ms, library {lib}, "
           f"bound {e['bound_ms']:.4f} ms ({e['bound_by']}), "
           f"max|err| {e['max_abs_err']:.3g}", flush=True)
+
+
+def _rglru_case(torch, gen, B, S, W, dtype, h0_dtype=None):
+    """Decays in (0, 1), small inputs, a non-zero h0: the RG-LRU regime of
+    tests/test_kernels.py."""
+    a = torch.sigmoid(2.0 * torch.randn((B, S, W), generator=gen)).to("cuda", dtype)
+    b = _randn(torch, (B, S, W), dtype, gen, scale=0.1)
+    h0 = _randn(torch, (B, W), h0_dtype or torch.float32, gen, scale=0.1)
+    return a, b, h0
+
+
+def _rglru_sweep(torch, gen) -> int:
+    """The scan kernel against ``rglru_scan_ref``, then its backward (the
+    kernel over the reversed sequence) against ``rglru_scan_bwd_ref``: the
+    tests/test_kernels.py shapes, ragged S and W, a bf16 h0; f32 and bf16;
+    and the carry across what were the Pallas kernel's sequence blocks."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as rk
+
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, S, W, h0_dtype in ((2, 256, 128, None), (1, 512, 256, None), (3, 128, 64, None),
+                                  (2, 300, 2500, None), (2, 77, 130, dtype), (1, 5, 7, None)):
+            a, b, h0 = _rglru_case(torch, gen, B, S, W, dtype, h0_dtype)
+            tag = f"rglru{(B, S, W)} {dtype} h0 {h0.dtype}"
+            h = rk.rglru_scan_fwd(a, b, h0)
+            _compare(torch, tag, h, ref.rglru_scan_ref(a, b, h0), dtype)
+            dh = _randn(torch, (B, S, W), dtype, gen)
+            for part, g, w in zip(("da", "db", "dh0"), rk.rglru_scan_bwd(a, h, h0, dh),
+                                  ref.rglru_scan_bwd_ref(a, h, h0, dh)):
+                check(g.dtype == w.dtype and g.shape == w.shape, f"{tag} bwd {part} dtype/shape")
+                _compare(torch, f"{tag} bwd {part}", g, w, dtype)
+            n += 2
+    a = torch.full((1, 256, 64), 0.99, device="cuda")
+    b = torch.full((1, 256, 64), 0.01, device="cuda")
+    h = rk.rglru_scan_fwd(a, b, torch.zeros(1, 64, device="cuda"))
+    _compare(torch, "rglru carry", h, ref.rglru_scan_ref(a, b, torch.zeros(1, 64, device="cuda")),
+             torch.float32)
+    check(float(h[0, -1, 0]) > float(h[0, 63, 0]) > float(h[0, 0, 0]),
+          "rglru carry: the state did not accumulate across the sequence")
+    return n + 1
+
+
+def _full_width_rglru(torch, gen, B, S, W, label):
+    """The scan kernel at a full-width recurrentgemma shape, f32 as the
+    model feeds it (its gates are computed in f32)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as rk
+
+    f32 = torch.float32
+    a, b, h0 = _rglru_case(torch, gen, B, S, W, f32)
+    err = _compare(torch, f"rglru full width {(B, S, W)}", rk.rglru_scan_fwd(a, b, h0),
+                   ref.rglru_scan_ref(a, b, h0), f32)
+    dh = _randn(torch, (B, S, W), f32, gen)
+    h = rk.rglru_scan_fwd(a, b, h0)
+    for part, g, w in zip(("da", "db", "dh0"), rk.rglru_scan_bwd(a, h, h0, dh),
+                          ref.rglru_scan_bwd_ref(a, h, h0, dh)):
+        _compare(torch, f"rglru full width {(B, S, W)} bwd {part}", g, w, f32)
+    # a and b read once, h written once, h0 read once; one multiply and one
+    # add per element on the CUDA cores.
+    nbytes = 3 * a.numel() * 4 + h0.numel() * 4
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = 2 * a.numel() / H100_F32_FLOPS * 1e3
+    # The plain version is a Python loop of S steps: few graph replays.
+    return dict(
+        name="rglru_scan_fwd", route="cuda", source="src/repro_torch/kernels/csrc/rglru_scan.cu",
+        replaces="src/repro/kernels/rglru_scan.py:59", max_abs_err=err,
+        shape=f"a, b {(B, S, W)} f32 ({label}, {B * -(-W // 128)} blocks)",
+        ms=time_ms(torch, lambda: rk.rglru_scan_fwd(a, b, h0)),
+        eager_ms=time_ms(torch, lambda: rk.rglru_scan_fwd(a, b, h0), graph=False),
+        plain_ms=time_ms(torch, lambda: ref.rglru_scan_ref(a, b, h0), launches=2, trials=3),
+        library_ms=None,
+        bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+    )
 
 
 def _paged_case(torch, gen, B, dtype, NKV=2, G=2, D=32, page=8, NB=3, model_layout=False):
@@ -404,7 +528,7 @@ def _paged_sweep(torch, gen) -> int:
 def _bwd_sweep(torch, gen) -> int:
     """The flash backward kernel against ``flash_attention_bwd_ref``, both
     fed the forward kernel's output and LSE, on model-layout views: the
-    tests/test_kernels.py cases, then D 128 / 256, G 5 / 8 (MQA), ragged S,
+    tests/test_kernels.py cases, then D 128 / 256, G 5 / 8 / 10 (MQA), ragged S,
     windowed and bidirectional; f32 (the CUDA-core kernels), bf16 and f16
     (the tensor-core kernels)."""
     from repro_torch.kernels import flash_attention as fk
@@ -418,6 +542,8 @@ def _bwd_sweep(torch, gen) -> int:
         (1, 10, 2, 256, 128, True, 0), (2, 8, 1, 256, 256, True, 0),
         (1, 8, 1, 200, 256, True, 0), (2, 10, 2, 130, 128, False, 40),
         (1, 5, 1, 200, 64, True, 64), (2, 6, 2, 100, 16, True, 0), (1, 4, 4, 77, 256, False, 0),
+        # recurrentgemma's local layers: G = 10, D = 256
+        (2, 10, 1, 256, 256, True, 0), (1, 10, 1, 200, 256, True, 64),
     ]
     n = 0
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
@@ -438,6 +564,73 @@ def _bwd_sweep(torch, gen) -> int:
     return n
 
 
+def _hybrid_shapes(torch, gen) -> int:
+    """The norm, flash forward and flash backward kernels against their
+    plain versions at the shapes the hybrid serve prefill and the
+    recurrentgemma train step give them (bf16, the ``(1 + w)`` norm, the
+    local layers' window); prints each with the kernel's and the plain
+    version's times."""
+    from repro_torch.configs.archs import get_config
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import flash_attention_bwd as bk
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rk
+
+    cfg = get_config(HYBRID_ARCH)
+    bf16 = torch.bfloat16
+    NQ, NKV, D, window = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.window
+    n = 0
+    for B, S, label, train in ((BATCH, PROMPT, "hybrid serve prefill", False),
+                               (TRAIN_BATCH, TRAIN_SEQ, "recurrentgemma training", True)):
+        x = _randn(torch, (B, S, cfg.d_model), bf16, gen)
+        w = _randn(torch, (cfg.d_model,), torch.float32, gen, scale=0.1)
+        err = _compare(torch, f"rms_norm {tuple(x.shape)} offset ({label})",
+                       rk.rms_norm_fwd(x, w, offset=True),
+                       ref.rms_norm_ref(x, w, offset=True), bf16)
+        print(f"[kernels] {label}: rms_norm_fwd x {tuple(x.shape)} bf16 offset: kernel "
+              f"{time_ms(torch, lambda: rk.rms_norm_fwd(x, w, offset=True)):.4f} ms, plain "
+              f"{time_ms(torch, lambda: ref.rms_norm_ref(x, w, offset=True)):.4f} ms, "
+              f"max|err| {err:.3g}", flush=True)
+        n += 1
+        q = _randn(torch, (B, S, NQ, D), bf16, gen).transpose(1, 2)
+        k = _randn(torch, (B, S, NKV, D), bf16, gen).transpose(1, 2)
+        v = _randn(torch, (B, S, NKV, D), bf16, gen).transpose(1, 2)
+        kw = dict(causal=True, window=window, return_lse=train)
+        reps = 5 if train else 20  # launches per timed replay
+        got, want = fk.flash_attention_fwd(q, k, v, **kw), ref.flash_attention_ref(q, k, v, **kw)
+        tag = f"flash q {tuple(q.shape)} window {window} bf16 ({label})"
+        if train:
+            err = _compare(torch, tag, got[0], want[0], bf16)
+            _compare(torch, tag + " lse", got[1], want[1], torch.float32)
+        else:
+            err = _compare(torch, tag, got, want, bf16)
+        kernel_ms = time_ms(torch, lambda: fk.flash_attention_fwd(q, k, v, **kw), reps)
+        plain_ms = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, **kw), reps)
+        print(f"[kernels] {label}: flash_attention_fwd q {tuple(q.shape)} bf16 window "
+              f"{window}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"max|err| {err:.3g}", flush=True)
+        n += 1
+        if not train:
+            continue
+        out, lse = got
+        dout = _randn(torch, (B, S, NQ, D), bf16, gen).transpose(1, 2)
+
+        def kernel():
+            return bk.flash_attention_bwd(q, k, v, out, dout, lse, window=window)
+
+        def plain():
+            return ref.flash_attention_bwd_ref(q, k, v, out, dout, lse, window=window)
+
+        err = max(_compare(torch, f"flash bwd q {tuple(q.shape)} window {window} ({label}) "
+                           f"{part}", g, w_, bf16)
+                  for part, g, w_ in zip(("dq", "dk", "dv"), kernel(), plain()))
+        print(f"[kernels] {label}: flash_attention_bwd q {tuple(q.shape)} bf16 window "
+              f"{window}: kernel {time_ms(torch, kernel, launches=5):.4f} ms, plain "
+              f"{time_ms(torch, plain, launches=5):.4f} ms, max|err| {err:.3g}", flush=True)
+        n += 1
+    return n
+
+
 def _full_width_bwd(torch, gen):
     """The flash backward kernel at the train phase's gemma-2b shape: q
     (2, 8, 2048, 256), one kv head, bf16, causal."""
@@ -446,7 +639,7 @@ def _full_width_bwd(torch, gen):
     from repro_torch.kernels import flash_attention_bwd as bk
     from repro_torch.kernels import ref
 
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(TRAIN_ARCHS[0])
     bf16 = torch.bfloat16
     B, S, NQ, NKV, D = TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = _randn(torch, (B, S, NQ, D), bf16, gen).transpose(1, 2)
@@ -628,12 +821,16 @@ def _full_width(torch, full, B, gen):
 # Phase 4: small models, card vs CPU.
 # ---------------------------------------------------------------------------
 def phase_model(torch):
+    from repro_torch.configs.archs import reduced
     from repro_torch.configs.mdinference_zoo import ONDEVICE_HEDGE
     from repro_torch.launch.serve import tier_configs
     from repro_torch.models import transformer as T
 
     models = [(name, cfg) for name, cfg, _ in tier_configs()]
     models.append(("hedge", ONDEVICE_HEDGE.config()))
+    # One period of (recurrent, recurrent, local) and the (recurrent,
+    # recurrent) epilogue; window 32, so 16 decode steps wrap the ring.
+    models.append(("hybrid", reduced(HYBRID_ARCH, n_layers=5)))
     B, S, steps, max_len = 2, 24, 16, 48
     for name, cfg in models:
         cpu_params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
@@ -660,7 +857,8 @@ def phase_model(torch):
               f"model {name}: greedy tokens differ between card and CPU")
         print(f"[model] {name:6s} {cfg.name}: prefill + {steps} greedy steps, card vs CPU "
               f"logits max|err| {err:.3g} (atol 1e-3), tokens equal", flush=True)
-        _model_paged(torch, name, cfg, cpu_params, gpu_params)
+        if T.supports_paged_decode(cfg):  # recurrent state is not paged
+            _model_paged(torch, name, cfg, cpu_params, gpu_params)
         if name != "hedge":
             _model_grads(torch, name, cfg, cpu_params)
 
@@ -756,16 +954,9 @@ def _model_paged(torch, name, cfg, cpu_params, gpu_params):
 # Phase 5: serve at full width.
 # ---------------------------------------------------------------------------
 def phase_serve(torch, tier_l_layers, card):
-    import numpy as np
     from repro_torch.configs.archs import get_config
-    from repro_torch.core.network import LognormalNetwork
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
-    from repro_torch.models import transformer as T
-    from repro_torch.observability.quantile import quantile
-    from repro_torch.serving.loadgen import PoissonArrivals, make_trace
-    from repro_torch.serving.scheduler import MDInferenceScheduler, SchedulerConfig
-    from repro_torch.tree import tree_leaves
 
     full = get_config("qwen3-14b")
     tier_l = get_config("qwen3-14b", n_layers=tier_l_layers)
@@ -773,23 +964,46 @@ def phase_serve(torch, tier_l_layers, card):
         print(f"[serve] CUT: tier-l depth {tier_l.n_layers} of {full.n_layers} layers "
               "(width unchanged)", flush=True)
     configs = [(n, tier_l if n == "tier-l" else c, q) for n, c, q in serve.tier_configs()]
+    ops.reset_launch_counts()  # the main path starts here
+    engine, results = _serve_engine(torch, "serve", configs, "tier-l", card)
+    counts = ops.launch_counts()  # the main path ends here
+    print(f"[serve] kernel launches during the serve phase: {counts}", flush=True)
+    for name in DENSE_PATH_KERNELS:
+        check(counts[name] > 0, f"serve: kernel {name} was never launched on the main path")
+    return counts, results, engine
+
+
+def _serve_engine(torch, label, configs, tier, card):
+    """A dense-tier ``ServingEngine`` over ``configs`` (seeded weights on the
+    card) with the measured hedge: ``measure_profiles``, then
+    ``drain_trace`` of the Poisson trace under sync and async dispatch,
+    with conservation and traffic on ``tier``; then one prefill of
+    ``tier`` whose logits must be finite.  Returns (engine, results)."""
+    import numpy as np
+    from repro_torch.core.network import LognormalNetwork
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.observability.quantile import quantile
+    from repro_torch.serving.loadgen import PoissonArrivals, make_trace
+    from repro_torch.serving.scheduler import MDInferenceScheduler, SchedulerConfig
+    from repro_torch.tree import tree_leaves
+
     prompt, gen, sla = PROMPT, GEN, SLA_MS
     max_len = prompt + gen + 8
-
-    ops.reset_launch_counts()  # the main path starts here
     t0 = time.perf_counter()
     engine = serve.build_engine(max_len=max_len, seed=0, measured_hedge=True,
                                 dispatch="sync", device="cuda", configs=configs)
     torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in tree_leaves(engine.variants["tier-l"].params))
-    print(f"[serve] engine built in {time.perf_counter() - t0:.1f}s; tier-l "
-          f"{tier_l.name} {n_params / 1e9:.2f}B params bf16, "
+    v = engine.variants[tier]
+    n_params = sum(p.numel() for p in tree_leaves(v.params))
+    print(f"[{label}] engine built in {time.perf_counter() - t0:.1f}s; {tier} "
+          f"{v.cfg.name} {v.cfg.n_layers} layers {n_params / 1e9:.2f}B params {v.cfg.dtype}, "
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB "
           "allocated", flush=True)
     registry = engine.measure_profiles(prompt_len=prompt, gen_tokens=gen, trials=3, seed=0)
     ondevice = engine.hedge_backend.measure_profile(prompt_len=prompt, gen_tokens=gen, trials=3)
     for p in list(registry) + [ondevice]:
-        print(f"[serve] profile {p.name:22s} mu_ms={p.mu_ms:.3f} sigma_ms={p.sigma_ms:.3f}",
+        print(f"[{label}] profile {p.name:22s} mu_ms={p.mu_ms:.3f} sigma_ms={p.sigma_ms:.3f}",
               flush=True)
 
     n_req = REQUESTS
@@ -806,37 +1020,32 @@ def phase_serve(torch, tier_l_layers, card):
         wall = time.perf_counter() - t1
         rejected = metrics.n_rejected if metrics is not None else 0
         check(len({c.rid for c in completions}) == len(completions) == n_req - rejected,
-              f"serve {dispatch}: {len(completions)} resolved + {rejected} rejected "
+              f"{label} {dispatch}: {len(completions)} resolved + {rejected} rejected "
               f"!= {n_req} submitted")
-        check(len(completions) == n_req, f"serve {dispatch}: not every request resolved")
+        check(len(completions) == n_req, f"{label} {dispatch}: not every request resolved")
         for c in completions:
             check(c.tokens.shape == (gen,) and int(c.tokens.min()) >= 0,
-                  f"serve {dispatch}: request {c.rid} has bad tokens {c.tokens}")
-        on_l = sum(c.model_name == "tier-l" for c in completions)
-        check(on_l > 0, f"serve {dispatch}: no request ran on tier-l")
+                  f"{label} {dispatch}: request {c.rid} has bad tokens {c.tokens}")
+        on_tier = sum(c.model_name == tier for c in completions)
+        check(on_tier > 0, f"{label} {dispatch}: no request ran on {tier}")
         lats = [c.latency_ms for c in completions]
         races = {k: round(v, 4) for k, v in metrics.race_resolution.items()}
         results[dispatch] = dict(resolved=len(completions), rejected=rejected, cancelled=0,
-                                 on_tier_l=on_l, race_resolution=races,
+                                 on_tier=on_tier, race_resolution=races,
                                  p50_ms=quantile(lats, 50), p99_ms=quantile(lats, 99),
                                  wall_s=wall)
-        print(f"[serve] dispatch={dispatch}: {len(completions)} resolved + {rejected} "
-              f"rejected + 0 cancelled == {n_req} submitted; {on_l} on tier-l; "
+        print(f"[{label}] dispatch={dispatch}: {len(completions)} resolved + {rejected} "
+              f"rejected + 0 cancelled == {n_req} submitted; {on_tier} on {tier}; "
               f"race_resolution {races}; latency p50 {quantile(lats, 50):.1f} ms "
               f"p99 {quantile(lats, 99):.1f} ms; drain {wall:.1f}s; card {card}", flush=True)
 
-    v = engine.variants["tier-l"]
     with torch.inference_mode():
         tokens = torch.as_tensor(prompts[:2], device="cuda")
         _, logits = T.prefill(v.cfg, v.params, {"tokens": tokens}, max_len)
-    check(tuple(logits.shape) == (2, v.cfg.vocab_size), f"tier-l logits shape {logits.shape}")
-    check(bool(torch.isfinite(logits).all()), "tier-l logits are not finite")
-    counts = ops.launch_counts()  # the main path ends here
-    print(f"[serve] tier-l logits finite, shape {tuple(logits.shape)}; kernel launches "
-          f"during the serve phase: {counts}", flush=True)
-    for name in DENSE_PATH_KERNELS:
-        check(counts[name] > 0, f"serve: kernel {name} was never launched on the main path")
-    return counts, results, engine
+    check(tuple(logits.shape) == (2, v.cfg.vocab_size), f"{tier} logits shape {logits.shape}")
+    check(bool(torch.isfinite(logits).all()), f"{tier} logits are not finite")
+    print(f"[{label}] {tier} logits finite, shape {tuple(logits.shape)}", flush=True)
+    return engine, results
 
 
 # ---------------------------------------------------------------------------
@@ -952,12 +1161,91 @@ def phase_continuous(torch, engine, card):
 
 
 # ---------------------------------------------------------------------------
-# Phase 8: train full-width gemma-2b.
+# Phase 7: hybrid serve at full width (recurrentgemma-2b).
 # ---------------------------------------------------------------------------
-def phase_train(torch, card, profile: bool):
-    """12 steps of ``make_train_step`` on full-width gemma-2b (the code
-    path of ``python -m repro_torch.launch.train --arch gemma-2b
-    --full-config``, with its optimizer settings)."""
+def _expected_launches(cfg):
+    """Launches per prefill and per decode step worked out from the layer
+    kinds: a scan per recurrent layer and a flash launch per attention layer
+    in prefill, a ring-decode launch per attention layer in decode (the
+    recurrent state is updated elementwise), two norms per block plus the
+    final norm in both."""
+    kinds = cfg.layer_kinds()
+    n_rec = sum(k == "recurrent" for k in kinds)
+    n_attn = sum(k in ("attn", "local") for k in kinds)
+    norms = 2 * len(kinds) + 1 + (2 * n_attn if cfg.qk_norm else 0)
+    prefill = dict(rms_norm_fwd=norms, flash_attention_fwd=n_attn, rglru_scan_fwd=n_rec,
+                   decode_attention_fwd=0)
+    decode = dict(rms_norm_fwd=norms, flash_attention_fwd=0, rglru_scan_fwd=0,
+                  decode_attention_fwd=n_attn)
+    return prefill, decode
+
+
+def phase_hybrid(torch, card):
+    """Full-width recurrentgemma-2b served as tier-rg by a ``JitBackend``."""
+    from repro_torch.configs.archs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(HYBRID_ARCH)
+    ops.reset_launch_counts()  # the hybrid path starts here
+    engine, results = _serve_engine(torch, "hybrid", [(HYBRID_TIER, cfg, HYBRID_QUALITY)],
+                                    HYBRID_TIER, card)
+    counts = ops.launch_counts()  # the hybrid path ends here
+    print(f"[hybrid] kernel launches during the hybrid serve phase: {counts}", flush=True)
+    for name in HYBRID_PATH_KERNELS:
+        check(counts[name] > 0, f"hybrid: kernel {name} was never launched on its path")
+
+    # Launches of one prefill and one decode step, counted on their own (the
+    # phase's counts above are already read).
+    v = engine.variants[HYBRID_TIER]
+    want_prefill, want_decode = _expected_launches(cfg)
+    tokens = torch.randint(0, 256, (BATCH, PROMPT), device="cuda")
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        cache, logits = T.prefill(v.cfg, v.params, {"tokens": tokens}, PROMPT + GEN + 8)
+        got_prefill = ops.launch_counts()
+        ops.reset_launch_counts()
+        pos = torch.full((BATCH,), PROMPT, dtype=torch.int32, device="cuda")
+        T.decode_step(v.cfg, v.params, cache, logits.argmax(-1), pos)
+        got_decode = ops.launch_counts()
+    for what, got, want in (("prefill", got_prefill, want_prefill),
+                            ("decode step", got_decode, want_decode)):
+        check({k: got[k] for k in want} == want,
+              f"hybrid: launches per {what} {got}, expected {want} from the layer kinds")
+    print(f"[hybrid] launches per prefill {want_prefill}, per decode step {want_decode}: "
+          "as worked out from the layer kinds", flush=True)
+    ops.reset_launch_counts()
+    results["launches_per_prefill"] = want_prefill
+    results["launches_per_decode_step"] = want_decode
+    return counts, results, engine
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: train full-width gemma-2b and recurrentgemma-2b.
+# ---------------------------------------------------------------------------
+def _train_launches(cfg):
+    """Launches per train step worked out from the layer kinds, with remat
+    on the periods only: the periods' blocks run their forward twice
+    (forward and recompute), the epilogue's once, and every block its
+    backward once."""
+    n_p = cfg.n_periods
+
+    def count(kinds):
+        period = sum(k in kinds for k in cfg.pattern)
+        epilogue = sum(k in kinds for k in cfg.epilogue)
+        return 2 * n_p * period + epilogue, n_p * period + epilogue
+
+    attn_fwd, attn_bwd = count(("attn", "local"))
+    rec_fwd, rec_bwd = count(("recurrent",))
+    # The scan's backward is the same kernel over the reversed sequence.
+    return dict(flash_attention_fwd=attn_fwd, flash_attention_bwd=attn_bwd,
+                rglru_scan_fwd=rec_fwd + rec_bwd)
+
+
+def phase_train(torch, arch, card, profile: bool):
+    """12 steps of ``make_train_step`` on full-width ``arch`` (the code path
+    of ``python -m repro_torch.launch.train --arch ARCH --full-config``,
+    with its optimizer settings)."""
     import numpy as np
     from repro_torch.configs.archs import get_config
     from repro_torch.kernels import ops
@@ -967,7 +1255,7 @@ def phase_train(torch, card, profile: bool):
     )
     from repro_torch.tree import tree_leaves
 
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(arch)
     B, S, L = TRAIN_BATCH, TRAIN_SEQ, cfg.n_layers
     opt_cfg = OptimizerConfig(learning_rate=3e-4, warmup_steps=min(100, TRAIN_STEPS // 10 + 1),
                               total_steps=TRAIN_STEPS)
@@ -982,7 +1270,8 @@ def phase_train(torch, card, profile: bool):
     state = init_train_state(cfg, torch.Generator().manual_seed(0), TrainConfig(), device="cuda")
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in tree_leaves(state["params"]))
-    print(f"[train] {cfg.name}: {L} layers, d {cfg.d_model}, {cfg.n_heads} q / "
+    print(f"[train] {cfg.name}: {L} layers {cfg.layer_kinds().count('recurrent')} recurrent "
+          f"(lru width {cfg.lru_width}), d {cfg.d_model}, {cfg.n_heads} q / "
           f"{cfg.n_kv_heads} kv heads x {cfg.head_dim}, d_ff {cfg.d_ff} {cfg.mlp_type}, vocab "
           f"{cfg.vocab_size}, {cfg.dtype}, remat={cfg.remat}; {n_params / 1e9:.3f}B params; "
           f"state built in {time.perf_counter() - t0:.1f}s, "
@@ -1004,54 +1293,61 @@ def phase_train(torch, card, profile: bool):
             # leaf's gradient was finite and non-zero iff its mu is.
             for i, mu in enumerate(tree_leaves(state["opt"]["mu"])):
                 check(bool(torch.isfinite(mu).all()) and float(mu.abs().max()) > 0,
-                      f"train: leaf {i} {tuple(mu.shape)} got a zero or non-finite gradient")
-        print(f"[train] step {step:2d}  loss {loss:.4f}  gnorm {gnorm:.3f}  "
+                      f"train {arch}: leaf {i} {tuple(mu.shape)} got a zero or non-finite "
+                      "gradient")
+        print(f"[train] {arch} step {step:2d}  loss {loss:.4f}  gnorm {gnorm:.3f}  "
               f"lr {float(metrics['lr']):.2e}  {step_ms[-1]:.1f} ms", flush=True)
     counts = ops.launch_counts()  # the train path ends here
     peak = torch.cuda.max_memory_allocated()
 
-    check(all(np.isfinite(losses)), f"train: non-finite losses {losses}")
+    check(all(np.isfinite(losses)), f"train {arch}: non-finite losses {losses}")
     check(float(np.mean(losses[-3:])) < losses[0],
-          f"train: mean of the last 3 losses {np.mean(losses[-3:]):.4f} not below the "
+          f"train {arch}: mean of the last 3 losses {np.mean(losses[-3:]):.4f} not below the "
           f"first {losses[0]:.4f}")
-    for name in TRAIN_PATH_KERNELS:
-        check(counts[name] > 0, f"train: kernel {name} was never launched on the train path")
-    check(counts["flash_attention_fwd"] == 2 * L * TRAIN_STEPS
-          and counts["flash_attention_bwd"] == L * TRAIN_STEPS,
-          f"train: flash launches {counts['flash_attention_fwd']} fwd / "
-          f"{counts['flash_attention_bwd']} bwd, expected {2 * L} / {L} per step (remat)")
+    want = _train_launches(cfg)
+    for name in TRAIN_PATH_KERNELS + (("rglru_scan_fwd",) if want["rglru_scan_fwd"] else ()):
+        check(counts[name] > 0, f"train {arch}: kernel {name} was never launched on the "
+              "train path")
+    got = {k: counts[k] / TRAIN_STEPS for k in want}
+    check(got == want, f"train {arch}: launches per step {got}, expected {want} (remat on "
+          "the periods)")
     steady = statistics.median(step_ms[1:])
     tokens = B * S
     # Model FLOPs (remat's recompute not counted): 6 per parameter and
-    # token, plus attention's 12 * D per causal (q, k) pair and q head.
-    flops = 6 * n_params * tokens + 12 * L * cfg.head_dim * B * cfg.n_heads * (S * (S + 1) // 2)
+    # token, plus attention's 12 * D per (q, k) pair in the causal window
+    # and q head, over the attention layers.
+    n_attn = sum(k in ("attn", "local") for k in cfg.layer_kinds())
+    span = cfg.window if cfg.window else S
+    pairs = sum(min(q + 1, span) for q in range(S))
+    flops = 6 * n_params * tokens + 12 * n_attn * cfg.head_dim * B * cfg.n_heads * pairs
     result = dict(
         arch=cfg.name, params=n_params, batch=B, seq=S, steps=TRAIN_STEPS, losses=losses,
         step_ms=step_ms, median_step_ms=steady, tokens_per_s=tokens / steady * 1e3,
         mfu=flops / (steady / 1e3) / H100_BF16_FLOPS, model_flops_per_step=flops,
         peak_gib=peak / 2**30, launches_per_step={k: v / TRAIN_STEPS for k, v in counts.items()},
     )
-    print(f"[train] median step {steady:.1f} ms (steps 1-{TRAIN_STEPS - 1}; step 0 "
+    print(f"[train] {arch} median step {steady:.1f} ms (steps 1-{TRAIN_STEPS - 1}; step 0 "
           f"{step_ms[0]:.1f} ms): {result['tokens_per_s']:.0f} tokens/s, MFU "
           f"{100 * result['mfu']:.2f} % of 989 TFLOP/s bf16 ({flops / 1e12:.1f} TFLOP model "
           f"FLOPs per step); peak memory {result['peak_gib']:.1f} GiB; loss {losses[0]:.4f} -> "
           f"{np.mean(losses[-3:]):.4f} (mean of last 3); card {card}", flush=True)
-    print(f"[train] kernel launches per step: {result['launches_per_step']}", flush=True)
+    print(f"[train] {arch} kernel launches per step: {result['launches_per_step']}", flush=True)
     if profile:
         batch = {k: torch.from_numpy(v).to("cuda") for k, v in pipe.batch_at(TRAIN_STEPS).items()}
-        result["profile"] = _profile_step(torch, lambda: step_fn(state, batch), "train step",
-                                          card)
+        result["profile"] = _profile_step(torch, lambda: step_fn(state, batch),
+                                          f"{arch} train step", card)
     del state
     torch.cuda.empty_cache()
     return counts, result
 
 
 # ---------------------------------------------------------------------------
-# Optional phase: where a tier-l request's time goes.
+# Optional phase: where a request's time goes.
 # ---------------------------------------------------------------------------
 _PORT_KERNELS = ("rms_norm_kernel", "flash_fwd_kernel", "flash_bwd_dq_kernel",
                  "flash_bwd_dkv_kernel", "flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel",
-                 "flash_bwd_group_sum_kernel", "decode_fwd_kernel", "decode_paged_fwd_kernel")
+                 "flash_bwd_group_sum_kernel", "decode_fwd_kernel", "decode_paged_fwd_kernel",
+                 "rglru_scan_kernel")
 
 
 def _families(prof):
@@ -1099,23 +1395,31 @@ def _profile_step(torch, fn, label, card):
                 top=by_name.most_common(8))
 
 
-def phase_profile(torch, backends, card):
-    """torch.profiler over one timed tier-l ``generate`` per backend and
-    batch size: device busy share and device time by kernel family."""
+def phase_profile(torch, runs, card):
+    """torch.profiler over one timed ``generate`` per (label, backend, tier,
+    batch size) of ``runs``: device busy share and device time by kernel
+    family."""
     import numpy as np
     from repro_torch.kernels import ops
 
     out = {}
-    for (label, backend), B in ((lb, B) for lb in backends.items() for B in (1, 4)):
+    for label, backend, tier, B in runs:
         tokens = np.random.default_rng(B).integers(0, 256, (B, PROMPT))
-        backend.generate("tier-l", tokens, GEN)  # warm this shape
+        backend.generate(tier, tokens, GEN)  # warm this shape
         ops.reset_launch_counts()
-        row = _profile_step(torch, lambda: backend.generate("tier-l", tokens, GEN),
-                            f"{label} tier-l B={B} prompt {PROMPT} gen {GEN}", card)
+        row = _profile_step(torch, lambda: backend.generate(tier, tokens, GEN),
+                            f"{label} {tier} B={B} prompt {PROMPT} gen {GEN}", card)
         row["launches"] = ops.launch_counts()
         print(f"[profile]   port kernel launches {row['launches']}", flush=True)
-        out[f"{label} B={B}"] = row
+        out[f"{label} {tier} B={B}"] = row
     return out
+
+
+def _release(torch, label):
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[{label}] released: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated",
+          flush=True)
 
 
 def main(argv=None) -> int:
@@ -1123,8 +1427,9 @@ def main(argv=None) -> int:
     ap.add_argument("--tier-l-layers", type=int, default=40,
                     help="tier-l depth (qwen3-14b has 40); width is never cut")
     ap.add_argument("--profile", action="store_true",
-                    help="profile one tier-l generate per backend after the serve "
-                    "phases, and one train step after the train phase")
+                    help="profile one tier-l generate per backend and batch 1 / 4 after "
+                    "the serve phases, one tier-rg generate at batch 4 after the hybrid "
+                    "phase, and one step after each train run")
     ap.add_argument("--ptxas", action="store_true", help="print nvcc -Xptxas -v register use")
     ap.add_argument("--json-out", default=None, help="also write the results here")
     args = ap.parse_args(argv)
@@ -1148,21 +1453,31 @@ def main(argv=None) -> int:
     phase_model(torch)
     dense_counts, serve_results, engine = phase_serve(torch, args.tier_l_layers, card)
     paged_counts, serve_results["continuous"], cbackend = phase_continuous(torch, engine, card)
-    profile = (phase_profile(torch, {"dense": engine.backend, "continuous": cbackend}, card)
+    profile = (phase_profile(torch, [(label, backend, "tier-l", B)
+                                     for label, backend in (("dense", engine.backend),
+                                                            ("continuous", cbackend))
+                                     for B in (1, 4)], card)
                if args.profile else {})
-    del engine, cbackend  # release tier-l's weights before training
-    gc.collect()
-    torch.cuda.empty_cache()
-    print(f"[serve] released: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated",
-          flush=True)
-    train_counts, train = phase_train(torch, card, args.profile)
-    counts = {k: dense_counts[k] + paged_counts[k] + train_counts[k] for k in dense_counts}
+    del engine, cbackend  # release tier-l's weights before the hybrid tier
+    _release(torch, "serve")
+    hybrid_counts, serve_results["hybrid"], hengine = phase_hybrid(torch, card)
+    if args.profile:
+        profile.update(phase_profile(torch, [("hybrid", hengine.backend, HYBRID_TIER, BATCH)],
+                                     card))
+    del hengine  # release tier-rg's weights before training
+    _release(torch, "hybrid")
+    phase_counts = {"dense": dense_counts, "continuous": paged_counts, "hybrid": hybrid_counts}
+    train = {}
+    for arch in TRAIN_ARCHS:
+        phase_counts[f"train {arch}"], train[arch] = phase_train(torch, arch, card, args.profile)
+    counts = {k: sum(c[k] for c in phase_counts.values()) for k in dense_counts}
     names = {e["name"] for e in entries}
     check(names == set(counts), f"kernels timed {sorted(names)} != kernels counted {sorted(counts)}")
     for e in entries:
         e["launches"] = counts[e["name"]]
         check(e["launches"] > 0,
               f"kernel {e['name']} was never launched by the serve and train phases")
+    print(f"[launches] by phase: {phase_counts}", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels_line = {"kernels": [{k: e[k] for k in keys} for e in entries]}
@@ -1170,9 +1485,7 @@ def main(argv=None) -> int:
         Path(args.json_out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json_out).write_text(json.dumps(
             dict(card=card, kernels=entries, serve=serve_results, train=train,
-                 launches=counts, launches_dense=dense_counts,
-                 launches_continuous=paged_counts, launches_train=train_counts,
-                 profile=profile,
+                 launches=counts, launches_by_phase=phase_counts, profile=profile,
                  seconds=time.perf_counter() - t_start), indent=1))
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)
     print(f"card: {card}")

@@ -22,7 +22,7 @@ from typing import Dict, Iterable, Tuple
 
 __all__ = ["SOURCES", "NVCC_FLAGS", "build", "build_dir", "library", "check_launch"]
 
-SOURCES = ("flash_attention", "flash_attention_bwd", "decode_attention")
+SOURCES = ("flash_attention", "flash_attention_bwd", "decode_attention", "rglru_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

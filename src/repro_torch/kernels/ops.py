@@ -6,9 +6,10 @@ The model calls these.  A CPU tensor goes to the plain PyTorch version in
 wrapper launches it or raises.  There is no fallback: a kernel that fails
 to build or launch raises.
 
-Training differentiates :func:`rms_norm` and :func:`flash_attention`
-through the autograd Functions :class:`RMSNorm` and :class:`FlashAttention`
-(the port of the JAX model's ``custom_vjp``).  They are used only when
+Training differentiates :func:`rms_norm`, :func:`flash_attention` and
+:func:`rglru_scan` through the autograd Functions :class:`RMSNorm`,
+:class:`FlashAttention` (the port of the JAX model's ``custom_vjp``) and
+:class:`RGLRUScan`.  They are used only when
 autograd records: with grad disabled (serving runs under
 ``torch.inference_mode()``), or when no input requires grad, the call goes
 straight to the kernel wrapper, so serving pays no autograd overhead.
@@ -23,6 +24,7 @@ from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import flash_attention_bwd as _flash_bwd
 from repro_torch.kernels import ref
+from repro_torch.kernels import rglru_scan as _rglru
 from repro_torch.kernels import rmsnorm as _rmsnorm
 
 __all__ = [
@@ -30,8 +32,10 @@ __all__ = [
     "flash_attention",
     "decode_attention",
     "decode_attention_paged",
+    "rglru_scan",
     "RMSNorm",
     "FlashAttention",
+    "RGLRUScan",
     "COUNTERS",
     "launch_counts",
     "reset_launch_counts",
@@ -43,6 +47,7 @@ COUNTERS = {
     "flash_attention_bwd": _flash_bwd.launches,
     "decode_attention_fwd": _decode.launches,
     "decode_attention_paged_fwd": _decode.paged_launches,
+    "rglru_scan_fwd": _rglru.launches,
 }
 
 
@@ -99,6 +104,29 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
+class RGLRUScan(torch.autograd.Function):
+    """The RG-LRU recurrence with a gradient.  Forward: the scan kernel on
+    CUDA, the plain version on the CPU; saves a, the output h and h0.
+    Backward: the same kernel over the reversed sequence on CUDA
+    (:func:`rglru_scan.rglru_scan_bwd`), :func:`ref.rglru_scan_bwd_ref` on
+    the CPU.  The JAX package differentiates its associative scan with
+    ``jax.grad``; it has no Pallas backward here."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        h = _rglru_scan_fwd(a, b, h0)
+        ctx.save_for_backward(a, h, h0)
+        ctx.b_dtype = b.dtype
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        a, h, h0 = ctx.saved_tensors
+        bwd = ref.rglru_scan_bwd_ref if a.device.type == "cpu" else _rglru.rglru_scan_bwd
+        da, db, dh0 = bwd(a, h, h0, dh)
+        return da, db.to(ctx.b_dtype), dh0
+
+
 def _rms_norm_fwd(x, w, *, eps, offset):
     if x.device.type == "cpu":
         return ref.rms_norm_ref(x, w, eps=eps, offset=offset)
@@ -153,6 +181,21 @@ def decode_attention_paged(q, k_pool, v_pool, page_tables, pos, *, window: int =
     return _decode.decode_attention_paged_fwd(
         q, k_pool, v_pool, page_tables, pos, window=window, scale=scale
     )
+
+
+def _rglru_scan_fwd(a, b, h0):
+    if a.device.type == "cpu":
+        return ref.rglru_scan_ref(a, b, h0)
+    return _rglru.rglru_scan_fwd(a, b, h0)
+
+
+def rglru_scan(a, b, h0):
+    """``h_t = a_t * h_{t-1} + b_t`` from ``h0``: a, b (B, S, W), h0 (B, W)
+    -> h (B, S, W) in a's dtype, carried in f32.  Differentiable (through
+    :class:`RGLRUScan`) in a, b and h0."""
+    if _records(a, b, h0):
+        return RGLRUScan.apply(a, b, h0)
+    return _rglru_scan_fwd(a, b, h0)
 
 
 def launch_counts() -> Dict[str, int]:

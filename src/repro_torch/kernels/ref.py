@@ -24,6 +24,8 @@ __all__ = [
     "decode_attention_paged_ref",
     "flash_attention_bwd_ref",
     "rms_norm_bwd_ref",
+    "rglru_scan_ref",
+    "rglru_scan_bwd_ref",
 ]
 
 _NEG_INF = -1e30  # finite masked-score sentinel (a fully masked row -> mean of v)
@@ -205,3 +207,36 @@ def flash_attention_bwd_ref(q, k, v, out, dout, lse, *, causal: bool = True,
     dk = torch.einsum("bkgqs,bkgqd->bksd", ds, qf)
     dv = torch.einsum("bkgqs,bkgqd->bksd", p, dof)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def rglru_scan_ref(a, b, h0):
+    """``h_t = a_t * h_{t-1} + b_t`` (``h_{-1} = h0``).  a, b: (B, S, W); h0:
+    (B, W).  Accumulates in f32 (a rounded multiply, then a rounded add, step
+    by step) and returns h in a's dtype, as ``repro.kernels.ref``'s
+    associative-scan version does up to summation order."""
+    af, bf = a.float(), b.float()
+    h = h0.float()
+    out = torch.empty_like(af)
+    for t in range(a.shape[1]):
+        h = af[:, t] * h + bf[:, t]
+        out[:, t] = h
+    return out.to(a.dtype)
+
+
+def rglru_scan_bwd_ref(a, h, h0, dh):
+    """Gradients ``(da, db, dh0)`` of :func:`rglru_scan_ref` for the
+    cotangent ``dh``, from ``a``, the output ``h`` and ``h0``: the adjoint
+    recurrence ``g_{S-1} = dh_{S-1}``, ``g_t = dh_t + a_{t+1} g_{t+1}``,
+    then ``db = g``, ``da_t = g_t h_{t-1}`` (``h_{-1} = h0``) and ``dh0 =
+    a_0 g_0``, all in f32, returned in the dtypes of a, a and h0."""
+    af, dhf = a.float(), dh.float()
+    S = a.shape[1]
+    g = torch.empty_like(dhf)
+    carry = torch.zeros_like(dhf[:, 0])
+    for t in range(S - 1, -1, -1):
+        carry = (af[:, t + 1] * carry + dhf[:, t]) if t + 1 < S else dhf[:, t]
+        g[:, t] = carry
+    h_prev = torch.cat([h0.float()[:, None], h[:, :-1].float()], dim=1)
+    da = g * h_prev
+    dh0 = af[:, 0] * g[:, 0]
+    return da.to(a.dtype), g.to(a.dtype), dh0.to(h0.dtype)

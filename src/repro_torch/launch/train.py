@@ -11,10 +11,13 @@ asked for):
   * optional int8 gradient compression with error feedback.
 
 Reduced configs by default; ``--full-config`` trains the architecture as
-published (full-width gemma-2b fits one 80 GB card with AdamW).
+published (full-width gemma-2b and recurrentgemma-2b fit one 80 GB card
+with AdamW at batch 2 x 2048).  The hybrid recurrentgemma-2b reduced to one
+period plus its (recurrent, recurrent) epilogue is ``--layers 5``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b --full-config
+  PYTHONPATH=src python -m repro_torch.launch.train --arch recurrentgemma-2b --full-config --batch 2 --seq 2048
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --arch llama3-8b --steps 100
 """
 from __future__ import annotations

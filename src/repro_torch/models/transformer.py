@@ -1,19 +1,24 @@
-"""Model assembly for the dense attention-only stacks: init, prefill,
-decode, and the training loss.
+"""Model assembly for the attention and hybrid recurrent stacks: init,
+prefill, decode, and the training loss.
 
 Parameters are plain dicts of tensors built from *spec tables*
 (``{name: shape}``) with the JAX package's tree: ``embed``, ``final_norm``,
 optional ``head``, ``periods`` (one dict per pattern kind, every leaf
-stacked over the ``n_periods`` repeats) and ``epilogue``.  PyTorch runs
-eagerly, so the stack is a Python loop over periods instead of a scan.
+stacked over the ``n_periods`` repeats) and ``epilogue`` (the kinds beyond
+the last full period, e.g. recurrentgemma's trailing (recurrent,
+recurrent)).  PyTorch runs eagerly, so the stack is a Python loop over
+periods instead of a scan.  Init follows the JAX recipe: norms 1 (0 under
+``norm_offset``), the RG-LRU decay ``lamb`` 0.65, biases 0, everything else
+truncated-normal; norms, decays and gate biases stay f32.
 
-Caches keep the JAX layout: a ring buffer per attention layer, ``k``/``v``
-(B, S, NKV, HD) plus ``slot_pos`` (B, S) absolute positions (-1 empty),
-stacked over periods like the parameters.  Unlike the JAX package, which
-returns new cache arrays, :func:`prefill` fills a fresh cache and
-:func:`decode_step` writes the new token's slot **in place**
-(``index_copy_`` at the lockstep slot ``pos[0] % S``), then returns the
-same cache object.
+Caches keep the JAX layout, stacked over periods like the parameters.  An
+attention layer has a ring buffer ``k``/``v`` (B, S, NKV, HD) plus
+``slot_pos`` (B, S) absolute positions (-1 empty); a recurrent layer has
+its state ``h`` (B, W) f32 and the conv tail ``conv_tail`` (B, K-1, W).
+Unlike the JAX package, which returns new cache arrays, :func:`prefill`
+fills a fresh cache and :func:`decode_step` updates it **in place** (the
+ring slot ``pos[0] % S`` through ``index_copy_``, ``h`` and ``conv_tail``
+through ``copy_``), then returns the same cache object.
 
 The continuous-batching tier keeps the JAX package's block-paged layout:
 per attention layer one physical pool ``kp``/``vp`` (P, page, NKV, HD)
@@ -22,18 +27,20 @@ trash page inactive rows write into).  :func:`prefill_ragged` runs
 right-padded prompts, :func:`graft_prefill_batch` copies their caches into
 the rows' pages (one ``index_copy_`` per leaf into the flattened pool) and
 :func:`paged_decode_step` scatters each row's new k/v into its page slot,
-all in place.
+all in place.  Recurrent state is not paged: :func:`supports_paged_decode`
+refuses the hybrid stacks, as in the JAX package.
 
 Training: :func:`loss_fn` is the JAX package's chunked softmax-xent.  With
-autograd recording, the norms and the prefill attention run through the
-autograd Functions of :mod:`repro_torch.kernels.ops` (the kernels on CUDA),
-``cfg.remat`` checkpoints each period (``torch.utils.checkpoint``, the
-counterpart of ``jax.checkpoint``) and each loss chunk is checkpointed too,
-so no (B, S, vocab) logits tensor is ever held for the backward pass.
+autograd recording, the norms, the prefill attention and the RG-LRU scan
+run through the autograd Functions of :mod:`repro_torch.kernels.ops` (the
+kernels on CUDA), ``cfg.remat`` checkpoints each period
+(``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``) and
+each loss chunk is checkpointed too, so no (B, S, vocab) logits tensor is
+ever held for the backward pass.
 
-Only dense attention blocks (``attn``, ``local``) over token inputs are
-ported; MoE, recurrent and xLSTM blocks, the audio/vision frontends and
-the int8 KV cache raise ``NotImplementedError``.
+Attention (``attn``, ``local``) and RG-LRU (``recurrent``) blocks over
+token inputs are ported; MoE and xLSTM blocks, the audio/vision frontends
+and the int8 KV cache raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -47,7 +54,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
-from repro_torch.models import layers
+from repro_torch.models import layers, rglru
 from repro_torch.models.attention import (
     decode_attention,
     flash_attention,
@@ -77,13 +84,13 @@ __all__ = [
     "SeqContext",
 ]
 
-_DENSE_KINDS = ("attn", "local")
+_KINDS = ("attn", "local", "recurrent")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a config outside the ported subset."""
     kinds = tuple(cfg.pattern) + tuple(cfg.epilogue)
-    bad = sorted({k for k in kinds if k not in _DENSE_KINDS})
+    bad = sorted({k for k in kinds if k not in _KINDS})
     if bad:
         raise NotImplementedError(f"{cfg.name}: block kinds {bad} are not ported yet")
     if cfg.frontend != "none" or cfg.prefix_lm:
@@ -110,12 +117,13 @@ def _attn_spec(cfg: ModelConfig):
 
 
 def block_spec(cfg: ModelConfig, kind: str):
-    if kind not in _DENSE_KINDS:
+    if kind not in _KINDS:
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     d = cfg.d_model
     return {
         "ln1": (d,),
-        "attn": _attn_spec(cfg),
+        **({"rec": rglru.rglru_init_spec(cfg)} if kind == "recurrent"
+           else {"attn": _attn_spec(cfg)}),
         "ln2": (d,),
         "mlp": layers.mlp_init_spec(d, cfg.d_ff, cfg.mlp_type),
     }
@@ -149,9 +157,27 @@ def _walk_spec(spec, fn, path=()):  # fn(path, shape) -> leaf value
     raise TypeError(f"bad spec node at {path}: {type(spec)}")
 
 
-def _fp32_leaf(name: str) -> bool:
-    """Norm weights stay fp32 (as in the JAX package)."""
+def _is_norm(name: str) -> bool:
     return name.startswith("ln") or name.endswith("_norm") or name == "final_norm"
+
+
+def _fp32_leaf(name: str) -> bool:
+    """Norms, gate biases and decays stay fp32 (the JAX package's list)."""
+    return _is_norm(name) or name in ("lamb", "bi", "bf", "gate_a_b", "gate_x_b")
+
+
+def _init_fill(name: str, norm_offset: bool) -> Optional[float]:
+    """The constant a leaf starts at in the JAX package's ``_init_leaf``, or
+    None for a truncated-normal leaf."""
+    if _is_norm(name):
+        return 0.0 if norm_offset else 1.0
+    if name == "lamb":  # RG-LRU decay: a ~ 0.95 at sigmoid midpoint
+        return 0.65
+    if name == "bf":  # forget-gate bias: remember by default
+        return 1.0
+    if name.endswith("_b") or name in ("bi", "bz", "bo") or name.startswith("b"):
+        return 0.0
+    return None
 
 
 def _leaf_dtype(cfg: ModelConfig, name: str) -> torch.dtype:
@@ -168,7 +194,8 @@ def _full_shape(cfg: ModelConfig, path, shape):
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 device="cuda"):
     """Seeded init with the JAX package's recipe (norms 1, or 0 under
-    ``norm_offset``; weights truncated-normal).  Each leaf draws from its
+    ``norm_offset``; ``lamb`` 0.65; biases 0; weights truncated-normal).
+    Each leaf draws from its
     own generator seeded by ``generator``'s seed and the leaf's path, so a
     leaf's values do not depend on the order of the tree."""
     dev = resolve_device(device)
@@ -178,8 +205,9 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         name = path[-1]
         full = _full_shape(cfg, path, shape)
         dtype = _leaf_dtype(cfg, name)
-        if _fp32_leaf(name):
-            return torch.full(full, 0.0 if cfg.norm_offset else 1.0, dtype=dtype, device=dev)
+        fill = _init_fill(name, cfg.norm_offset)
+        if fill is not None:
+            return torch.full(full, fill, dtype=dtype, device=dev)
         g = torch.Generator(device=dev)
         g.manual_seed((base * 1_000_003 + zlib.crc32("/".join(path).encode())) % (2**63))
         return layers.truncated_normal_init(g, full, dtype, 1.0, dev)
@@ -199,7 +227,8 @@ def params_from_numpy(cfg: ModelConfig, tree, device="cuda"):
     """The weight bridge: the JAX package's ``init_params`` tree, mapped to
     numpy arrays (``jax.tree.map(np.asarray, params)``), as this package's
     parameters.  Same tree, same stacked-period leaves; shapes are checked
-    against the spec and dtypes follow the config (norms f32)."""
+    against the spec and dtypes follow the config (norms, decays and gate
+    biases f32)."""
     dev = resolve_device(device)
 
     def take(path, shape):
@@ -310,10 +339,30 @@ def _attention(cfg, p, x, ctx: SeqContext, kind: str, cache):
     return out.reshape(B, S, nq * hd) @ p["wo"]
 
 
+def _recurrent(cfg, p, x, ctx: SeqContext, cache):
+    """The RG-LRU branch; a cache's ``h`` and ``conv_tail`` are updated in
+    place (prefill seeds them, each decode step advances them)."""
+    if ctx.decode:
+        y, new = rglru.rglru_decode_step(cfg, p, x, cache)
+    else:
+        h0 = cache["h"] if cache is not None else None
+        tail = cache["conv_tail"] if cache is not None else None
+        y, (h_last, new_tail) = rglru.rglru_apply(cfg, p, x, h0=h0, conv_tail=tail)
+        new = {"h": h_last, "conv_tail": new_tail}
+    if cache is not None:
+        cache["h"].copy_(new["h"])
+        cache["conv_tail"].copy_(new["conv_tail"])
+    return y
+
+
 def apply_block(cfg, kind: str, p, x, ctx: SeqContext, cache):
-    if kind not in _DENSE_KINDS:
+    if kind not in _KINDS:
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
-    x = x + _attention(cfg, p["attn"], _norm(cfg, p["ln1"], x), ctx, kind, cache)
+    h = _norm(cfg, p["ln1"], x)
+    if kind == "recurrent":
+        x = x + _recurrent(cfg, p["rec"], h, ctx, cache)
+    else:
+        x = x + _attention(cfg, p["attn"], h, ctx, kind, cache)
     return x + layers.mlp_apply(p["mlp"], _norm(cfg, p["ln2"], x), cfg.mlp_type)
 
 
@@ -321,6 +370,8 @@ def apply_block(cfg, kind: str, p, x, ctx: SeqContext, cache):
 # Caches.
 # ---------------------------------------------------------------------------
 def _block_cache(cfg, kind, batch, max_len, dtype, device, lead=()):
+    if kind == "recurrent":
+        return rglru.rglru_init_cache(cfg, batch, dtype, device, lead)
     sc = max_len if kind != "local" else min(cfg.window, max_len)
     shape = (*lead, batch, sc, cfg.n_kv_heads, cfg.head_dim)
     return {

@@ -21,6 +21,7 @@ from repro.kernels.decode_attention import (  # noqa: E402
 )
 from repro.models.attention import paged_decode_attention as j_paged_model  # noqa: E402
 from repro.kernels.flash_attention import flash_attention_fwd as pallas_flash  # noqa: E402
+from repro.kernels.rglru_scan import rglru_scan_fwd as pallas_rglru  # noqa: E402
 from repro.kernels.rmsnorm import rms_norm_fwd as pallas_rmsnorm  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
@@ -31,6 +32,8 @@ jref_rms_norm = jax.jit(jref.rms_norm_ref, static_argnames=("eps", "offset"))
 jref_flash = jax.jit(jref.flash_attention_ref, static_argnames=("causal", "window", "scale"))
 jref_decode = jax.jit(jref.decode_attention_ref, static_argnames=("window", "scale"))
 jref_paged = jax.jit(jref.decode_attention_paged_ref, static_argnames=("window", "scale"))
+jref_rglru = jax.jit(jref.rglru_scan_ref)
+jpallas_rglru = jax.jit(pallas_rglru, static_argnames=("block_s", "block_w", "interpret"))
 
 
 def _pair(rng, shape, dtype):
@@ -78,6 +81,7 @@ FLASH_CASES = [
     (1, 10, 2, 64, 16, True, 0),  # G = 5
     (1, 4, 1, 128, 64, True, 32),  # window
     (2, 2, 2, 64, 32, False, 0),  # bidirectional
+    (1, 10, 1, 64, 256, True, 16),  # recurrentgemma's G = 10, D = 256, windowed
 ]
 
 
@@ -113,6 +117,7 @@ DECODE_CASES = [
     (2, 2, 2, 128, 32, 0),
     (2, 2, 1, 128, 64, 64),  # windowed ring
     (1, 2, 5, 64, 16, 0),  # G = 5
+    (1, 1, 10, 64, 256, 16),  # recurrentgemma's G = 10, D = 256, windowed ring
 ]
 
 
@@ -423,9 +428,10 @@ def test_bwd_wrapper_refuses_cpu_tensors():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("case", BWD_CASES + [(1, 8, 1, 200, 256, 0, True, 0),
-                                              (2, 10, 2, 130, 128, 0, False, 40)], ids=str)
+                                              (2, 10, 2, 130, 128, 0, False, 40),
+                                              (1, 10, 1, 200, 256, 0, True, 64)], ids=str)
 def test_flash_bwd_kernel_matches_plain(sm90, case, dtype):
-    """Model-layout views, D 16..256, G up to 8 (MQA), ragged S, windowed
+    """Model-layout views, D 16..256, G up to 10 (MQA), ragged S, windowed
     and bidirectional; the kernel's LSE feeds both."""
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
@@ -442,3 +448,120 @@ def test_flash_bwd_kernel_matches_plain(sm90, case, dtype):
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.dtype == dt
         _gpu_close(g, w, dt)
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU scan: the plain version against the JAX oracle (an associative
+# scan) and the Pallas kernel in interpret mode, at tests/test_kernels.py's
+# shapes plus a ragged one; its gradient (the autograd Function's CPU path)
+# against jax.grad of the oracle; the hand-written kernel and its backward
+# against the plain versions on an sm_90 card.  Tolerances: f32 atol 2e-5
+# (the associative scan sums in another order), bf16 atol 2e-2 (one bf16
+# rounding of the f32 result).
+# ---------------------------------------------------------------------------
+RGLRU_CASES = [
+    # (B, S, W, block_s, block_w): tests/test_kernels.py's, then ragged S
+    # and W (one Pallas block each way)
+    (2, 256, 128, 64, 64),
+    (1, 512, 256, 128, 256),
+    (3, 128, 64, 128, 64),
+    (2, 300, 250, 300, 250),
+]
+
+
+def _rglru_inputs(rng, B, S, W, dtype):
+    """Decays in (0, 1), small inputs and a non-zero h0 (the RG-LRU regime):
+    jnp arrays and torch tensors of the same values."""
+    a = 1.0 / (1.0 + np.exp(-2.0 * rng.standard_normal((B, S, W)))).astype(np.float32)
+    b = (0.1 * rng.standard_normal((B, S, W))).astype(np.float32)
+    h0 = (0.1 * rng.standard_normal((B, W))).astype(np.float32)
+    aj, bj = jnp.asarray(a).astype(dtype), jnp.asarray(b).astype(dtype)
+    at, bt = (torch.from_numpy(np.array(x.astype(jnp.float32))).to(getattr(torch, dtype))
+              for x in (aj, bj))
+    return (aj, bj, jnp.asarray(h0)), (at, bt, torch.from_numpy(h0))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", RGLRU_CASES, ids=str)
+def test_rglru_plain_matches_jax(case, dtype):
+    B, S, W, bs, bw = case
+    jax_in, torch_in = _rglru_inputs(np.random.default_rng(S + W), B, S, W, dtype)
+    out = ops.rglru_scan(*torch_in)
+    assert out.shape == (B, S, W) and out.dtype == torch_in[0].dtype
+    _close(out, jref_rglru(*jax_in), dtype)
+    _close(out, jpallas_rglru(*jax_in, block_s=bs, block_w=bw, interpret=True), dtype)
+
+
+def test_rglru_plain_carries_state_across_blocks():
+    """A Pallas block boundary does not reset the recurrence; nor does the
+    port's sequential walk."""
+    B, S, W = 1, 256, 64
+    a = np.full((B, S, W), 0.99, np.float32)
+    b = np.full((B, S, W), 0.01, np.float32)
+    h0 = np.zeros((B, W), np.float32)
+    out = ops.rglru_scan(torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(h0))
+    want = jpallas_rglru(jnp.asarray(a), jnp.asarray(b), jnp.asarray(h0), block_s=64,
+                         block_w=64, interpret=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jref_rglru(a, b, h0)), rtol=1e-5,
+                               atol=1e-5)
+    assert float(out[0, -1, 0]) > float(out[0, 0, 0])
+
+
+@pytest.mark.parametrize("shape", [(2, 37, 24), (1, 64, 16), (3, 1, 8)], ids=str)
+def test_rglru_grads_match_jax(shape):
+    """``ops.RGLRUScan``'s gradients (the adjoint recurrence) against
+    jax.grad of the JAX oracle, in a, b and h0."""
+    B, S, W = shape
+    rng = np.random.default_rng(S)
+    (aj, bj, hj), (at, bt, ht) = _rglru_inputs(rng, B, S, W, "float32")
+    dh = rng.standard_normal((B, S, W)).astype(np.float32)
+
+    def jloss(a, b, h0):
+        return jnp.sum(jref.rglru_scan_ref(a, b, h0) * dh)
+
+    want = jax.jit(jax.grad(jloss, argnums=(0, 1, 2)))(aj, bj, hj)
+    leaves = [t.requires_grad_(True) for t in (at, bt, ht)]
+    out = ops.rglru_scan(*leaves)
+    assert type(out.grad_fn).__name__.startswith("RGLRUScan")
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(dh))
+    for g, w, like in zip(got, want, leaves):
+        assert g.shape == like.shape and g.dtype == like.dtype
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-5, rtol=0)
+
+
+def test_rglru_wrapper_refuses_cpu_tensors():
+    from repro_torch.kernels.rglru_scan import rglru_scan_bwd, rglru_scan_fwd
+
+    a = torch.rand(1, 8, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        rglru_scan_fwd(a, a, torch.zeros(1, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        rglru_scan_bwd(a, a, torch.zeros(1, 16), a)
+    ops.reset_launch_counts()
+    ops.rglru_scan(a, a, torch.zeros(1, 16))
+    assert ops.launch_counts()["rglru_scan_fwd"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", RGLRU_CASES + [(4, 128, 2560, 0, 0), (1, 5, 7, 0, 0)],
+                         ids=str)
+def test_rglru_kernel_matches_plain(sm90, case, dtype):
+    """The scan kernel, then its backward (the kernel over the reversed
+    sequence), against the plain versions; bf16 also with a bf16 h0."""
+    from repro_torch.kernels.rglru_scan import rglru_scan_bwd, rglru_scan_fwd
+
+    B, S, W, _, _ = case
+    dt = getattr(torch, dtype)
+    a = torch.sigmoid(2.0 * torch.randn(B, S, W, device=sm90)).to(dt)
+    b = (0.1 * torch.randn(B, S, W, device=sm90)).to(dt)
+    for h0_dtype in (torch.float32,) if dt == torch.float32 else (torch.float32, dt):
+        h0 = (0.1 * torch.randn(B, W, device=sm90)).to(h0_dtype)
+        h = rglru_scan_fwd(a, b, h0)
+        assert h.dtype == dt
+        _gpu_close(h, ref.rglru_scan_ref(a, b, h0), dt)
+        dh = torch.randn(B, S, W, device=sm90).to(dt)
+        for g, w in zip(rglru_scan_bwd(a, h, h0, dh), ref.rglru_scan_bwd_ref(a, h, h0, dh)):
+            assert g.shape == w.shape and g.dtype == w.dtype
+            _gpu_close(g, w, dt)
