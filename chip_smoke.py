@@ -10,7 +10,11 @@ Phases (each passes or raises; any failure exits non-zero with no result):
 1. device: CUDA present, capability >= 9.0; prints the card's name and
    power limit; TF32 off for f32 matmuls and convolutions.
 2. build: compiles every CUDA kernel (one ``nvcc`` per source, in
-   parallel) and JITs the Triton kernel; prints the seconds.
+   parallel, with ``-Xptxas -v``) and JITs the Triton kernel; prints the
+   seconds, the tensor-core flash kernel's registers, shared memory and
+   spills, and the count of HGMMA (``wgmma``) instructions in its SASS
+   (``cuobjdump -sass``), failing if one of its six instantiations has
+   none.
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the kernel-test sweep shapes and at the full-width shapes of the main
    path, with f32 atol 1e-4 (summation order) and bf16 atol 2e-2 + rtol
@@ -19,6 +23,16 @@ Phases (each passes or raises; any failure exits non-zero with no result):
    a yardstick where one exists, and the bound, plus the kernel's eager
    time with its launch cost.  The flash forward, ring decode and flash
    backward sweeps include recurrentgemma's G = 10, D = 256 heads.  The
+   flash forward sweep runs f32 (the CUDA-core kernel), bf16 and f16 (the
+   tensor-core kernel at D >= 64) with long and ragged S (1000, 2047, 2048,
+   2100) at D = 128 / 256 and window edges inside a 64-key tile; it has
+   full-width rows at the serve prefill and at both train shapes (gemma-2b
+   q (2, 8, 2048, 256), recurrentgemma q (2, 10, 2048, 256) window 2048,
+   with the LSE).  The ring decode sweep runs f32, bf16 and f16, G = 5 / 8
+   / 10 / 16, S below one chunk, empty slots that leave chunks of masked
+   keys only, and all-masked rows under splitting; its full-width rows at
+   tier-l's and tier-rg's decode step also check that the output is
+   bitwise the same over five calls.  The
    paged decode kernel runs the sweep of tests/test_kernels.py (every
    ladder size, windows, masked rows bitwise inert, D 16..256, G=5) and a
    full-width row at the continuous serve phase's pool geometry.  The
@@ -103,6 +117,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -185,13 +200,11 @@ def phase_build(torch, ptxas: bool):
     from repro_torch.kernels import cuda_build, ops
 
     t0 = time.perf_counter()
-    built = cuda_build.build(ptxas_verbose=ptxas)
+    built = cuda_build.build(ptxas_verbose=True)
     for name, (seconds, stderr) in built.items():
         print(f"[build] nvcc {name}.cu: {seconds:.1f}s", flush=True)
-        if ptxas:
-            for line in stderr.splitlines():
-                if "registers" in line or "spill" in line or "Compiling entry" in line:
-                    print(f"[build]   {line.strip()}")
+        _ptxas_report(stderr, ptxas)
+    _hgmma_report(cuda_build)
     x = torch.randn(2, 64, device="cuda")
     t1 = time.perf_counter()
     ops.rms_norm(x, torch.ones(64, device="cuda"))
@@ -199,6 +212,52 @@ def phase_build(torch, ptxas: bool):
     print(f"[build] CUDA libraries {t1 - t0:.1f}s (parallel), Triton first "
           f"launch {time.perf_counter() - t1:.1f}s", flush=True)
     ops.reset_launch_counts()
+
+
+_WGMMA = re.compile(r"flash_fwd_wgmma_kernelI(?:\d+)?(\w+?)Li(\d+)E")
+
+
+def _ptxas_report(stderr: str, every: bool):
+    """``-Xptxas -v`` lines (registers, shared memory, spills): always for the
+    tensor-core flash kernel, for every kernel with ``--ptxas``."""
+    entry = None
+    for line in stderr.splitlines():
+        if "Compiling entry" in line:
+            entry = line.split("'")[1] if "'" in line else line
+            if every:
+                print(f"[build]   {line.strip()}")
+            continue
+        if not ("registers" in line or "spill" in line):
+            continue
+        m = _WGMMA.search(entry or "")
+        if m:
+            print(f"[build]   flash_fwd_wgmma_kernel<{m.group(1)}, D={m.group(2)}>: "
+                  f"{line.strip().removeprefix('ptxas info    : ')}", flush=True)
+        elif every:
+            print(f"[build]   {line.strip()}")
+
+
+def _hgmma_report(cuda_build):
+    """Counts HGMMA (wgmma) instructions in the SASS of each tensor-core flash
+    kernel; fails if one has none."""
+    sass = cuda_build.sass("flash_attention")
+    if sass is None:
+        print("[build] cuobjdump not in the toolkit: HGMMA count not measured", flush=True)
+        return
+    counts, func = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = _WGMMA.search(line)
+            func = f"{m.group(1)}, D={m.group(2)}" if m else None
+            if func:
+                counts[func] = 0
+        elif func and "HGMMA" in line:
+            counts[func] += 1
+    check(len(counts) == 6, f"expected 6 tensor-core flash kernels in the SASS, found {counts}")
+    for func, n in counts.items():
+        check(n > 0, f"flash_fwd_wgmma_kernel<{func}> has no HGMMA instruction")
+    print(f"[build] HGMMA instructions per flash_fwd_wgmma_kernel (cuobjdump -sass): {counts}",
+          flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -266,6 +325,10 @@ def _ring(torch, B, S):
     return slot.to(torch.int32).cuda(), pos.cuda()
 
 
+def _sm_count(torch):
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
 def _sdpa(torch, q, k, v, **kw):
     import torch.nn.functional as F
 
@@ -286,7 +349,7 @@ def phase_kernels(torch, full):
     from repro_torch.kernels import rmsnorm as rk
 
     gen = torch.Generator().manual_seed(0)
-    f32, bf16 = torch.float32, torch.bfloat16
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
     n = 0
     # -- RMSNorm sweep (tests/test_kernels.py shapes + the served widths).
     for dtype in (f32, bf16):
@@ -310,8 +373,16 @@ def phase_kernels(torch, full):
         (2, 40, 8, 128, 128, True, 0),
         # recurrentgemma's local layers: G = 10, D = 256, windowed
         (2, 10, 1, 256, 256, True, 0), (1, 10, 1, 300, 256, True, 128),
+        # long and ragged S at D = 128 / 256 (a wrong fragment order in the
+        # tensor-core kernel passes at S <= 64 and fails here)
+        (1, 4, 1, 1000, 128, True, 0), (1, 2, 1, 2047, 256, True, 0),
+        (1, 4, 2, 2048, 128, True, 0), (1, 2, 1, 2100, 256, True, 0),
+        (1, 2, 2, 2100, 128, False, 0),
+        # window edges inside a 64-key tile
+        (1, 4, 1, 1000, 128, True, 100), (1, 4, 2, 300, 64, True, 65),
+        (1, 2, 1, 517, 256, False, 130), (1, 2, 1, 700, 256, True, 127),
     ]
-    for dtype in (f32, bf16):
+    for dtype in (f32, bf16, f16):
         for B, NQ, NKV, S, D, causal, window in flash_cases:
             q = _randn(torch, (B, S, NQ, D), dtype, gen).transpose(1, 2)
             k = _randn(torch, (B, S, NKV, D), dtype, gen).transpose(1, 2)
@@ -330,10 +401,13 @@ def phase_kernels(torch, full):
         (2, 2, 2, 256, 64, 0), (1, 1, 8, 512, 128, 0), (2, 2, 1, 256, 64, 64),
         (1, 4, 2, 128, 32, 0), (2, 8, 5, 152, 128, 0), (2, 1, 2, 40, 16, 0),
         (1, 1, 10, 96, 256, 0), (3, 2, 4, 33, 64, 16),
-        # recurrentgemma's local layers: G = 10 (two blocks of <= 8 q heads)
+        # recurrentgemma's local layers: G = 10
         (4, 1, 10, 152, 256, 0), (2, 1, 10, 300, 256, 128),
+        # G = 8 / 16, S below the planner's minimum chunk, a single slot
+        (1, 2, 8, 300, 128, 0), (1, 1, 16, 300, 256, 0), (2, 1, 16, 64, 64, 8),
+        (1, 2, 8, 7, 128, 0), (2, 1, 5, 1, 64, 0),
     ]
-    for dtype in (f32, bf16):
+    for dtype in (f32, bf16, f16):
         for B, NKV, G, S, D, window in decode_cases:
             q = _randn(torch, (B, NKV, G, D), dtype, gen)
             kc = _randn(torch, (B, S, NKV, D), dtype, gen).transpose(1, 2)
@@ -343,19 +417,22 @@ def phase_kernels(torch, full):
                      dk.decode_attention_fwd(q, kc, vc, sp, pos, window=window),
                      ref.decode_attention_ref(q, kc, vc, sp, pos, window=window), dtype)
             n += 1
-    # Empty slots (only the first 10 valid) and a fully masked row.
-    B, NKV, G, S, D = 2, 2, 2, 128, 32
-    q = _randn(torch, (B, NKV, G, D), f32, gen)
-    kc = _randn(torch, (B, NKV, S, D), f32, gen)
-    vc = _randn(torch, (B, NKV, S, D), f32, gen)
-    sp = torch.where(torch.arange(S) < 10, torch.arange(S), -1).to(torch.int32)
-    sp = sp.expand(B, S).contiguous().cuda()
-    for p in (9, -1):
-        pos = torch.full((B,), p, dtype=torch.int32, device="cuda")
-        _compare(torch, f"decode empty slots pos={p}",
-                 dk.decode_attention_fwd(q, kc, vc, sp, pos),
-                 ref.decode_attention_ref(q, kc, vc, sp, pos), f32)
-        n += 1
+    # Empty slots (only the first 10 valid): every chunk past the first
+    # holds masked keys only; pos = -1 masks the whole row (the mean of v)
+    # under splitting, and pos = 3 leaves one chunk with valid keys.
+    for B, NKV, G, S, D in ((2, 2, 2, 128, 32), (4, 1, 10, 152, 256), (2, 8, 5, 300, 128)):
+        q = _randn(torch, (B, NKV, G, D), f32, gen)
+        kc = _randn(torch, (B, NKV, S, D), f32, gen)
+        vc = _randn(torch, (B, NKV, S, D), f32, gen)
+        sp = torch.where(torch.arange(S) < 10, torch.arange(S), -1).to(torch.int32)
+        sp = sp.expand(B, S).contiguous().cuda()
+        for p in (9, -1, 3):
+            pos = torch.full((B,), p, dtype=torch.int32, device="cuda")
+            _compare(torch, f"decode {(B, NKV, G, S, D)} empty slots pos={p} (plan "
+                     f"{dk.split_plan(B, NKV, G, S, _sm_count(torch))})",
+                     dk.decode_attention_fwd(q, kc, vc, sp, pos),
+                     ref.decode_attention_ref(q, kc, vc, sp, pos), f32)
+            n += 1
     n += _paged_sweep(torch, gen)
     n += _bwd_sweep(torch, gen)
     n += _rglru_sweep(torch, gen)
@@ -371,16 +448,29 @@ def phase_kernels(torch, full):
             entries = rows
     paged = _full_width_paged(torch, full, gen)
     _print_entry(paged)
+    # The flash forward at both train shapes (with the LSE the backward
+    # reads) and the ring decode at the hybrid serve phase's decode step.
+    gemma, hybrid = get_config(TRAIN_ARCHS[0]), get_config(HYBRID_ARCH)
+    more = [
+        _flash_row(torch, gen, TRAIN_BATCH, gemma.n_heads, gemma.n_kv_heads, TRAIN_SEQ,
+                   gemma.head_dim, 0, True, "gemma-2b training"),
+        _flash_row(torch, gen, TRAIN_BATCH, hybrid.n_heads, hybrid.n_kv_heads, TRAIN_SEQ,
+                   hybrid.head_dim, hybrid.window, True, "recurrentgemma training"),
+        _decode_row(torch, gen, full["batch"], hybrid.n_kv_heads,
+                    hybrid.n_heads // hybrid.n_kv_heads, hybrid.head_dim,
+                    min(hybrid.window, full["max_len"]), full["prompt"] + 1, "tier-rg"),
+    ]
+    for e in more:
+        _print_entry(e)
     bwd = _full_width_bwd(torch, gen)
     _print_entry(bwd)
     print("[kernels] rglru_scan_fwd has no library yardstick: no single PyTorch call "
           "computes a linear recurrence (library_ms null)", flush=True)
-    hybrid = get_config(HYBRID_ARCH)
     for B, S, label in ((full["batch"], full["prompt"], "hybrid serve prefill"),
                         (TRAIN_BATCH, TRAIN_SEQ, "recurrentgemma training")):
         scan = _full_width_rglru(torch, gen, B, S, hybrid.lru_width, label)
         _print_entry(scan)
-    return entries + [paged, bwd, scan]
+    return entries + more + [paged, bwd, scan]
 
 
 def _print_entry(e):
@@ -569,7 +659,8 @@ def _hybrid_shapes(torch, gen) -> int:
     plain versions at the shapes the hybrid serve prefill and the
     recurrentgemma train step give them (bf16, the ``(1 + w)`` norm, the
     local layers' window); prints each with the kernel's and the plain
-    version's times."""
+    version's times (the flash forward's at the train shape are a row of
+    the kernels line)."""
     from repro_torch.configs.archs import get_config
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import flash_attention_bwd as bk
@@ -596,7 +687,6 @@ def _hybrid_shapes(torch, gen) -> int:
         k = _randn(torch, (B, S, NKV, D), bf16, gen).transpose(1, 2)
         v = _randn(torch, (B, S, NKV, D), bf16, gen).transpose(1, 2)
         kw = dict(causal=True, window=window, return_lse=train)
-        reps = 5 if train else 20  # launches per timed replay
         got, want = fk.flash_attention_fwd(q, k, v, **kw), ref.flash_attention_ref(q, k, v, **kw)
         tag = f"flash q {tuple(q.shape)} window {window} bf16 ({label})"
         if train:
@@ -604,13 +694,13 @@ def _hybrid_shapes(torch, gen) -> int:
             _compare(torch, tag + " lse", got[1], want[1], torch.float32)
         else:
             err = _compare(torch, tag, got, want, bf16)
-        kernel_ms = time_ms(torch, lambda: fk.flash_attention_fwd(q, k, v, **kw), reps)
-        plain_ms = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, **kw), reps)
-        print(f"[kernels] {label}: flash_attention_fwd q {tuple(q.shape)} bf16 window "
-              f"{window}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"max|err| {err:.3g}", flush=True)
         n += 1
-        if not train:
+        if not train:  # the train shape's times are a row of the kernels line
+            kernel_ms = time_ms(torch, lambda: fk.flash_attention_fwd(q, k, v, **kw))
+            plain_ms = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, **kw))
+            print(f"[kernels] {label}: flash_attention_fwd q {tuple(q.shape)} bf16 window "
+                  f"{window}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"max|err| {err:.3g}", flush=True)
             continue
         out, lse = got
         dout = _randn(torch, (B, S, NQ, D), bf16, gen).transpose(1, 2)
@@ -741,8 +831,6 @@ def _full_width_paged(torch, full, gen):
 def _full_width(torch, full, B, gen):
     """Kernel vs plain vs library vs bound at the serve phase's qwen3-14b shapes."""
     import torch.nn.functional as F
-    from repro_torch.kernels import decode_attention as dk
-    from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as rk
 
@@ -766,55 +854,102 @@ def _full_width(torch, full, B, gen):
         bound_ms=nbytes / H100_BYTES_PER_S * 1e3, bound_by="bytes",
     ))
 
+    entries.append(_flash_row(torch, gen, B, NQ, NKV, S, D, 0, False, "prefill"))
+    entries.append(_decode_row(torch, gen, B, NKV, NQ // NKV, D, S_cache, S + 1, "tier-l"))
+    return entries
+
+
+def _flash_row(torch, gen, B, NQ, NKV, S, D, window, lse, label):
+    """The flash forward at q (B, NQ, S, D), causal, bf16, model-layout views:
+    kernel vs plain vs SDPA vs bound (with the f32 LSE the train path keeps
+    when ``lse``)."""
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import ref
+
+    bf16 = torch.bfloat16
     q = _randn(torch, (B, S, NQ, D), bf16, gen).transpose(1, 2)
     k = _randn(torch, (B, S, NKV, D), bf16, gen).transpose(1, 2)
     v = _randn(torch, (B, S, NKV, D), bf16, gen).transpose(1, 2)
-    err = _compare(torch, "flash full width", fk.flash_attention_fwd(q, k, v),
-                   ref.flash_attention_ref(q, k, v), bf16)
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, k, v read; out written
-    flops = 4 * B * NQ * D * (S * (S + 1) // 2)  # causal (q, k) pairs
+    kw = dict(causal=True, window=window, return_lse=lse)
+
+    def kernel():
+        return fk.flash_attention_fwd(q, k, v, **kw)
+
+    def plain():
+        return ref.flash_attention_ref(q, k, v, **kw)
+
+    got, want = kernel(), plain()
+    tag = f"flash q {tuple(q.shape)} window {window} ({label})"
+    if lse:
+        err = _compare(torch, tag, got[0], want[0], bf16)
+        _compare(torch, tag + " lse", got[1], want[1], torch.float32)
+    else:
+        err = _compare(torch, tag, got, want, bf16)
+    # q, k, v read once; out (and the LSE) written once.  The causal (q, k)
+    # pairs inside the window, two products of 2 * D FLOPs each.
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + (4 * B * NQ * S if lse else 0)
+    span = window if window else S
+    flops = 4 * B * NQ * D * sum(min(i + 1, span) for i in range(S))
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_BF16_FLOPS * 1e3
-    entries.append(dict(
+    reps = 5 if S > 512 else 20  # launches per timed replay
+    return dict(
         name="flash_attention_fwd", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:119", max_abs_err=err,
-        shape=f"q {tuple(q.shape)} kv heads {NKV} bf16 causal (prefill)",
-        ms=time_ms(torch, lambda: fk.flash_attention_fwd(q, k, v)),
-        eager_ms=time_ms(torch, lambda: fk.flash_attention_fwd(q, k, v), graph=False),
-        plain_ms=time_ms(torch, lambda: ref.flash_attention_ref(q, k, v)),
-        library_ms=time_ms(torch, lambda: _sdpa(torch, q, k, v, is_causal=True)),
+        shape=f"q {tuple(q.shape)} kv heads {NKV} bf16 causal"
+              f"{f' window {window}' if window else ''}{' +lse' if lse else ''} ({label})",
+        ms=time_ms(torch, kernel, reps), eager_ms=time_ms(torch, kernel, reps, graph=False),
+        plain_ms=time_ms(torch, plain, reps),
+        # window >= S here, so plain causal SDPA computes the same function.
+        library_ms=time_ms(torch, lambda: _sdpa(torch, q, k, v, is_causal=True), reps),
         bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
-    ))
+    )
 
-    G = NQ // NKV
+
+def _decode_row(torch, gen, B, NKV, G, D, S_cache, valid, label):
+    """The ring decode at one decode step of a served batch: q (B, NKV, G, D)
+    over a (B, S_cache, NKV, D) ring cache whose first ``valid`` slots are
+    live; kernel vs plain vs SDPA vs bound, and the output bitwise the same
+    over five calls."""
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import ref
+
+    bf16 = torch.bfloat16
+    NQ = NKV * G
     qd = _randn(torch, (B, NKV, G, D), bf16, gen)
     kc = _randn(torch, (B, S_cache, NKV, D), bf16, gen).transpose(1, 2)
     vc = _randn(torch, (B, S_cache, NKV, D), bf16, gen).transpose(1, 2)
-    valid = S + 1  # the prompt plus the first decoded token
     sp = torch.where(torch.arange(S_cache) < valid, torch.arange(S_cache), -1)
     sp = sp.to(torch.int32).expand(B, S_cache).contiguous().cuda()
     pos = torch.full((B,), valid - 1, dtype=torch.int32, device="cuda")
-    err = _compare(torch, "decode full width", dk.decode_attention_fwd(qd, kc, vc, sp, pos),
+
+    def kernel():
+        return dk.decode_attention_fwd(qd, kc, vc, sp, pos)
+
+    got = kernel()
+    err = _compare(torch, f"decode full width ({label})", got,
                    ref.decode_attention_ref(qd, kc, vc, sp, pos), bf16)
+    check(all(torch.equal(got, kernel()) for _ in range(5)),
+          f"decode full width ({label}): output differs from run to run")
+    heads, n_split, chunk = dk.split_plan(B, NKV, G, S_cache, _sm_count(torch))
+    blocks = n_split * B * NKV * -(-G // heads)
     mask = (sp >= 0) & (sp <= pos[:, None])
     nbytes = (2 * qd.numel() * 2 + 2 * B * valid * NKV * D * 2 + sp.numel() * 4 + B * 4)
     flops = 4 * B * NQ * D * valid
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_BF16_FLOPS * 1e3
-    entries.append(dict(
+    return dict(
         name="decode_attention_fwd", route="cuda",
         source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:88", max_abs_err=err,
         shape=f"q {tuple(qd.shape)} cache {(B, S_cache, NKV, D)} {valid} live slots bf16 "
-              f"({B * NKV} blocks)",
-        ms=time_ms(torch, lambda: dk.decode_attention_fwd(qd, kc, vc, sp, pos)),
-        eager_ms=time_ms(torch, lambda: dk.decode_attention_fwd(qd, kc, vc, sp, pos),
-                         graph=False),
+              f"({label}: {blocks} blocks, {heads} heads x {n_split} chunks of {chunk}; "
+              "bitwise stable)",
+        ms=time_ms(torch, kernel), eager_ms=time_ms(torch, kernel, graph=False),
         plain_ms=time_ms(torch, lambda: ref.decode_attention_ref(qd, kc, vc, sp, pos)),
         library_ms=time_ms(torch, lambda: _sdpa(
             torch, qd.reshape(B, NQ, 1, D), kc, vc, attn_mask=mask[:, None, None, :])),
         bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
-    ))
-    return entries
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -1344,10 +1479,10 @@ def phase_train(torch, arch, card, profile: bool):
 # ---------------------------------------------------------------------------
 # Optional phase: where a request's time goes.
 # ---------------------------------------------------------------------------
-_PORT_KERNELS = ("rms_norm_kernel", "flash_fwd_kernel", "flash_bwd_dq_kernel",
-                 "flash_bwd_dkv_kernel", "flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel",
-                 "flash_bwd_group_sum_kernel", "decode_fwd_kernel", "decode_paged_fwd_kernel",
-                 "rglru_scan_kernel")
+_PORT_KERNELS = ("rms_norm_kernel", "flash_fwd_wgmma_kernel", "flash_fwd_kernel",
+                 "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_tc_kernel",
+                 "flash_bwd_dkv_tc_kernel", "flash_bwd_group_sum_kernel",
+                 "decode_fwd_split_kernel", "decode_paged_fwd_kernel", "rglru_scan_kernel")
 
 
 def _families(prof):

@@ -1,30 +1,75 @@
 // Flash-attention forward for Hopper (sm_90a): online-softmax attention over
-// K/V tiles in shared memory, f32 accumulation, GQA by kv head = q head / G.
+// K/V tiles, f32 accumulation, GQA by kv head = q head / G.  Two kernels,
+// chosen by dtype and head dim (the wrapper's ``flash_route`` says which):
+//
+// * flash_fwd_wgmma_kernel: bf16 / f16 at D = 64, 128, 256, every shape
+//   the full-width paths run (prefill and training).  Tensor cores.
+// * flash_fwd_kernel: f32 at any D (TF32 would break the f32 tolerance of
+//   1e-4 that the f32 model checks hold), and bf16 / f16 at D = 16, 32,
+//   which no full-width path uses.  CUDA cores.
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py
 // (flash_attention_fwd, pallas_call at :119, _kernel at :30).
 //
-// Bound on the H100: at the prefill shapes of the serving path (S = 128,
-// D = 128, bf16) the work is ~4*S*D FLOPs per (row, key) pair against
-// 2*D bytes per row read once, so the tensor-core roofline bounds it; this
-// first kernel does its products in f32 on the CUDA cores (no wgmma), so it
-// runs below that roofline by design.  What the design does about it: each
-// K/V tile is loaded once per block into shared memory and reused by all 64
-// query rows of the tile, scores and P.V are register-blocked (each thread
-// owns BK/4 score columns and D/4 output columns of one row, one shared
-// load per FMA), and causal / window tiles outside the band are skipped.
+// Bound on the H100: operations.  At the gemma-2b train shape, q (2, 8,
+// 2048, 256) causal, the two products are 4 * B * NQ * D * S(S+1)/2 = 34.4
+// GFLOP against 25 MB of q, k, v and out: 0.035 ms at 989 TFLOP/s, 0.008 ms
+// at 3.35 TB/s.  At the serve prefill (S = 128, D = 128) both bounds are a
+// few microseconds, so launch and pipeline fill dominate.  The CUDA-core
+// kernel did both products in f32 FMAs, far from the tensor-core roofline
+// (3.7 ms at the train shape, 1 % of the bound).
 //
-// Semantics match the Pallas kernel exactly: the finite sentinel -1e30 for
-// masked scores, l clamped at 1e-30, the output in q's dtype and an
-// optional f32 log-sum-exp.  Unlike the Pallas kernel, S need not be a
-// multiple of the tile: keys past S get weight exactly 0 and rows past S
-// are not stored.  Operands are addressed through (batch, head, seq)
-// element strides, so the model's (B, S, N, HD) activations are read in
-// place.
-#include "common.cuh"
+// What the tensor-core kernel does about it.  A block owns 128 query rows
+// of one (batch, q head): two consumer warpgroups of 64 rows each and one
+// producer warpgroup.
+// * Loads: one thread of the producer warpgroup issues TMA tile loads (4-D tensor maps over
+//   (D, S, heads, batch) with the caller's byte strides, so the model's
+//   (B, S, N, HD) views are read in place) into a ring of K/V stages with
+//   full / empty mbarriers; the next tile's K and V land while this one is
+//   multiplied.  Q is loaded once.  TMA fills rows past S with zeros.
+// * Products: S = Q.K^T is wgmma m64n64k16 with both operands in shared
+//   memory (K stored keys x D, D contiguous: K-major).  The f32 scores are
+//   masked (only on tiles that straddle the band or the end of S), put
+//   through the online softmax in registers, converted to bf16 / f16 and
+//   fed straight back as the register A operand of O += P.V (wgmma
+//   m64n{64,128}k16, V as the MN-major B operand through the transpose
+//   bit): for 16-bit types the accumulator's register order is the A
+//   fragment's, so P never goes through shared memory.
+// * Tiles: 128-byte swizzle, so a box is 64 elements wide and D = 128 / 256
+//   is 2 / 4 boxes side by side; the wgmma descriptors use the same swizzle.
+//   Shared memory at D = 256: Q 128 x 256 bf16 = 64 KB plus 2 stages of K
+//   and V (64 x 256 each, 32 KB) = 192 KB of the 227 KB a block may use;
+//   D <= 128 takes 3 stages (32 + 96 KB / 16 + 48 KB).  Registers per
+//   consumer thread at D = 256: the O accumulator 128 f32, the scores 32
+//   f32, P 16 x 32-bit, so 64 keys per tile keeps the state within the 240
+//   registers setmaxnreg gives each consumer thread (the producer
+//   warpgroup drops to 24: 128 * 24 + 256 * 240 <= 65536).  With a lone
+//   producer warp and no rebalancing, ptxas held the D = 256 kernel to 168
+//   registers and spilled.
+// * The tiles a warpgroup's 64 rows cannot see (above the causal diagonal,
+//   left of the window) are skipped by that warpgroup; the block's key
+//   range uses the kt_begin / kt_end logic of the CUDA-core kernel.
+//
+// Semantics, both kernels, as the Pallas kernel's: the finite sentinel
+// -1e30 for masked scores (a row with no valid key is the mean of v), l
+// clamped at 1e-30, the output in q's dtype and an optional f32
+// log-sum-exp.  Unlike the Pallas kernel, S need not be a multiple of the
+// tile: keys past S get weight exactly 0 and rows past S are not stored.
+// Operands are addressed through (batch, head, seq) element strides.  The
+// tensor-core kernel needs 16-byte-aligned base pointers and byte strides
+// that are multiples of 16 (TMA's rule); the wrapper checks and raises.
+#include <type_traits>
+
+#include "hopper.cuh"
 
 namespace repro_torch {
 namespace {
+
+// ===========================================================================
+// CUDA-core kernel: f32, and bf16 / f16 at D <= 32.
+// ===========================================================================
+namespace cc {
+
 
 constexpr int kBQ = 64;                       // query rows per block
 constexpr int kThreads = 256;                 // 4 threads per query row
@@ -173,25 +218,379 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, float
   return cudaGetLastError();
 }
 
+}  // namespace cc
+
+// ===========================================================================
+// Tensor-core kernel: bf16 / f16 at D = 64, 128, 256 (wgmma + TMA).
+// ===========================================================================
+namespace tc {
+
+using namespace hopper;
+
+constexpr int kBQ = 128;               // query rows per block
+constexpr int kBK = 64;                // keys per tile
+constexpr int kConsumerWarps = 8;      // two warpgroups of 64 rows
+constexpr int kThreads = kConsumerWarps * 32 + 128;  // + the producer warpgroup
+// Registers per thread after setmaxnreg: 128 * 24 + 256 * 240 <= 65536.
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+constexpr int kBox = 64;               // box width: 64 16-bit elements = 128 B
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kNegInfL2 = kNegInf * kLog2e;  // the sentinel in log2 units
+
+template <int D>
+struct Layout {
+  static constexpr int kStages = D >= 256 ? 2 : 3;
+  static constexpr int kBoxes = D / kBox;
+  static constexpr int kQBytes = kBQ * D * 2;
+  static constexpr int kTileBytes = kBK * D * 2;  // one K or V tile
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kQBytes;
+  static constexpr int kV = kK + kStages * kTileBytes;
+  static constexpr int kBar = kV + kStages * kTileBytes;  // full[], empty[], q
+  static constexpr int kBytes = kBar + (2 * kStages + 1) * 8;
+  static constexpr int kAlloc = kBytes + 1024;  // room to align the base to 1024 B
+  static_assert(kAlloc <= 232448, "shared memory over the 227 KB a block may use");
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap, T* __restrict__ out,
+                       float* __restrict__ lse, int NQ, int G, int S, Strides3 os, int causal,
+                       int window, float scale_log2) {
+  using L = Layout<D>;
+  constexpr int NST = L::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  // 128-byte swizzle atoms are 1024 B: align every tile to that.
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_s = base + L::kQ;
+  const uint32_t bars = base + L::kBar;
+  auto full = [&](int st) { return bars + 8u * st; };
+  auto empty = [&](int st) { return bars + 8u * (NST + st); };
+  const uint32_t q_bar = bars + 8u * (2 * NST);
+
+  // The last query tiles first: under a causal mask they have the most key
+  // tiles, so the short ones fill the tail of the grid.
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / G;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  // Key tiles this query tile needs (whole tiles outside the band skipped).
+  int kt_begin = 0;
+  int kt_end = (S + kBK - 1) / kBK;
+  if (causal) kt_end = min(kt_end, (min(q0 + kBQ, S) - 1) / kBK + 1);
+  if (window > 0) {
+    const int lo = q0 - window + 1;  // the smallest key the first row sees
+    if (lo > 0) kt_begin = lo / kBK;
+  }
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < NST; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), kConsumerWarps);
+    }
+    mbar_init(q_bar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= kConsumerWarps) {
+    // ---- producer warpgroup: one thread keeps the TMA loads in flight ----
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == kConsumerWarps && lane == 0) {
+      mbar_expect_tx(q_bar, L::kQBytes);
+#pragma unroll
+      for (int j = 0; j < L::kBoxes; ++j)
+        tma_load_4d(q_s + j * (kBQ * 128), &qmap, q_bar, j * kBox, q0, h, b);
+      int st = 0;
+      uint32_t phase = 0;
+      for (int kt = kt_begin; kt < kt_end; ++kt) {
+        mbar_wait(empty(st), phase ^ 1u);  // the consumers released this stage
+        mbar_expect_tx(full(st), 2 * L::kTileBytes);
+        const uint32_t k_s = base + L::kK + st * L::kTileBytes;
+        const uint32_t v_s = base + L::kV + st * L::kTileBytes;
+#pragma unroll
+        for (int j = 0; j < L::kBoxes; ++j) {
+          tma_load_4d(k_s + j * (kBK * 128), &kmap, full(st), j * kBox, kt * kBK, kvh, b);
+          tma_load_4d(v_s + j * (kBK * 128), &vmap, full(st), j * kBox, kt * kBK, kvh, b);
+        }
+        if (++st == NST) {
+          st = 0;
+          phase ^= 1u;
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroups: 64 query rows each ----
+  setmaxnreg_inc<kConsumerRegs>();
+  using M = Mma<T>;
+  const int wg = warp / 4;
+  const int t = lane % 4;
+  const int wg_lo = q0 + 64 * wg;  // this warpgroup's first row
+  const int wg_hi = wg_lo + 63;
+  const int r0 = wg_lo + 16 * (warp % 4) + lane / 4;  // this thread's rows: r0, r0 + 8
+
+  // O in NC column chunks of NW accumulators (one P.V wgmma each): element
+  // e of chunk c is i = c * NW + e, at row r0 + 8 * ((i >> 1) & 1) and
+  // column 8 * (i / 4) + 2t + (i & 1).
+  constexpr int NC = D == 64 ? 1 : D / 128;
+  constexpr int NW = D == 64 ? 32 : 64;
+  float o[NC][NW];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int e = 0; e < NW; ++e) o[c][e] = 0.f;
+  float m0 = kNegInfL2, m1 = kNegInfL2;  // running max (log2 units) of rows r0, r0 + 8
+  float l0 = 0.f, l1 = 0.f;              // this thread's share of the row sums
+
+  const uint32_t q_wg = q_s + wg * (64 * 128);
+  mbar_wait(q_bar, 0);
+
+  int st = 0;
+  uint32_t phase = 0;
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int k0 = kt * kBK;
+    mbar_wait(full(st), phase);
+    // Whole tiles this warpgroup's rows cannot see contribute exactly 0.
+    const bool active = wg_lo < S && !(causal && k0 > wg_hi) &&
+                        !(window > 0 && k0 + kBK - 1 < wg_lo - window + 1);
+    if (active) {
+      const uint32_t k_s = base + L::kK + st * L::kTileBytes;
+      const uint32_t v_s = base + L::kV + st * L::kTileBytes;
+      // S = Q . K^T, 64 x 64 f32, over D in steps of 16.
+      float s[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = 0.f;
+      fence_regs(s);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32u;  // 16 elements into the 128-byte row
+        const uint64_t da = desc_sw128(q_wg + (kk / 4) * (kBQ * 128) + off, 16, 1024);
+        const uint64_t db = desc_sw128(k_s + (kk / 4) * (kBK * 128) + off, 16, 1024);
+        M::ss64(s, da, db, kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+
+      // Scale into log2 units; mask only on tiles that straddle the band or S.
+      const bool edge = k0 + kBK > S || (causal && k0 + kBK - 1 > wg_lo) ||
+                        (window > 0 && k0 < wg_hi - window + 1);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        float x = s[i] * scale_log2;
+        if (edge) {
+          const int row = r0 + 8 * ((i >> 1) & 1);
+          const int col = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+          bool ok = true;
+          if (causal) ok = ok && row >= col;
+          if (window > 0) ok = ok && (row - col) < window;
+          x = col >= S ? -INFINITY : (ok ? x : kNegInfL2);  // past S: weight exactly 0
+        }
+        s[i] = x;
+      }
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        if ((i >> 1) & 1) mx1 = fmaxf(mx1, s[i]);
+        else mx0 = fmaxf(mx0, s[i]);
+      }
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {  // the 4 lanes that share a row
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      // Every processed tile holds a key < S, so the new max is finite.
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float c0 = exp2f(m0 - mn0), c1 = exp2f(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const bool hi = (i >> 1) & 1;
+        const float p = exp2f(s[i] - (hi ? mn1 : mn0));
+        s[i] = p;
+        if (hi) ps1 += p;
+        else ps0 += p;
+      }
+      l0 = l0 * c0 + ps0;
+      l1 = l1 * c1 + ps1;
+      // P as the A operand: the accumulator order is the fragment order.
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) pa[kc][r] = M::pack(s[8 * kc + 2 * r], s[8 * kc + 2 * r + 1]);
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int e = 0; e < NW; ++e) o[c][e] *= ((e >> 1) & 1) ? c1 : c0;
+
+      // O += P . V over the tile's 64 keys in steps of 16; a chunk of 128
+      // columns spans two 64-wide boxes of V (LBO = one box).
+#pragma unroll
+      for (int c = 0; c < NC; ++c) fence_regs(o[c]);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) {
+        const uint32_t v_k = v_s + kc * (16 * 128);
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          const uint64_t db = desc_sw128(v_k + 2 * c * (kBK * 128), kBK * 128, 1024);
+          if constexpr (D == 64) M::rs64(o[c], pa[kc], db);
+          else M::rs128(o[c], pa[kc], db);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int c = 0; c < NC; ++c) fence_regs(o[c]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(st));  // this warp is done with the stage
+    if (++st == NST) {
+      st = 0;
+      phase ^= 1u;
+    }
+  }
+
+  // Row sums over the 4 lanes of a row; write O / l and the LSE.
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float lc0 = fmaxf(l0, 1e-30f), lc1 = fmaxf(l1, 1e-30f);
+  const float inv0 = 1.f / lc0, inv1 = 1.f / lc1;
+  T* ob = out + b * os.b + h * os.h;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = r0 + 8 * half;
+    if (row >= S) continue;
+    const float inv = half ? inv1 : inv0;
+    T* orow = ob + (long long)row * os.s + 2 * t;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int jj = 0; jj < NW / 4; ++jj) {
+        const int e = 4 * jj + 2 * half;
+        const int j = (c * NW) / 4 + jj;  // the 8-column block
+        *reinterpret_cast<uint32_t*>(orow + 8 * j) = M::pack(o[c][e] * inv, o[c][e + 1] * inv);
+      }
+    if (lse != nullptr && t == 0)
+      lse[((long long)b * NQ + h) * S + row] = ((half ? m1 : m0) + log2f(half ? lc1 : lc0)) * kLn2;
+  }
+}
+
+// cuTensorMapEncodeTiled, resolved through the runtime (no -lcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found{};
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A 4-D map (D, S, heads, batch) over a 16-bit operand with the given
+// element strides, boxes of 64 features x ``rows``, 128-byte swizzle.  A
+// stride of a size-1 dim is never used; it is replaced by the packed one.
+bool make_map(CUtensorMap* map, const void* ptr, CUtensorMapDataType dtype, int D, int S,
+              int N, int B, Strides3 st, int rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const unsigned long long esz = 2;
+  cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)N, (cuuint64_t)B};
+  cuuint64_t strides[3] = {(cuuint64_t)st.s * esz, (cuuint64_t)st.h * esz,
+                           (cuuint64_t)st.b * esz};
+  if (S == 1) strides[0] = (cuuint64_t)D * esz;
+  if (N == 1) strides[1] = strides[0] * (cuuint64_t)S;
+  if (B == 1) strides[2] = strides[1] * (cuuint64_t)N;
+  for (cuuint64_t s : strides)
+    if (s % 16 != 0 || s >= (1ull << 40)) return false;
+  if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return false;
+  cuuint32_t box[4] = {(cuuint32_t)kBox, (cuuint32_t)rows, 1, 1};
+  cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, dtype, 4, const_cast<void*>(ptr), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename T, int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse,
+                   int B, int NQ, int NKV, int S, Strides3 qs, Strides3 ks,
+                   Strides3 vs, Strides3 os, int causal, int window, float scale,
+                   cudaStream_t stream) {
+  const CUtensorMapDataType dt = std::is_same<T, __half>::value
+                                     ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUtensorMap qmap, kmap, vmap;
+  if (!make_map(&qmap, q, dt, D, S, NQ, B, qs, kBQ) ||
+      !make_map(&kmap, k, dt, D, S, NKV, B, ks, kBK) ||
+      !make_map(&vmap, v, dt, D, S, NKV, B, vs, kBK))
+    return cudaErrorInvalidValue;
+  constexpr int smem = Layout<D>::kAlloc;
+  auto kernel = flash_fwd_wgmma_kernel<T, D>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((S + kBQ - 1) / kBQ, NQ, B);
+  kernel<<<grid, kThreads, smem, stream>>>(qmap, kmap, vmap, static_cast<T*>(out), lse, NQ,
+                                           NQ / NKV, S, os, causal, window, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
+// One kernel per (dtype, D): the tensor-core kernel for 16-bit types at
+// D = 64 / 128 / 256, the CUDA-core kernel otherwise.
 template <typename T>
 cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v, void* out,
                        float* lse, int B, int NQ, int NKV, int S, Strides3 qs,
                        Strides3 ks, Strides3 vs, Strides3 os, int causal, int window,
                        float scale, cudaStream_t stream) {
+  constexpr bool k16 = !std::is_same<T, float>::value;
+#define REPRO_FLASH_ARGS \
+  q, k, v, out, lse, B, NQ, NKV, S, qs, ks, vs, os, causal, window, scale, stream
   switch (D) {
-    case 16:
-      return launch<T, 16>(q, k, v, out, lse, B, NQ, NKV, S, qs, ks, vs, os, causal, window, scale, stream);
-    case 32:
-      return launch<T, 32>(q, k, v, out, lse, B, NQ, NKV, S, qs, ks, vs, os, causal, window, scale, stream);
+    case 16: return cc::launch<T, 16>(REPRO_FLASH_ARGS);
+    case 32: return cc::launch<T, 32>(REPRO_FLASH_ARGS);
     case 64:
-      return launch<T, 64>(q, k, v, out, lse, B, NQ, NKV, S, qs, ks, vs, os, causal, window, scale, stream);
+      if constexpr (k16) return tc::launch<T, 64>(REPRO_FLASH_ARGS);
+      else return cc::launch<T, 64>(REPRO_FLASH_ARGS);
     case 128:
-      return launch<T, 128>(q, k, v, out, lse, B, NQ, NKV, S, qs, ks, vs, os, causal, window, scale, stream);
+      if constexpr (k16) return tc::launch<T, 128>(REPRO_FLASH_ARGS);
+      else return cc::launch<T, 128>(REPRO_FLASH_ARGS);
     case 256:
-      return launch<T, 256>(q, k, v, out, lse, B, NQ, NKV, S, qs, ks, vs, os, causal, window, scale, stream);
-    default:
-      return cudaErrorInvalidValue;
+      if constexpr (k16) return tc::launch<T, 256>(REPRO_FLASH_ARGS);
+      else return cc::launch<T, 256>(REPRO_FLASH_ARGS);
+    default: return cudaErrorInvalidValue;
   }
+#undef REPRO_FLASH_ARGS
 }
 
 }  // namespace

@@ -20,7 +20,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Tuple
 
-__all__ = ["SOURCES", "NVCC_FLAGS", "build", "build_dir", "library", "check_launch"]
+__all__ = ["SOURCES", "NVCC_FLAGS", "build", "build_dir", "library", "library_path", "sass",
+           "check_launch"]
 
 SOURCES = ("flash_attention", "flash_attention_bwd", "decode_attention", "rglru_scan")
 NVCC_FLAGS = (
@@ -48,9 +49,21 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def _lib_path(name: str) -> Path:
+def sass(name: str):
+    """``cuobjdump -sass`` of the built library for ``csrc/<name>.cu``, or
+    None where the toolkit has no ``cuobjdump``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    return subprocess.run([tool, "-sass", str(library_path(name))], capture_output=True,
+                          text=True, check=True).stdout
+
+
+def library_path(name: str) -> Path:
+    """Where the library for ``csrc/<name>.cu`` is (or will be) built: named
+    by a hash of the flags, the source and every header."""
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for src in (_CSRC / f"{name}.cu", _CSRC / "common.cuh"):
+    for src in (_CSRC / f"{name}.cu", *sorted(_CSRC.glob("*.cuh"))):
         h.update(src.read_bytes())
     return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -69,7 +82,7 @@ def build(names: Iterable[str] = SOURCES, ptxas_verbose: bool = False
     extra = ("-Xptxas", "-v") if ptxas_verbose else ()
     procs = {}
     for name in names:
-        out = _lib_path(name)
+        out = library_path(name)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
@@ -96,7 +109,7 @@ def library(name: str) -> ctypes.CDLL:
         lib = _LIBS.get(name)
         if lib is None:
             build([name])
-            lib = ctypes.CDLL(str(_lib_path(name)))
+            lib = ctypes.CDLL(str(library_path(name)))
             lib.cuda_error_string.argtypes = [ctypes.c_int]
             lib.cuda_error_string.restype = ctypes.c_char_p
             _LIBS[name] = lib

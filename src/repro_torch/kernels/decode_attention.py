@@ -14,23 +14,97 @@ The source file's header states what bounds them on the H100 and what
 their design does about that.  The wrappers keep the JAX kernels' layouts
 and signatures; caches and pools are read through strides, so no step
 copies them.  Each wrapper has its own launch counter.
+
+The ring kernel splits each row's slots into chunks across blocks;
+:func:`split_plan` picks the chunking from the shape and the card's SM
+count, so that the grid fills at least one wave.  Each chunk writes f32
+partials (m, l, acc) to scratch allocated here; the last block of each
+(row, kv head, head group) merges them in chunk order (bitwise the same
+from run to run).  The blocks find the last one through a ticket counter
+that the kernel leaves at zero, kept here per (device, stream).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
 from repro_torch.kernels.counters import LaunchCounter
 from repro_torch.kernels.cuda_build import check_launch, library
-from repro_torch.kernels.flash_attention import DTYPE_CODES, HEAD_DIMS
+from repro_torch.kernels.flash_attention import DTYPE_CODES, HEAD_DIMS, check_16b
 
-__all__ = ["decode_attention_fwd", "decode_attention_paged_fwd", "launches",
-           "paged_launches"]
+__all__ = ["decode_attention_fwd", "decode_attention_paged_fwd", "split_plan",
+           "launches", "paged_launches"]
 
 launches = LaunchCounter("decode_attention_fwd")
 paged_launches = LaunchCounter("decode_attention_paged_fwd")
+
+# The ring kernel's limits (csrc/decode_attention.cu, namespace split).
+HEADS_PER_BLOCK = (16, 8, 4)  # query heads a block may hold, widest first
+MAX_CHUNK = 256  # keys per block
+MAX_SPLIT = 256  # chunks per row
+MIN_CHUNK = 16  # fewer keys per block and the partials outweigh the cache
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _chunks(blocks: int, S: int, sm_count: int):
+    """``(n_split, chunk)`` for ``blocks`` blocks per chunk index: the
+    fewest chunks that make ``n_split * blocks`` reach ``sm_count`` (one
+    wave) where S allows, with at most ``MAX_CHUNK`` keys each."""
+    want = min(max(_cdiv(sm_count, blocks), _cdiv(S, MAX_CHUNK)), S, MAX_SPLIT)
+    chunk = _cdiv(S, want)
+    while chunk > 1 and _cdiv(S, chunk) < want:
+        chunk -= 1
+    return _cdiv(S, chunk), chunk
+
+
+def split_plan(B: int, NKV: int, G: int, S: int, sm_count: int):
+    """``(heads, n_split, chunk)`` of the ring kernel: each block holds
+    ``heads`` query heads of one kv head (the group of ``G`` in
+    ``ceil(G / heads)`` blocks) and one of ``n_split`` chunks of ``chunk``
+    slots (the last one shorter, none empty); the grid of ``n_split * B *
+    NKV * ceil(G / heads)`` blocks reaches ``sm_count`` where S allows.
+    The widest ``heads`` (no wider than G needs) whose chunks keep at least
+    ``MIN_CHUNK`` keys wins, else the narrowest: a chunk's f32 partials are
+    ``heads * D`` floats, so tiny chunks of many heads write more than
+    the cache holds, and the merge reads it all back."""
+    if min(B, NKV, G, S, sm_count) < 1:
+        raise ValueError(f"split_plan: B={B} NKV={NKV} G={G} S={S} sm_count={sm_count}")
+    if S > MAX_CHUNK * MAX_SPLIT:
+        raise ValueError(f"decode_attention_fwd: S={S} over {MAX_CHUNK * MAX_SPLIT} slots")
+    widths = [h for h in HEADS_PER_BLOCK if h < 2 * G] or [HEADS_PER_BLOCK[-1]]
+    for heads in widths:
+        n_split, chunk = _chunks(B * NKV * _cdiv(G, heads), S, sm_count)
+        if chunk >= MIN_CHUNK:
+            break
+    return heads, n_split, chunk
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_TICKETS = {}
+_TICKETS_LOCK = threading.Lock()
+
+
+def _tickets(device, stream: int, n: int):
+    """A zeroed int32 buffer of at least ``n`` tickets for this stream (the
+    kernel leaves it at zero, so one serves every launch on the stream)."""
+    key = (device.index, stream)
+    with _TICKETS_LOCK:
+        buf = _TICKETS.get(key)
+        if buf is None or buf.numel() < n:
+            buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+            _TICKETS[key] = buf
+        return buf
+
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 
@@ -38,7 +112,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = library("decode_attention")
-    lib.decode_attention_fwd.argtypes = [_P] * 6 + [_I] * 6 + [_L] * 13 + [_I, _F, _P]
+    lib.decode_attention_fwd.argtypes = [_P] * 9 + [_I] * 9 + [_L] * 13 + [_I, _F, _P]
     lib.decode_attention_fwd.restype = ctypes.c_int
     lib.decode_attention_paged_fwd.argtypes = [_P] * 6 + [_I] * 7 + [_L] * 13 + [_I, _F, _P]
     lib.decode_attention_paged_fwd.restype = ctypes.c_int
@@ -86,12 +160,20 @@ def decode_attention_fwd(q, k_cache, v_cache, slot_pos, pos, *, window: int = 0,
     scale = _check_head(D, window, scale, "decode_attention_fwd")
     out = torch.empty((B, NKV, G, D), dtype=q.dtype, device=q.device)
     if B * NKV * G * S:
+        for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache), ("out", out)):
+            check_16b("decode_attention_fwd", name, t)  # 16-byte vector loads
+        heads, n_split, chunk = split_plan(B, NKV, G, S, _sm_count(q.device.index))
+        part_acc = torch.empty((B, NKV, n_split, G, D), dtype=torch.float32, device=q.device)
+        part_ml = torch.empty((B, NKV, n_split, G, 2), dtype=torch.float32, device=q.device)
         lib = _lib()
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
+            tickets = _tickets(q.device, stream, B * NKV * _cdiv(G, heads))
             err = lib.decode_attention_fwd(
                 q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                 slot_pos.data_ptr(), pos.data_ptr(), out.data_ptr(),
+                part_acc.data_ptr(), part_ml.data_ptr(), tickets.data_ptr(), heads, n_split,
+                chunk,
                 DTYPE_CODES[q.dtype], B, NKV, G, S, D,
                 *(q.stride(i) for i in range(3)),
                 *(k_cache.stride(i) for i in range(3)),

@@ -7,6 +7,13 @@ design does about that.  This wrapper keeps the JAX kernel's layout and
 signature; the kernel reads its operands through strides, so callers may
 pass transposed views of the model's (B, S, N, HD) activations without a
 copy, and the output is allocated in that (B, S, NQ, D) memory order.
+
+Two kernels sit behind the one entry point, chosen by :func:`flash_route`
+from the dtype and head dim alone: bf16 / f16 at D = 64, 128, 256 go to the
+tensor-core kernel (``wgmma`` fed by TMA), everything else to the CUDA-core
+kernel.  TMA needs 16-byte-aligned operands and byte strides that are
+multiples of 16; the wrapper raises for a tensor-core call that breaks
+that rule (nothing falls back to the other kernel).
 """
 from __future__ import annotations
 
@@ -18,11 +25,33 @@ import torch
 from repro_torch.kernels.counters import LaunchCounter
 from repro_torch.kernels.cuda_build import check_launch, library
 
-__all__ = ["flash_attention_fwd", "launches", "HEAD_DIMS"]
+__all__ = ["flash_attention_fwd", "flash_route", "launches", "HEAD_DIMS"]
 
 launches = LaunchCounter("flash_attention_fwd")
 HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+TENSOR_CORE_HEAD_DIMS = (64, 128, 256)
+
+
+def flash_route(dtype, D: int) -> str:
+    """Which kernel a CUDA call of ``dtype`` and head dim ``D`` launches:
+    ``"wgmma"`` (tensor cores, TMA loads) for bf16 / f16 at D in
+    :data:`TENSOR_CORE_HEAD_DIMS`, ``"cuda_core"`` otherwise (f32 keeps
+    full precision; D <= 32 is on no full-width path)."""
+    if dtype in (torch.bfloat16, torch.float16) and D in TENSOR_CORE_HEAD_DIMS:
+        return "wgmma"
+    return "cuda_core"
+
+
+def check_16b(what: str, name: str, t) -> None:
+    """Raise unless ``t`` has a 16-byte-aligned base and every stride but the
+    last is a whole number of 16-byte units (a size-1 dim's stride is never
+    used): what TMA and 16-byte vector loads need."""
+    es = t.element_size()
+    if t.data_ptr() % 16 or any(t.shape[i] > 1 and (t.stride(i) * es) % 16
+                                for i in range(t.dim() - 1)):
+        raise ValueError(f"{what}: {name} strides {tuple(t.stride())} / base "
+                         f"{t.data_ptr():#x} are not in 16-byte units")
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 
@@ -63,6 +92,9 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError("flash_attention_fwd: window must be >= 0")
     if scale is None:
         scale = D**-0.5
+    if flash_route(q.dtype, D) == "wgmma":
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            check_16b("flash_attention_fwd (TMA)", name, t)
     out = torch.empty((B, S, NQ, D), dtype=q.dtype, device=q.device).transpose(1, 2)
     lse = (torch.empty((B, NQ, S), dtype=torch.float32, device=q.device)
            if return_lse else None)

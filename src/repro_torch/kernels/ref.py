@@ -20,6 +20,7 @@ __all__ = [
     "decode_bsnd",
     "flash_attention_ref",
     "decode_attention_ref",
+    "decode_attention_split_ref",
     "paged_decode_bsnd",
     "decode_attention_paged_ref",
     "flash_attention_bwd_ref",
@@ -163,6 +164,41 @@ def decode_attention_ref(q, k_cache, v_cache, slot_pos, pos, *, window: int = 0,
         v_cache.transpose(1, 2), slot_pos, pos, window=window, scale=scale,
     )
     return out.reshape(B, NKV, G, D)
+
+
+def decode_attention_split_ref(q, k_cache, v_cache, slot_pos, pos, *, chunk: int,
+                               window: int = 0, scale: Optional[float] = None):
+    """Test-only model of the ring kernel's split plan, all in f32: the
+    slots cut into chunks of ``chunk``; each chunk's partials ``m`` (its
+    max score, the sentinel -1e30 if it has no valid key), ``l`` (the sum
+    of ``exp(s - m)``: its key count if it has no valid key) and ``acc``
+    (``exp(s - m) . v``); then the chunks merged in order with the factors
+    ``exp(m_c - M)``.  Kernel layout, as :func:`decode_attention_ref`."""
+    B, NKV, G, D = q.shape
+    S = k_cache.shape[2]
+    if scale is None:
+        scale = D**-0.5
+    p = pos.to(slot_pos.dtype)[:, None]
+    ok = (slot_pos >= 0) & (slot_pos <= p)
+    if window:
+        ok &= slot_pos > (p - window)
+    s = torch.einsum("bhgd,bhsd->bhgs", q.float(), k_cache.float()) * scale
+    s = torch.where(ok[:, None, None, :], s, torch.full_like(s, _NEG_INF))
+    parts = []
+    for c0 in range(0, S, chunk):
+        sc = s[..., c0:c0 + chunk]
+        m = sc.amax(dim=-1)
+        e = torch.exp(sc - m[..., None])
+        acc = torch.einsum("bhgs,bhsd->bhgd", e, v_cache[:, :, c0:c0 + chunk].float())
+        parts.append((m, e.sum(dim=-1), acc))
+    M = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    L = torch.zeros_like(M)
+    O = torch.zeros_like(parts[0][2])
+    for m, l, acc in parts:
+        f = torch.exp(m - M)
+        L = L + l * f
+        O = O + acc * f[..., None]
+    return (O / L.clamp_min(1e-30)[..., None]).to(q.dtype)
 
 
 def decode_attention_paged_ref(q, k_pool, v_pool, page_tables, pos, *, window: int = 0,

@@ -156,6 +156,122 @@ def test_decode_plain_empty_slots(pos_value):
     assert torch.isfinite(out).all()
 
 
+# ---------------------------------------------------------------------------
+# The ring kernel's split plan and merge (its chunk partials algebra, in
+# plain torch) against the JAX oracle; the planner; the flash routing.
+# ---------------------------------------------------------------------------
+def _split_inputs(rng, kind, B=2, NKV=2, G=5, S=37, D=16):
+    """Kernel-layout inputs: ``wrapped`` a wrapped ring, every slot valid;
+    ``first10`` only slots 0..9 filled and valid (later chunks hold masked
+    keys only); ``all_masked`` pos = -1 on every row; ``mixed`` one wrapped
+    row and one fully masked row."""
+    qj, qt = _pair(rng, (B, NKV, G, D), "float32")
+    kj, kt = _pair(rng, (B, NKV, S, D), "float32")
+    vj, vt = _pair(rng, (B, NKV, S, D), "float32")
+    slot, pos = _ring_slots(B, S)
+    if kind in ("first10", "all_masked"):
+        slot = np.ascontiguousarray(np.broadcast_to(
+            np.where(np.arange(S) < 10, np.arange(S), -1), (B, S)), dtype=np.int32)
+        pos = np.full((B,), 9 if kind == "first10" else -1, np.int32)
+    elif kind == "mixed":
+        pos = pos.copy()
+        pos[1] = -1
+    return (qj, kj, vj), (qt, kt, vt), slot, pos
+
+
+@pytest.mark.parametrize("window", [0, 8])
+@pytest.mark.parametrize("kind", ["wrapped", "first10", "all_masked", "mixed"])
+@pytest.mark.parametrize("n_split", [1, 2, 3, 37], ids=lambda n: f"split{n}")
+def test_split_merge_model_matches_jax(n_split, kind, window):
+    """Chunk partials (m, l, acc) merged in order equal the unsplit oracle,
+    with chunks of masked keys only, wrapped rings and rows with no valid
+    key (the uniform mean of v)."""
+    S = 37
+    rng = np.random.default_rng(n_split + len(kind))
+    (qj, kj, vj), (qt, kt, vt), slot, pos = _split_inputs(rng, kind, S=S)
+    chunk = -(-S // n_split)
+    got = ref.decode_attention_split_ref(qt, kt, vt, torch.from_numpy(slot),
+                                         torch.from_numpy(pos), chunk=chunk, window=window)
+    want = jref_decode(qj, kj, vj, jnp.asarray(slot), jnp.asarray(pos), window=window)
+    _close(got, want, "float32")
+    if kind == "all_masked":
+        np.testing.assert_allclose(got.numpy(), vt.mean(dim=2, keepdim=True).expand_as(got)
+                                   .numpy(), atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("shape", [
+    # (B, NKV, G, S): tier-l's and tier-rg's decode steps, then edges
+    (4, 8, 5, 152), (4, 1, 10, 152), (1, 1, 1, 1), (1, 1, 1, 5), (2, 8, 5, 152),
+    (8, 8, 5, 152), (1, 1, 8, 512), (2, 1, 40, 300), (1, 2, 16, 4096), (1, 1, 1, 65536),
+], ids=str)
+def test_split_plan_covers_the_slots(shape):
+    from repro_torch.kernels.decode_attention import (
+        HEADS_PER_BLOCK, MAX_CHUNK, MAX_SPLIT, split_plan)
+
+    B, NKV, G, S = shape
+    heads, n_split, chunk = split_plan(B, NKV, G, S, 132)
+    assert heads in HEADS_PER_BLOCK and 1 <= chunk <= MAX_CHUNK and 1 <= n_split <= MAX_SPLIT
+    bounds = [(c * chunk, min(S, (c + 1) * chunk)) for c in range(n_split)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == S  # [0, S) exactly
+    assert all(lo < hi for lo, hi in bounds)  # none empty
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))  # no gap, no overlap
+    blocks = n_split * B * NKV * -(-G // heads)
+    assert blocks >= min(132, S * B * NKV) or n_split == MAX_SPLIT
+
+
+@pytest.mark.parametrize("shape, blocks_before", [((4, 8, 5, 152), 32), ((4, 1, 10, 152), 8)],
+                         ids=["tier-l", "tier-rg"])
+def test_split_plan_fills_one_wave_at_the_served_shapes(shape, blocks_before):
+    """The first design's grid was (NKV, B, ceil(G / 8)): 32 and 8 blocks."""
+    from repro_torch.kernels.decode_attention import split_plan
+
+    B, NKV, G, S = shape
+    assert NKV * B * -(-G // 8) == blocks_before
+    heads, n_split, chunk = split_plan(B, NKV, G, S, 132)
+    assert n_split * B * NKV * -(-G // heads) >= 132
+    if G <= 8:
+        assert heads >= G  # tier-l: every query head of a kv head in one block
+
+
+def test_split_plan_refuses_what_the_kernel_cannot_take():
+    from repro_torch.kernels.decode_attention import split_plan
+
+    with pytest.raises(ValueError):
+        split_plan(1, 1, 1, 256 * 256 + 1, 132)
+    with pytest.raises(ValueError):
+        split_plan(1, 1, 0, 10, 132)
+
+
+@pytest.mark.parametrize("dtype, D, route", [
+    ("bfloat16", 64, "wgmma"), ("bfloat16", 128, "wgmma"), ("bfloat16", 256, "wgmma"),
+    ("float16", 64, "wgmma"), ("float16", 128, "wgmma"), ("float16", 256, "wgmma"),
+    ("bfloat16", 16, "cuda_core"), ("bfloat16", 32, "cuda_core"), ("float16", 32, "cuda_core"),
+    ("float32", 64, "cuda_core"), ("float32", 128, "cuda_core"), ("float32", 256, "cuda_core"),
+])
+def test_flash_route_by_dtype_and_head_dim(dtype, D, route):
+    from repro_torch.kernels.flash_attention import flash_route
+
+    assert flash_route(getattr(torch, dtype), D) == route
+
+
+@pytest.mark.parametrize("what", ["flash_attention_fwd (TMA)", "decode_attention_fwd"])
+def test_16_byte_check_refuses_misaligned_operands(what):
+    """TMA (the tensor-core flash forward) and the ring decode's 16-byte
+    loads take 16-byte-aligned bases and strides in 16-byte units; a size-1
+    dim's stride is never used."""
+    from repro_torch.kernels.flash_attention import check_16b
+
+    x = torch.zeros(2, 12, 4, 128, dtype=torch.bfloat16)  # (B, S, N, D)
+    check_16b(what, "q", x.transpose(1, 2))  # the model's view: strides (6144, 128, 512)
+    check_16b(what, "q", x[:1, :, :1].transpose(1, 2))
+    wide = torch.zeros(2, 12, 4, 132, dtype=torch.bfloat16)[..., :128]  # rows of 264 B
+    with pytest.raises(ValueError, match="16-byte"):
+        check_16b(what, "k", wide.transpose(1, 2))
+    with pytest.raises(ValueError, match="16-byte"):
+        check_16b(what, "v", torch.zeros(1 + 2 * 4 * 8 * 64, dtype=torch.bfloat16)[1:]
+                  .view(2, 4, 8, 64))  # base off by 2 bytes
+
+
 def _paged_case(rng, B, dtype, NKV=2, G=2, D=32, page=8, NB=3):
     """One pool + per-row page tables as in tests/test_kernels.py (page 0 is
     the trash page): jnp arrays and torch tensors of the same values."""
@@ -314,8 +430,14 @@ def test_rmsnorm_kernel_matches_plain(sm90, shape, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", FLASH_CASES + [(2, 40, 8, 100, 128, True, 0)], ids=str)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("case", FLASH_CASES + [
+    (2, 40, 8, 100, 128, True, 0),
+    # long, ragged S at D = 128 / 256 and window edges inside a 64-key tile
+    (1, 4, 1, 1000, 128, True, 0), (1, 2, 1, 2047, 256, True, 0),
+    (1, 2, 1, 2100, 256, True, 0), (1, 4, 1, 1000, 128, True, 100),
+    (1, 2, 1, 517, 256, False, 130),
+], ids=str)
 def test_flash_kernel_matches_plain(sm90, case, dtype):
     from repro_torch.kernels.flash_attention import flash_attention_fwd
 
@@ -329,8 +451,11 @@ def test_flash_kernel_matches_plain(sm90, case, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", DECODE_CASES + [(2, 8, 5, 152, 128, 0)], ids=str)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("case", DECODE_CASES + [
+    (2, 8, 5, 152, 128, 0), (4, 1, 10, 152, 256, 0), (1, 1, 16, 300, 256, 0),
+    (2, 1, 16, 64, 64, 8), (1, 2, 8, 7, 128, 0),
+], ids=str)
 def test_decode_kernel_matches_plain(sm90, case, dtype):
     from repro_torch.kernels.decode_attention import decode_attention_fwd
 
@@ -342,6 +467,25 @@ def test_decode_kernel_matches_plain(sm90, case, dtype):
     slot, pos = (torch.from_numpy(a).to(sm90) for a in _ring_slots(B, S))
     _gpu_close(decode_attention_fwd(q, kc, vc, slot, pos, window=window),
                ref.decode_attention_ref(q, kc, vc, slot, pos, window=window), dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pos_value", [9, -1, 3], ids=["first10", "all_masked", "first4"])
+def test_decode_kernel_masked_chunks_and_bitwise_stable(sm90, pos_value):
+    """Only slots 0..9 filled: chunks of masked keys only, and a row with no
+    valid key (the mean of v) under splitting; five calls, one output."""
+    from repro_torch.kernels.decode_attention import decode_attention_fwd
+
+    B, NKV, G, S, D = 4, 1, 10, 152, 256
+    q = torch.randn(B, NKV, G, D, device=sm90).bfloat16()
+    kc = torch.randn(B, NKV, S, D, device=sm90).bfloat16()
+    vc = torch.randn(B, NKV, S, D, device=sm90).bfloat16()
+    slot = torch.where(torch.arange(S) < 10, torch.arange(S), -1).to(torch.int32)
+    slot = slot.expand(B, S).contiguous().to(sm90)
+    pos = torch.full((B,), pos_value, dtype=torch.int32, device=sm90)
+    got = decode_attention_fwd(q, kc, vc, slot, pos)
+    _gpu_close(got, ref.decode_attention_ref(q, kc, vc, slot, pos), torch.bfloat16)
+    assert all(torch.equal(got, decode_attention_fwd(q, kc, vc, slot, pos)) for _ in range(4))
 
 
 @pytest.mark.cuda
