@@ -5,8 +5,9 @@
 // * flash_fwd_wgmma_kernel: bf16 / f16 at D = 64, 128, 256, every shape
 //   the full-width paths run (prefill and training).  Tensor cores.
 // * flash_fwd_kernel: f32 at any D (TF32 would break the f32 tolerance of
-//   1e-4 that the f32 model checks hold), and bf16 / f16 at D = 16, 32,
-//   which no full-width path uses.  CUDA cores.
+//   1e-4 that the f32 model checks hold), and bf16 / f16 at D = 16, 32, 80
+//   and 96 (phi3-mini's 96 and hubert's 80 are not whole 64-wide swizzle
+//   boxes).  CUDA cores; shared memory at D = 96 is 90,880 bytes.
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py
 // (flash_attention_fwd, pallas_call at :119, _kernel at :30).
@@ -66,7 +67,7 @@ namespace repro_torch {
 namespace {
 
 // ===========================================================================
-// CUDA-core kernel: f32, and bf16 / f16 at D <= 32.
+// CUDA-core kernel: f32, and bf16 / f16 at D = 16, 32, 80, 96.
 // ===========================================================================
 namespace cc {
 
@@ -207,6 +208,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, float
                    cudaStream_t stream) {
   constexpr int BK = D >= 256 ? 32 : 64;
   constexpr int smem = smem_floats<D, BK>() * (int)sizeof(float);
+  static_assert(smem <= 232448, "shared memory over the 227 KB a block may use");
   auto kernel = flash_fwd_kernel<T, D, BK>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -567,7 +569,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, float
 }  // namespace tc
 
 // One kernel per (dtype, D): the tensor-core kernel for 16-bit types at
-// D = 64 / 128 / 256, the CUDA-core kernel otherwise.
+// D = 64 / 128 / 256, the CUDA-core kernel otherwise (f32, and D = 16, 32,
+// 80, 96: the 128-byte swizzle boxes are 64 features wide).
 template <typename T>
 cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v, void* out,
                        float* lse, int B, int NQ, int NKV, int S, Strides3 qs,
@@ -579,6 +582,8 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v, void*
   switch (D) {
     case 16: return cc::launch<T, 16>(REPRO_FLASH_ARGS);
     case 32: return cc::launch<T, 32>(REPRO_FLASH_ARGS);
+    case 80: return cc::launch<T, 80>(REPRO_FLASH_ARGS);
+    case 96: return cc::launch<T, 96>(REPRO_FLASH_ARGS);
     case 64:
       if constexpr (k16) return tc::launch<T, 64>(REPRO_FLASH_ARGS);
       else return cc::launch<T, 64>(REPRO_FLASH_ARGS);

@@ -37,6 +37,11 @@
 // a fused single-pass backward come later.  Whole tiles outside the causal /
 // window band are skipped exactly as in the forward kernel.
 //
+// Head dims 16, 32, 64, 80, 96, 128, 256 (80 and 96 are whole 16-wide WMMA
+// tiles); shared memory at D = 96: 107,008 bytes (tensor cores), 115,968
+// (dq) and 133,120 (dk/dv) on the CUDA cores, under the 227 KB a block may
+// use.
+//
 // Semantics match the Pallas kernels: the finite sentinel -1e30 for masked
 // scores, p = exp(s - lse).  Unlike the Pallas kernels, S need not be a
 // multiple of a tile: keys and queries past S get p = 0 and rows past S are
@@ -699,6 +704,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_group_sum_kernel(TcArgs t,
 template <typename T, int D>
 cudaError_t launch_dq(const BwdArgs& a, int B, cudaStream_t stream) {
   constexpr int smem = DqTile<D>::smem_floats * (int)sizeof(float);
+  static_assert(smem <= 232448, "shared memory over the 227 KB a block may use");
   auto kernel = flash_bwd_dq_kernel<T, D>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -711,6 +717,7 @@ cudaError_t launch_dq(const BwdArgs& a, int B, cudaStream_t stream) {
 template <typename T, int D>
 cudaError_t launch_dkv(const BwdArgs& a, int B, int NKV, cudaStream_t stream) {
   constexpr int smem = DkvTile<D>::smem_floats * (int)sizeof(float);
+  static_assert(smem <= 232448, "shared memory over the 227 KB a block may use");
   auto kernel = flash_bwd_dkv_kernel<T, D>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -723,6 +730,7 @@ cudaError_t launch_dkv(const BwdArgs& a, int B, int NKV, cudaStream_t stream) {
 template <typename T, int D>
 cudaError_t launch_tc(bool dkv, const TcArgs& t, int B, int NKV, cudaStream_t stream) {
   constexpr int smem = TcTile<D>::smem_bytes;
+  static_assert(smem <= 232448, "shared memory over the 227 KB a block may use");
   auto kernel = dkv ? flash_bwd_dkv_tc_kernel<T, D> : flash_bwd_dq_tc_kernel<T, D>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -744,6 +752,8 @@ cudaError_t dispatch_d(bool dkv, int D, const TcArgs& t, int B, int NKV, cudaStr
     switch (D) {
       case 16: return dkv ? launch_dkv<T, 16>(a, B, NKV, st) : launch_dq<T, 16>(a, B, st);
       case 32: return dkv ? launch_dkv<T, 32>(a, B, NKV, st) : launch_dq<T, 32>(a, B, st);
+      case 80: return dkv ? launch_dkv<T, 80>(a, B, NKV, st) : launch_dq<T, 80>(a, B, st);
+      case 96: return dkv ? launch_dkv<T, 96>(a, B, NKV, st) : launch_dq<T, 96>(a, B, st);
       case 64: return dkv ? launch_dkv<T, 64>(a, B, NKV, st) : launch_dq<T, 64>(a, B, st);
       case 128: return dkv ? launch_dkv<T, 128>(a, B, NKV, st) : launch_dq<T, 128>(a, B, st);
       case 256: return dkv ? launch_dkv<T, 256>(a, B, NKV, st) : launch_dq<T, 256>(a, B, st);
@@ -753,6 +763,8 @@ cudaError_t dispatch_d(bool dkv, int D, const TcArgs& t, int B, int NKV, cudaStr
     switch (D) {
       case 16: return launch_tc<T, 16>(dkv, t, B, NKV, st);
       case 32: return launch_tc<T, 32>(dkv, t, B, NKV, st);
+      case 80: return launch_tc<T, 80>(dkv, t, B, NKV, st);
+      case 96: return launch_tc<T, 96>(dkv, t, B, NKV, st);
       case 64: return launch_tc<T, 64>(dkv, t, B, NKV, st);
       case 128: return launch_tc<T, 128>(dkv, t, B, NKV, st);
       case 256: return launch_tc<T, 256>(dkv, t, B, NKV, st);

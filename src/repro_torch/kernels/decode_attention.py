@@ -15,19 +15,26 @@ their design does about that.  The wrappers keep the JAX kernels' layouts
 and signatures; caches and pools are read through strides, so no step
 copies them.  Each wrapper has its own launch counter.
 
-The ring kernel splits each row's slots into chunks across blocks;
+Both kernels split each row's keys into chunks across blocks;
 :func:`split_plan` picks the chunking from the shape and the card's SM
-count, so that the grid fills at least one wave.  Each chunk writes f32
-partials (m, l, acc) to scratch allocated here; the last block of each
-(row, kv head, head group) merges them in chunk order (bitwise the same
-from run to run).  The blocks find the last one through a ticket counter
-that the kernel leaves at zero, kept here per (device, stream).
+count, so that the grid fills at least one wave.  The ring's chunks cut its
+slot range; the pool's cut the row's live span, which each block works out
+from ``pos`` on the device (:func:`paged_chunks` is the same arithmetic in
+Python), so the paged wrapper never reads ``pos`` on the host; its plan
+(:func:`paged_plan`) fills one resident wave of the card.  A block
+scores its chunk ``MAX_CHUNK`` keys at a time and carries its softmax state
+from step to step, so S has no cap.  Each chunk writes f32 partials (m, l,
+acc) to scratch allocated here; the last block of each (row, kv head, head
+group) merges them in chunk order (bitwise the same from run to run).  The
+blocks find the last one through a ticket counter that the kernel leaves
+at zero, kept here per (device, stream) and shared by both kernels.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import threading
+from typing import Callable
 
 import torch
 
@@ -36,14 +43,14 @@ from repro_torch.kernels.cuda_build import check_launch, library
 from repro_torch.kernels.flash_attention import DTYPE_CODES, HEAD_DIMS, check_16b
 
 __all__ = ["decode_attention_fwd", "decode_attention_paged_fwd", "split_plan",
-           "launches", "paged_launches"]
+           "paged_plan", "paged_launch_plan", "paged_chunks", "launches", "paged_launches"]
 
 launches = LaunchCounter("decode_attention_fwd")
 paged_launches = LaunchCounter("decode_attention_paged_fwd")
 
-# The ring kernel's limits (csrc/decode_attention.cu, namespace split).
+# The kernel's limits (csrc/decode_attention.cu, namespace split).
 HEADS_PER_BLOCK = (16, 8, 4)  # query heads a block may hold, widest first
-MAX_CHUNK = 256  # keys per block
+MAX_CHUNK = 256  # keys a block scores at a time (kStep); a longer chunk takes steps
 MAX_SPLIT = 256  # chunks per row
 MIN_CHUNK = 16  # fewer keys per block and the partials outweigh the cache
 
@@ -55,7 +62,8 @@ def _cdiv(a: int, b: int) -> int:
 def _chunks(blocks: int, S: int, sm_count: int):
     """``(n_split, chunk)`` for ``blocks`` blocks per chunk index: the
     fewest chunks that make ``n_split * blocks`` reach ``sm_count`` (one
-    wave) where S allows, with at most ``MAX_CHUNK`` keys each."""
+    wave) where S allows, with at most ``MAX_CHUNK`` keys each up to
+    ``MAX_CHUNK * MAX_SPLIT`` keys; past that ``MAX_SPLIT`` longer chunks."""
     want = min(max(_cdiv(sm_count, blocks), _cdiv(S, MAX_CHUNK)), S, MAX_SPLIT)
     chunk = _cdiv(S, want)
     while chunk > 1 and _cdiv(S, chunk) < want:
@@ -72,17 +80,51 @@ def split_plan(B: int, NKV: int, G: int, S: int, sm_count: int):
     The widest ``heads`` (no wider than G needs) whose chunks keep at least
     ``MIN_CHUNK`` keys wins, else the narrowest: a chunk's f32 partials are
     ``heads * D`` floats, so tiny chunks of many heads write more than
-    the cache holds, and the merge reads it all back."""
+    the cache holds, and the merge reads it all back.  Any S: past
+    ``MAX_CHUNK * MAX_SPLIT`` slots the chunks grow and a block walks its
+    chunk in steps of ``MAX_CHUNK``."""
     if min(B, NKV, G, S, sm_count) < 1:
         raise ValueError(f"split_plan: B={B} NKV={NKV} G={G} S={S} sm_count={sm_count}")
-    if S > MAX_CHUNK * MAX_SPLIT:
-        raise ValueError(f"decode_attention_fwd: S={S} over {MAX_CHUNK * MAX_SPLIT} slots")
     widths = [h for h in HEADS_PER_BLOCK if h < 2 * G] or [HEADS_PER_BLOCK[-1]]
     for heads in widths:
         n_split, chunk = _chunks(B * NKV * _cdiv(G, heads), S, sm_count)
         if chunk >= MIN_CHUNK:
             break
     return heads, n_split, chunk
+
+
+def paged_plan(B: int, NKV: int, G: int, S: int, sm_count: int,
+               blocks_per_sm: Callable[[int], int] = lambda heads: 1):
+    """``(heads, n_split)`` of the paged kernel, from the shape alone (``S``
+    = NB * page, the most a row can hold; never ``pos``).  The ring
+    planner's head groups; then the most chunks that keep every block of
+    the grid resident at once (``sm_count * blocks_per_sm(heads)`` blocks,
+    the kernel's occupancy), with at least ``MIN_CHUNK`` of the S keys
+    each, and never fewer than the ring planner's.  A decode step is a
+    chain of dependent loads per block, so shorter chunks finish sooner as
+    long as no block waits for a second wave.  Each row's live span is cut
+    into ``n_split`` equal chunks on the device (:func:`paged_chunks`)."""
+    heads, n_split, _ = split_plan(B, NKV, G, S, sm_count)
+    groups = B * NKV * _cdiv(G, heads)
+    resident = sm_count * blocks_per_sm(heads) // groups
+    return heads, max(n_split, min(resident, _cdiv(S, MIN_CHUNK), MAX_SPLIT))
+
+
+def paged_chunks(pos: int, window: int, S: int, n_split: int):
+    """What each block of the paged kernel computes from ``pos`` on the
+    device: ``([(start, length) of chunk c for c < n_split], masked)``.  The
+    chunks cut the live span ``[max(0, pos - window + 1), pos + 1)`` of the
+    ``S`` dense entries (no window when ``window`` is 0) into equal parts;
+    those past the span have length <= 0.  An empty span (``pos < 0``, or a
+    window past the entries) takes every entry instead, all masked
+    (``masked``): the mean of v, as the plain version gives."""
+    lo = max(0, pos - window + 1) if window > 0 else 0
+    hi = min(pos + 1, S)
+    masked = lo >= hi
+    if masked:
+        lo, hi = 0, S
+    cs = _cdiv(hi - lo, n_split)
+    return [(lo + c * cs, min(cs, hi - lo - c * cs)) for c in range(n_split)], masked
 
 
 @functools.lru_cache(maxsize=None)
@@ -114,9 +156,33 @@ def _lib():
     lib = library("decode_attention")
     lib.decode_attention_fwd.argtypes = [_P] * 9 + [_I] * 9 + [_L] * 13 + [_I, _F, _P]
     lib.decode_attention_fwd.restype = ctypes.c_int
-    lib.decode_attention_paged_fwd.argtypes = [_P] * 6 + [_I] * 7 + [_L] * 13 + [_I, _F, _P]
+    lib.decode_attention_paged_fwd.argtypes = [_P] * 9 + [_I] * 9 + [_L] * 13 + [_I, _F, _P]
     lib.decode_attention_paged_fwd.restype = ctypes.c_int
+    lib.decode_attention_paged_blocks_per_sm.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
+    lib.decode_attention_paged_blocks_per_sm.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _paged_blocks_per_sm(index: int, dtype_code: int, D: int, heads: int) -> int:
+    """How many blocks of the paged kernel one SM of device ``index`` holds
+    at once (the CUDA occupancy of that instantiation)."""
+    lib = _lib()
+    n = _I(0)
+    with torch.cuda.device(index):
+        err = lib.decode_attention_paged_blocks_per_sm(dtype_code, D, heads, ctypes.byref(n))
+    check_launch(lib, err, "decode_attention_paged_fwd (occupancy)")
+    return max(1, n.value)
+
+
+def paged_launch_plan(q, S: int):
+    """What :func:`decode_attention_paged_fwd` launches for a CUDA q (B, NKV,
+    G, D) over rows of ``S`` = NB * page entries: :func:`paged_plan` with
+    q's card's SM count and the kernel's occupancy there."""
+    B, NKV, G, D = q.shape
+    index, code = q.device.index, DTYPE_CODES[q.dtype]
+    return paged_plan(B, NKV, G, S, _sm_count(index),
+                      lambda heads: _paged_blocks_per_sm(index, code, D, heads))
 
 
 def _check_operands(what, q, k, v, index, pos, names):
@@ -142,6 +208,17 @@ def _check_head(D, window, scale, what):
     return D**-0.5 if scale is None else scale
 
 
+def _scratch(q, heads: int, n_split: int):
+    """f32 partials (B, NKV, n_split, G, D) and (B, NKV, n_split, G, 2), the
+    stream and its ticket buffer, for one launch on q's device."""
+    B, NKV, G, D = q.shape
+    part_acc = torch.empty((B, NKV, n_split, G, D), dtype=torch.float32, device=q.device)
+    part_ml = torch.empty((B, NKV, n_split, G, 2), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    tickets = _tickets(q.device, stream, B * NKV * _cdiv(G, heads))
+    return part_acc, part_ml, stream, tickets
+
+
 def decode_attention_fwd(q, k_cache, v_cache, slot_pos, pos, *, window: int = 0,
                          scale=None):
     """q: (B, NKV, G, D); caches: (B, NKV, S, D); slot_pos: (B, S) int32
@@ -163,12 +240,9 @@ def decode_attention_fwd(q, k_cache, v_cache, slot_pos, pos, *, window: int = 0,
         for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache), ("out", out)):
             check_16b("decode_attention_fwd", name, t)  # 16-byte vector loads
         heads, n_split, chunk = split_plan(B, NKV, G, S, _sm_count(q.device.index))
-        part_acc = torch.empty((B, NKV, n_split, G, D), dtype=torch.float32, device=q.device)
-        part_ml = torch.empty((B, NKV, n_split, G, 2), dtype=torch.float32, device=q.device)
         lib = _lib()
         with torch.cuda.device(q.device):
-            stream = torch.cuda.current_stream(q.device).cuda_stream
-            tickets = _tickets(q.device, stream, B * NKV * _cdiv(G, heads))
+            part_acc, part_ml, stream, tickets = _scratch(q, heads, n_split)
             err = lib.decode_attention_fwd(
                 q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                 slot_pos.data_ptr(), pos.data_ptr(), out.data_ptr(),
@@ -194,7 +268,7 @@ def decode_attention_paged_fwd(q, k_pool, v_pool, page_tables, pos, *, window: i
     dtype.  Dense index ``i`` of row ``b`` is ``pool[page_tables[b, i //
     page], :, i % page]`` and is valid iff ``i <= pos[b]`` (and ``i >
     pos[b] - window``).  Feature dims (and the tables' entry dim) must be
-    contiguous."""
+    contiguous.  ``pos`` is read on the device only (no host sync)."""
     _check_operands("decode_attention_paged_fwd", q, k_pool, v_pool, page_tables, pos,
                     ("q", "k_pool", "v_pool", "page_tables", "pos"))
     B, NKV, G, D = q.shape
@@ -210,12 +284,16 @@ def decode_attention_paged_fwd(q, k_pool, v_pool, page_tables, pos, *, window: i
     scale = _check_head(D, window, scale, "decode_attention_paged_fwd")
     out = torch.empty((B, NKV, G, D), dtype=q.dtype, device=q.device)
     if B * NKV * G * NB * page:
+        for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool), ("out", out)):
+            check_16b("decode_attention_paged_fwd", name, t)  # 16-byte vector loads
+        heads, n_split = paged_launch_plan(q, NB * page)
         lib = _lib()
         with torch.cuda.device(q.device):
-            stream = torch.cuda.current_stream(q.device).cuda_stream
+            part_acc, part_ml, stream, tickets = _scratch(q, heads, n_split)
             err = lib.decode_attention_paged_fwd(
                 q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                 page_tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
+                part_acc.data_ptr(), part_ml.data_ptr(), tickets.data_ptr(), heads, n_split,
                 DTYPE_CODES[q.dtype], B, NKV, G, NB, page, D,
                 *(q.stride(i) for i in range(3)),
                 *(k_pool.stride(i) for i in range(3)),

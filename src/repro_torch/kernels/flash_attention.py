@@ -10,10 +10,11 @@ copy, and the output is allocated in that (B, S, NQ, D) memory order.
 
 Two kernels sit behind the one entry point, chosen by :func:`flash_route`
 from the dtype and head dim alone: bf16 / f16 at D = 64, 128, 256 go to the
-tensor-core kernel (``wgmma`` fed by TMA), everything else to the CUDA-core
-kernel.  TMA needs 16-byte-aligned operands and byte strides that are
-multiples of 16; the wrapper raises for a tensor-core call that breaks
-that rule (nothing falls back to the other kernel).
+tensor-core kernel (``wgmma`` fed by TMA), everything else (f32, and D =
+16, 32, 80, 96) to the CUDA-core kernel.  TMA needs 16-byte-aligned
+operands and byte strides that are multiples of 16; the wrapper raises for
+a tensor-core call that breaks that rule (nothing falls back to the other
+kernel).
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ from repro_torch.kernels.cuda_build import check_launch, library
 __all__ = ["flash_attention_fwd", "flash_route", "launches", "HEAD_DIMS"]
 
 launches = LaunchCounter("flash_attention_fwd")
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)  # every attention kernel has these
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 TENSOR_CORE_HEAD_DIMS = (64, 128, 256)
 
@@ -37,7 +38,8 @@ def flash_route(dtype, D: int) -> str:
     """Which kernel a CUDA call of ``dtype`` and head dim ``D`` launches:
     ``"wgmma"`` (tensor cores, TMA loads) for bf16 / f16 at D in
     :data:`TENSOR_CORE_HEAD_DIMS`, ``"cuda_core"`` otherwise (f32 keeps
-    full precision; D <= 32 is on no full-width path)."""
+    full precision; D = 80 / 96 are not whole 64-wide swizzle boxes, and
+    D <= 32 is on no full-width path)."""
     if dtype in (torch.bfloat16, torch.float16) and D in TENSOR_CORE_HEAD_DIMS:
         return "wgmma"
     return "cuda_core"

@@ -14,6 +14,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.decode_attention import MAX_CHUNK, paged_chunks
+
 __all__ = [
     "rms_norm_ref",
     "attention_bsnd",
@@ -23,6 +25,7 @@ __all__ = [
     "decode_attention_split_ref",
     "paged_decode_bsnd",
     "decode_attention_paged_ref",
+    "decode_attention_paged_split_ref",
     "flash_attention_bwd_ref",
     "rms_norm_bwd_ref",
     "rglru_scan_ref",
@@ -210,6 +213,61 @@ def decode_attention_paged_ref(q, k_pool, v_pool, page_tables, pos, *, window: i
         v_pool.transpose(1, 2), page_tables, pos, window=window, scale=scale,
     )
     return out.reshape(B, NKV, G, D)
+
+
+def decode_attention_paged_split_ref(q, k_pool, v_pool, page_tables, pos, *, n_split: int,
+                                     window: int = 0, scale: Optional[float] = None,
+                                     step: int = MAX_CHUNK):
+    """Test-only model of the paged kernel's split, all in f32: each row's
+    live span cut into ``n_split`` chunks as the kernel cuts it
+    (:func:`~repro_torch.kernels.decode_attention.paged_chunks`; every key
+    of the span valid, or, for an empty span, every entry masked); each
+    chunk walked ``step`` keys at a time with its partials ``m`` (the max
+    score so far), ``l`` and ``acc`` rescaled by ``exp(m_old - m_new)``
+    from step to step; chunks past the span skipped; then the chunks merged
+    in order with the factors ``exp(m_c - M)``.  Kernel layout, as
+    :func:`decode_attention_paged_ref`."""
+    B, NKV, G, D = q.shape
+    page = k_pool.shape[2]
+    S = page_tables.shape[1] * page
+    if scale is None:
+        scale = D**-0.5
+    out = torch.empty((B, NKV, G, D), dtype=torch.float32)
+    for b in range(B):
+        ids = page_tables[b].long()
+        kd = k_pool[ids].float().transpose(0, 1).reshape(NKV, S, D)  # dense index order
+        vd = v_pool[ids].float().transpose(0, 1).reshape(NKV, S, D)
+        s = torch.einsum("hgd,hsd->hgs", q[b].float(), kd) * scale
+        chunks, masked = paged_chunks(int(pos[b]), window, S, n_split)
+        if masked:
+            s = torch.full_like(s, _NEG_INF)
+        parts = []
+        for c0, n in chunks:
+            if n <= 0:  # past the span: no partials
+                continue
+            m = l = acc = None
+            for s0 in range(c0, c0 + n, step):
+                s1 = min(c0 + n, s0 + step)
+                sc = s[..., s0:s1]
+                m_new = sc.amax(dim=-1) if m is None else torch.maximum(m, sc.amax(dim=-1))
+                e = torch.exp(sc - m_new[..., None])
+                pv = torch.einsum("hgs,hsd->hgd", e, vd[:, s0:s1])
+                if m is None:
+                    l, acc = e.sum(dim=-1), pv
+                else:
+                    corr = torch.exp(m - m_new)
+                    l, acc = l * corr + e.sum(dim=-1), acc * corr[..., None] + pv
+                m = m_new
+            parts.append((m, l, acc))
+        M = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+        L = torch.zeros_like(M)
+        O = torch.zeros_like(parts[0][2])
+        for m, l, acc in parts:
+            f = torch.exp(m - M)
+            L = L + l * f
+            O = O + acc * f[..., None]
+        out[b] = O / L.clamp_min(1e-30)[..., None]
+    return out.to(q.dtype)
 
 
 def flash_attention_bwd_ref(q, k, v, out, dout, lse, *, causal: bool = True,

@@ -54,6 +54,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.flash_attention import HEAD_DIMS
 from repro_torch.models import layers, rglru
 from repro_torch.models.attention import (
     decode_attention,
@@ -87,8 +88,12 @@ __all__ = [
 _KINDS = ("attn", "local", "recurrent")
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a config outside the ported subset."""
+def check_supported(cfg: ModelConfig, device=None) -> None:
+    """Raise ``NotImplementedError`` for a config outside the ported subset
+    and, when ``device`` is a CUDA device, for a head dim that the attention
+    kernels do not have (:data:`~repro_torch.kernels.flash_attention.HEAD_DIMS`),
+    so such a model is refused before any weight is allocated and not at
+    its first attention call.  The CPU's plain versions take any head dim."""
     kinds = tuple(cfg.pattern) + tuple(cfg.epilogue)
     bad = sorted({k for k in kinds if k not in _KINDS})
     if bad:
@@ -97,6 +102,11 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(f"{cfg.name}: frontends / prefix-LM are not ported yet")
     if cfg.kv_cache_quant:
         raise NotImplementedError(f"{cfg.name}: the int8 KV cache is not ported yet")
+    if (device is not None and torch.device(device).type == "cuda"
+            and any(k in ("attn", "local") for k in kinds) and cfg.head_dim not in HEAD_DIMS):
+        raise NotImplementedError(
+            f"{cfg.name}: head dim {cfg.head_dim} has no CUDA attention kernel (the flash "
+            f"and decode kernels take {HEAD_DIMS}); use one of those or run on the CPU")
 
 
 # ---------------------------------------------------------------------------
@@ -199,6 +209,7 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     own generator seeded by ``generator``'s seed and the leaf's path, so a
     leaf's values do not depend on the order of the tree."""
     dev = resolve_device(device)
+    check_supported(cfg, dev)
     base = 0 if generator is None else generator.initial_seed()
 
     def init(path, shape):
@@ -230,6 +241,7 @@ def params_from_numpy(cfg: ModelConfig, tree, device="cuda"):
     against the spec and dtypes follow the config (norms, decays and gate
     biases f32)."""
     dev = resolve_device(device)
+    check_supported(cfg, dev)
 
     def take(path, shape):
         node = tree
@@ -382,8 +394,8 @@ def _block_cache(cfg, kind, batch, max_len, dtype, device, lead=()):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
-    check_supported(cfg)
     dev = resolve_device(device)
+    check_supported(cfg, dev)
     dtype = getattr(torch, cfg.dtype)
     periods = tuple(
         _block_cache(cfg, k, batch, max_len, dtype, dev, lead=(cfg.n_periods,))
@@ -590,8 +602,8 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int, device="cud
             f"config {cfg.name!r} cannot use the paged decode path "
             "(needs a causal attention-only stack without kv quant)"
         )
-    check_supported(cfg)
     dev = resolve_device(device)
+    check_supported(cfg, dev)
     dtype = getattr(torch, cfg.dtype)
     periods = tuple(
         _paged_block_cache(cfg, k, n_pages, page_size, dtype, dev, lead=(cfg.n_periods,))

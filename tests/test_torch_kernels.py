@@ -234,12 +234,16 @@ def test_split_plan_fills_one_wave_at_the_served_shapes(shape, blocks_before):
 
 
 def test_split_plan_refuses_what_the_kernel_cannot_take():
-    from repro_torch.kernels.decode_attention import split_plan
+    """Empty shapes are refused; S has no cap (a block walks a long chunk in
+    steps), so 65537 slots get a plan that covers them."""
+    from repro_torch.kernels.decode_attention import MAX_SPLIT, split_plan
 
-    with pytest.raises(ValueError):
-        split_plan(1, 1, 1, 256 * 256 + 1, 132)
+    heads, n_split, chunk = split_plan(1, 1, 1, 256 * 256 + 1, 132)
+    assert n_split <= MAX_SPLIT and (n_split - 1) * chunk < 256 * 256 + 1 <= n_split * chunk
     with pytest.raises(ValueError):
         split_plan(1, 1, 0, 10, 132)
+    with pytest.raises(ValueError):
+        split_plan(1, 1, 1, 0, 132)
 
 
 @pytest.mark.parametrize("dtype, D, route", [
