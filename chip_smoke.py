@@ -46,13 +46,21 @@ Phases (each passes or raises; any failure exits non-zero with no result):
    256, G 5 / 8 / 10, ragged S, windowed and bidirectional, in f32, bf16
    and f16 (the forward kernel's LSE is checked too), and a full-width row
    at the train phase's gemma-2b shape, whose library time is the backward
-   of ``F.scaled_dot_product_attention`` alone.  The RG-LRU scan kernel
-   runs the tests/test_kernels.py sweep (f32 and bf16), the carry across
-   blocks, ragged S and W with a non-zero h0, and its backward (the kernel
-   over the reversed sequence) against the plain adjoint; full-width rows
-   at the hybrid serve shape (4, 128, 2560) and the recurrentgemma train
-   shape (2, 2048, 2560), f32 as the model runs it.  No single PyTorch call
-   computes a linear recurrence, so its library time is null.  The norm and
+   of ``F.scaled_dot_product_attention`` alone.  The RG-LRU scan kernel (S
+   cut into chunks across a thread-block cluster) and its reverse mode
+   (the backward, one launch) run the tests/test_kernels.py sweep, ragged S
+   and W with a non-zero h0, S = 1, one chunk up to 128 steps and one step
+   past a cluster of 8 chunks of 16 to 128, S = 8192 and 65536 at W = 64,
+   forced plans (S = L - 1, L, L + 1 and 8L + 1, clusters of 2 to 8),
+   strided operands on both load routes (TMA and per-thread loads), f32
+   and bf16; each case against the plain versions, bitwise against the
+   model of the kernel's arithmetic (``rglru_scan_chunked_ref`` with the
+   launch's plan), bitwise equal over two launches, and for one chunk in
+   f32 bitwise equal to the sequential plain version.  Full-width rows at
+   the hybrid serve shape (4, 128, 2560) and the recurrentgemma train shape
+   (2, 2048, 2560), forward and backward, f32 as the model runs it, with
+   the plan's block count.  No single PyTorch call computes a linear
+   recurrence, so their library time is null.  The norm and
    the flash forward and backward are also held against their plain
    versions at the shapes the recurrentgemma phases give them: the serve
    prefill (norm (4, 128, 2560), flash q (4, 10, 128, 256)) and the train
@@ -107,8 +115,9 @@ Phases (each passes or raises; any failure exits non-zero with no result):
    tokens/s, model FLOPs utilisation against 989 TFLOP/s, peak device
    memory and kernel launches per step.  Checks finite losses, the mean of
    the last 3 below the first, a finite non-zero gradient for every leaf
-   at step 0, and the flash and scan launches per step worked out from the
-   layer kinds (remat reruns the periods' forward, not the epilogue's).
+   at step 0, and the flash and scan launches per step (forward and
+   backward counted apart) worked out from the layer kinds (remat reruns
+   the periods' forward, not the epilogue's).
    With ``--profile``, one more step of each under ``torch.profiler``.
    Then the user's command ``python -m repro_torch.launch.train --arch
    phi3-mini-3.8b --full-config --batch 2 --seq 2048`` for 3 steps, in this
@@ -491,13 +500,16 @@ def phase_kernels(torch, full):
         _print_entry(e)
     bwd = _full_width_bwd(torch, gen)
     _print_entry(bwd)
-    print("[kernels] rglru_scan_fwd has no library yardstick: no single PyTorch call "
-          "computes a linear recurrence (library_ms null)", flush=True)
+    print("[kernels] rglru_scan_fwd / rglru_scan_bwd have no library yardstick: no single "
+          "PyTorch call computes a linear recurrence (library_ms null)", flush=True)
     for B, S, label in ((full["batch"], full["prompt"], "hybrid serve prefill"),
                         (TRAIN_BATCH, TRAIN_SEQ, "recurrentgemma training")):
         scan = _full_width_rglru(torch, gen, B, S, hybrid.lru_width, label)
         _print_entry(scan)
-    return entries + more + [paged, bwd, scan]
+    scan_bwd = _full_width_rglru_bwd(torch, gen, TRAIN_BATCH, TRAIN_SEQ, hybrid.lru_width,
+                                     "recurrentgemma training")
+    _print_entry(scan_bwd)
+    return entries + more + [paged, bwd, scan, scan_bwd]
 
 
 def _print_entry(e):
@@ -518,36 +530,153 @@ def _rglru_case(torch, gen, B, S, W, dtype, h0_dtype=None):
     return a, b, h0
 
 
+def _rglru_check(torch, gen, tag, a, b, h0, dtype, want_route=None, chunk=None,
+                 tile_w=None) -> int:
+    """One scan case, forward then backward: the kernel against the plain
+    versions within tolerance, bitwise against the model of its own
+    arithmetic (``rglru_scan_chunked_ref`` with the launch's plan), bitwise
+    equal over two launches, and, for a single chunk in f32, bitwise equal
+    to the sequential ``rglru_scan_ref``.  ``chunk`` / ``tile_w`` force a
+    plan instead of the planner's.  Returns the comparisons made."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as rk
+
+    B, S, W = a.shape
+    if chunk is None:
+        plan_f, plan_b = rk.launch_plan(a), rk.launch_plan(a, reverse=True)
+    else:
+        plan_f, plan_b = (rk.make_plan(B, S, W, a.element_size(), rev, chunk, tile_w)
+                          for rev in (False, True))
+    route = rk.load_route(a, b)
+    check(want_route is None or route == want_route,
+          f"{tag}: load route {route}, expected {want_route}")
+    tag = (f"{tag} (L {plan_f.chunk}/{plan_b.chunk}, {plan_f.tile_w} channels, cluster "
+           f"{plan_f.cluster}, {plan_f.groups}/{plan_b.groups} groups, {route})")
+    h = rk.rglru_scan_fwd(a, b, h0, plan=plan_f)
+    want = ref.rglru_scan_ref(a, b, h0)
+    _compare(torch, tag, h, want, dtype)
+    check(torch.equal(h, rk.rglru_scan_fwd(a, b, h0, plan=plan_f)),
+          f"{tag}: two launches differ")
+    if S <= 8192:  # the model walks S in Python, step by step
+        model = ref.rglru_scan_chunked_ref(a, b, h0, chunk=plan_f.chunk, cluster=plan_f.cluster)
+        check(torch.equal(h, model), f"{tag}: not bitwise the chunked model's arithmetic "
+              f"(max |diff| {float((h.float() - model.float()).abs().max()):.3g})")
+    if S <= plan_f.chunk and dtype == torch.float32:
+        check(torch.equal(h, want), f"{tag}: one chunk is not bit-equal to rglru_scan_ref")
+    dh = _randn(torch, (B, S, W), dtype, gen)
+    got = rk.rglru_scan_bwd(a, h, h0, dh, plan=plan_b)
+    plain = ref.rglru_scan_bwd_ref(a, h, h0, dh)
+    for part, g, w in zip(("da", "db", "dh0"), got, plain):
+        check(g.dtype == w.dtype and g.shape == w.shape, f"{tag} bwd {part} dtype/shape")
+        _compare(torch, f"{tag} bwd {part}", g, w, dtype)
+    if S <= plan_b.chunk and dtype == torch.float32:
+        check(all(torch.equal(g, w) for g, w in zip(got, plain)),
+              f"{tag} bwd: one chunk is not bit-equal to rglru_scan_bwd_ref")
+    again = rk.rglru_scan_bwd(a, h, h0, dh, plan=plan_b)
+    check(all(torch.equal(x, y) for x, y in zip(got, again)), f"{tag} bwd: two launches differ")
+    if S <= 8192:
+        model = ref.rglru_scan_chunked_ref(a, dh, h0, chunk=plan_b.chunk, cluster=plan_b.cluster,
+                                           reverse=True, h=h)
+        check(all(torch.equal(x, y) for x, y in zip(got, model)),
+              f"{tag} bwd: not bitwise the chunked model's arithmetic")
+    return 2
+
+
 def _rglru_sweep(torch, gen) -> int:
-    """The scan kernel against ``rglru_scan_ref``, then its backward (the
-    kernel over the reversed sequence) against ``rglru_scan_bwd_ref``: the
-    tests/test_kernels.py shapes, ragged S and W, a bf16 h0; f32 and bf16;
+    """The scan kernel and its reverse mode (the backward), every case as
+    ``_rglru_check``, f32 and bf16: the tests/test_kernels.py shapes, ragged
+    S and W, a bf16 h0; on the planner's plans S = 1, 127 and 128 (one
+    chunk) and 129, 257, 513, 1025 (one step past a cluster of 8 chunks of
+    16, 32, 64, 128), S = 8192 and 65536 at W = 64 (a cluster looping over
+    many groups); on forced plans S = L - 1, L, L + 1 and 8L + 1 for L = 8
+    and 32 and clusters of 2 to 8; strided operands on both load routes;
     and the carry across what were the Pallas kernel's sequence blocks."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import rglru_scan as rk
 
     n = 0
-    for dtype in (torch.float32, torch.bfloat16):
+    f32 = torch.float32
+    for dtype in (f32, torch.bfloat16):
         for B, S, W, h0_dtype in ((2, 256, 128, None), (1, 512, 256, None), (3, 128, 64, None),
-                                  (2, 300, 2500, None), (2, 77, 130, dtype), (1, 5, 7, None)):
+                                  (2, 300, 2500, None), (2, 77, 130, dtype), (1, 5, 7, None),
+                                  (2, 1, 130, None), (3, 127, 64, None), (2, 129, 40, dtype),
+                                  (2, 257, 160, None), (1, 513, 96, None), (1, 1025, 64, None),
+                                  (2, 2049, 256, None)):
             a, b, h0 = _rglru_case(torch, gen, B, S, W, dtype, h0_dtype)
-            tag = f"rglru{(B, S, W)} {dtype} h0 {h0.dtype}"
-            h = rk.rglru_scan_fwd(a, b, h0)
-            _compare(torch, tag, h, ref.rglru_scan_ref(a, b, h0), dtype)
-            dh = _randn(torch, (B, S, W), dtype, gen)
-            for part, g, w in zip(("da", "db", "dh0"), rk.rglru_scan_bwd(a, h, h0, dh),
-                                  ref.rglru_scan_bwd_ref(a, h, h0, dh)):
-                check(g.dtype == w.dtype and g.shape == w.shape, f"{tag} bwd {part} dtype/shape")
-                _compare(torch, f"{tag} bwd {part}", g, w, dtype)
-            n += 2
+            n += _rglru_check(torch, gen, f"rglru{(B, S, W)} {dtype} h0 {h0.dtype}", a, b, h0,
+                              dtype)
+        for B, S, W, chunk, tile_w in ((2, 7, 130, 8, 64), (2, 8, 130, 8, 64), (2, 9, 130, 8, 64),
+                                       (1, 33, 64, 8, 32), (2, 65, 40, 8, 64),
+                                       (2, 31, 256, 32, 128), (2, 32, 256, 32, 128),
+                                       (2, 33, 256, 32, 128), (1, 257, 64, 32, 64),
+                                       (2, 300, 250, 64, 128), (2, 1000, 96, 128, 32),
+                                       (1, 2049, 64, 8, 32)):
+            a, b, h0 = _rglru_case(torch, gen, B, S, W, dtype)
+            n += _rglru_check(torch, gen, f"rglru{(B, S, W)} {dtype} forced", a, b, h0, dtype,
+                              chunk=chunk, tile_w=tile_w)
+    for S in (8192, 65536):
+        a, b, h0 = _rglru_case(torch, gen, 1, S, 64, f32)
+        n += _rglru_check(torch, gen, f"rglru long {(1, S, 64)}", a, b, h0, f32)
+    # Strided operands: steps padded to 264 channels (16-byte strides, the
+    # TMA route), then the same views shifted by one channel (pointers off
+    # 16 bytes: per-thread loads), and W = 7 (28-byte strides); each on a
+    # one-chunk and a clustered plan.
+    for dtype in (f32, torch.bfloat16):
+        for S in (100, 300):
+            for off, route in ((0, "tma"), (1, "ldg")):
+                pad_a, pad_b, h0 = _rglru_case(torch, gen, 2, S, 264, dtype)
+                a, b = pad_a[..., off:off + 256], pad_b[..., off:off + 256]
+                n += _rglru_check(torch, gen, f"rglru strided {(2, S, 256)} +{off} {dtype}",
+                                  a, b, h0[:, :256].contiguous(), dtype, want_route=route)
+            a, b, h0 = _rglru_case(torch, gen, 2, S, 7, dtype)
+            n += _rglru_check(torch, gen, f"rglru W=7 S={S} {dtype}", a, b, h0, dtype,
+                              want_route="ldg")
+    n += _rglru_refusals(torch, gen)
     a = torch.full((1, 256, 64), 0.99, device="cuda")
     b = torch.full((1, 256, 64), 0.01, device="cuda")
     h = rk.rglru_scan_fwd(a, b, torch.zeros(1, 64, device="cuda"))
     _compare(torch, "rglru carry", h, ref.rglru_scan_ref(a, b, torch.zeros(1, 64, device="cuda")),
-             torch.float32)
+             f32)
     check(float(h[0, -1, 0]) > float(h[0, 63, 0]) > float(h[0, 0, 0]),
           "rglru carry: the state did not accumulate across the sequence")
     return n + 1
+
+
+def _rglru_refusals(torch, gen) -> int:
+    """What the scan cannot take raises, with no fallback: a plan made for
+    another shape (the entry point's check), a plan whose shared memory the
+    card cannot give a block (the card refuses the cluster launch), and a
+    TMA map over 28-byte steps (``cuTensorMapEncodeTiled`` refuses it; the
+    wrapper itself routes such operands to per-thread loads, so the entry
+    point is called directly).  A scan right after each must still be
+    right."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as rk
+
+    f32 = torch.float32
+    a, b, h0 = _rglru_case(torch, gen, 1, 4096, 256, f32)
+    for what, plan in (("a plan for another shape", rk.make_plan(1, 64, 256, 4, False, 8, 128)),
+                       ("a block's shared memory past the card's",
+                        rk.make_plan(1, 4096, 256, 4, False, 128, 128))):
+        try:
+            rk.rglru_scan_fwd(a, b, h0, plan=plan)
+        except RuntimeError as e:
+            print(f"[kernels] rglru refuses {what} ({plan.smem} bytes): {e}", flush=True)
+        else:
+            fail(f"rglru: {what} was launched")
+        _compare(torch, f"rglru after refusing {what}", rk.rglru_scan_fwd(a, b, h0),
+                 ref.rglru_scan_ref(a, b, h0), f32)
+    a, b, h0 = _rglru_case(torch, gen, 1, 64, 7, f32)
+    out = torch.empty_like(a)
+    plan = rk.make_plan(1, 64, 7, 4, False, 8, 32)
+    err = rk._lib().rglru_scan_launch(
+        0, 0, 0, 1, 64, 7, a.data_ptr(), *a.stride()[:2], b.data_ptr(), *b.stride()[:2],
+        None, 0, 0, h0.data_ptr(), h0.stride(0), out.data_ptr(), *out.stride()[:2], None, 0, 0,
+        None, plan.chunk, plan.tile_w, plan.cluster, plan.stages, 1, plan.smem,
+        torch.cuda.current_stream().cuda_stream)
+    check(err == -1, f"rglru: a TMA map over 28-byte steps returned {err}, not -1 (refused)")
+    check(rk.load_route(a, b) == "ldg", "rglru: 28-byte steps not routed to per-thread loads")
+    return 3
 
 
 def _full_width_rglru(torch, gen, B, S, W, label):
@@ -565,6 +694,7 @@ def _full_width_rglru(torch, gen, B, S, W, label):
     for part, g, w in zip(("da", "db", "dh0"), rk.rglru_scan_bwd(a, h, h0, dh),
                           ref.rglru_scan_bwd_ref(a, h, h0, dh)):
         _compare(torch, f"rglru full width {(B, S, W)} bwd {part}", g, w, f32)
+    plan = rk.launch_plan(a)
     # a and b read once, h written once, h0 read once; one multiply and one
     # add per element on the CUDA cores.
     nbytes = 3 * a.numel() * 4 + h0.numel() * 4
@@ -574,10 +704,47 @@ def _full_width_rglru(torch, gen, B, S, W, label):
     return dict(
         name="rglru_scan_fwd", route="cuda", source="src/repro_torch/kernels/csrc/rglru_scan.cu",
         replaces="src/repro/kernels/rglru_scan.py:59", max_abs_err=err,
-        shape=f"a, b {(B, S, W)} f32 ({label}, {B * -(-W // 128)} blocks)",
+        shape=f"a, b {(B, S, W)} f32 ({label}, {plan.blocks} blocks: L {plan.chunk}, "
+              f"{plan.tile_w} channels, clusters of {plan.cluster}, {plan.groups} groups, "
+              f"{rk.load_route(a, b)})",
         ms=time_ms(torch, lambda: rk.rglru_scan_fwd(a, b, h0)),
         eager_ms=time_ms(torch, lambda: rk.rglru_scan_fwd(a, b, h0), graph=False),
         plain_ms=time_ms(torch, lambda: ref.rglru_scan_ref(a, b, h0), launches=2, trials=3),
+        library_ms=None,
+        bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+    )
+
+
+def _full_width_rglru_bwd(torch, gen, B, S, W, label):
+    """The scan's backward (the kernel in reverse, the whole
+    ``rglru_scan_bwd`` call) at the recurrentgemma train shape, f32."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as rk
+
+    f32 = torch.float32
+    a, b, h0 = _rglru_case(torch, gen, B, S, W, f32)
+    h = rk.rglru_scan_fwd(a, b, h0)
+    dh = _randn(torch, (B, S, W), f32, gen)
+    err = max(_compare(torch, f"rglru bwd full width {(B, S, W)} {part}", g, w, f32)
+              for part, g, w in zip(("da", "db", "dh0"), rk.rglru_scan_bwd(a, h, h0, dh),
+                                    ref.rglru_scan_bwd_ref(a, h, h0, dh)))
+    plan = rk.launch_plan(a, reverse=True)
+    # a, dh and h read once, da and db written once (20 bytes per element in
+    # f32), h0 read and dh0 written once; three multiplies and an add per
+    # element.
+    nbytes = 5 * a.numel() * 4 + 2 * h0.numel() * 4
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = 4 * a.numel() / H100_F32_FLOPS * 1e3
+    return dict(
+        name="rglru_scan_bwd", route="cuda", source="src/repro_torch/kernels/csrc/rglru_scan.cu",
+        replaces="src/repro/kernels/rglru_scan.py:59", max_abs_err=err,
+        shape=f"a, dh, h {(B, S, W)} f32 ({label}, {plan.blocks} blocks: L {plan.chunk}, "
+              f"{plan.tile_w} channels, clusters of {plan.cluster}, {plan.groups} groups, "
+              f"{rk.load_route(a, dh, h)})",
+        ms=time_ms(torch, lambda: rk.rglru_scan_bwd(a, h, h0, dh)),
+        eager_ms=time_ms(torch, lambda: rk.rglru_scan_bwd(a, h, h0, dh), graph=False),
+        plain_ms=time_ms(torch, lambda: ref.rglru_scan_bwd_ref(a, h, h0, dh), launches=2,
+                         trials=3),
         library_ms=None,
         bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
     )
@@ -1479,8 +1646,8 @@ def _expected_launches(cfg):
     n_attn = sum(k in ("attn", "local") for k in kinds)
     norms = 2 * len(kinds) + 1 + (2 * n_attn if cfg.qk_norm else 0)
     prefill = dict(rms_norm_fwd=norms, flash_attention_fwd=n_attn, rglru_scan_fwd=n_rec,
-                   decode_attention_fwd=0)
-    decode = dict(rms_norm_fwd=norms, flash_attention_fwd=0, rglru_scan_fwd=0,
+                   rglru_scan_bwd=0, decode_attention_fwd=0)
+    decode = dict(rms_norm_fwd=norms, flash_attention_fwd=0, rglru_scan_fwd=0, rglru_scan_bwd=0,
                   decode_attention_fwd=n_attn)
     return prefill, decode
 
@@ -1542,9 +1709,9 @@ def _train_launches(cfg):
 
     attn_fwd, attn_bwd = count(("attn", "local"))
     rec_fwd, rec_bwd = count(("recurrent",))
-    # The scan's backward is the same kernel over the reversed sequence.
+    # The scan's backward is the same kernel run in reverse, counted apart.
     return dict(flash_attention_fwd=attn_fwd, flash_attention_bwd=attn_bwd,
-                rglru_scan_fwd=rec_fwd + rec_bwd)
+                rglru_scan_fwd=rec_fwd, rglru_scan_bwd=rec_bwd)
 
 
 def phase_train(torch, arch, card, profile: bool):
@@ -1610,7 +1777,8 @@ def phase_train(torch, arch, card, profile: bool):
           f"train {arch}: mean of the last 3 losses {np.mean(losses[-3:]):.4f} not below the "
           f"first {losses[0]:.4f}")
     want = _train_launches(cfg)
-    for name in TRAIN_PATH_KERNELS + (("rglru_scan_fwd",) if want["rglru_scan_fwd"] else ()):
+    scan = ("rglru_scan_fwd", "rglru_scan_bwd") if want["rglru_scan_fwd"] else ()
+    for name in TRAIN_PATH_KERNELS + scan:
         check(counts[name] > 0, f"train {arch}: kernel {name} was never launched on the "
               "train path")
     got = {k: counts[k] / TRAIN_STEPS for k in want}
@@ -1720,6 +1888,8 @@ def _families(prof):
         fam = next((k for k in _PORT_KERNELS if k in name), None)
         if fam == "decode_split_kernel":  # its last template argument: PAGED
             fam += " (paged)" if ", true>" in name else " (ring)"
+        if fam == "rglru_scan_kernel":  # its last template argument: REV
+            fam += " (reverse)" if ", true>" in name else " (forward)"
         if fam is None:
             low = name.lower()
             fam = "matmul" if any(s in low for s in (

@@ -48,6 +48,7 @@ COUNTERS = {
     "decode_attention_fwd": _decode.launches,
     "decode_attention_paged_fwd": _decode.paged_launches,
     "rglru_scan_fwd": _rglru.launches,
+    "rglru_scan_bwd": _rglru.bwd_launches,
 }
 
 
@@ -107,10 +108,11 @@ class FlashAttention(torch.autograd.Function):
 class RGLRUScan(torch.autograd.Function):
     """The RG-LRU recurrence with a gradient.  Forward: the scan kernel on
     CUDA, the plain version on the CPU; saves a, the output h and h0.
-    Backward: the same kernel over the reversed sequence on CUDA
-    (:func:`rglru_scan.rglru_scan_bwd`), :func:`ref.rglru_scan_bwd_ref` on
-    the CPU.  The JAX package differentiates its associative scan with
-    ``jax.grad``; it has no Pallas backward here."""
+    Backward: the same kernel run in reverse on CUDA, one launch that
+    writes da, db and dh0 (:func:`rglru_scan.rglru_scan_bwd`),
+    :func:`ref.rglru_scan_bwd_ref` on the CPU.  The JAX package
+    differentiates its associative scan with ``jax.grad``; it has no Pallas
+    backward here."""
 
     @staticmethod
     def forward(ctx, a, b, h0):

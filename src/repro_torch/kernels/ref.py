@@ -30,6 +30,7 @@ __all__ = [
     "rms_norm_bwd_ref",
     "rglru_scan_ref",
     "rglru_scan_bwd_ref",
+    "rglru_scan_chunked_ref",
 ]
 
 _NEG_INF = -1e30  # finite masked-score sentinel (a fully masked row -> mean of v)
@@ -334,3 +335,58 @@ def rglru_scan_bwd_ref(a, h, h0, dh):
     da = g * h_prev
     dh0 = af[:, 0] * g[:, 0]
     return da.to(a.dtype), g.to(a.dtype), dh0.to(h0.dtype)
+
+
+def rglru_scan_chunked_ref(a, b, h0, *, chunk: int, cluster: int, reverse: bool = False,
+                           h=None):
+    """The scan kernel's arithmetic (``csrc/rglru_scan.cu``) in plain PyTorch.
+
+    S is cut into chunks of ``chunk`` steps, taken ``cluster`` at a time.
+    Each chunk folds into its summary ``(A, H)``: ``A = A * a_t`` from 1 and
+    ``H = a_t * H + b_t`` from 0, in time order.  The carry into chunk r of
+    a group is the group's incoming carry with summaries 0..r-1 folded on
+    in chunk order (``carry = A * carry + H``); folding all of them gives
+    the next group's carry.  Each chunk is then re-walked from its carry
+    (``h = a_t * h + b_t``).  Every step is a rounded f32 multiply, then a
+    rounded add.  With S <= ``chunk`` this is :func:`rglru_scan_ref` bit for
+    bit.  Forward: returns h in a's dtype.
+
+    ``reverse``: ``b`` is the cotangent ``dh`` and ``h`` the forward's
+    output; the walk runs from S-1 down with coefficient ``a_{t+1}`` (0 past
+    the end) and no initial carry, giving ``g_t = dh_t + a_{t+1} g_{t+1}``;
+    returns ``(da, db, dh0) = (g_t h_{t-1}, g, a_0 g_0)`` (``h_{-1} = h0``)
+    from the f32 g, in the dtypes of a, a and h0, as
+    :func:`rglru_scan_bwd_ref` does.
+    """
+    af, xf = a.float(), b.float()
+    B, S, W = a.shape
+    if reverse:
+        coef = torch.cat([af[:, 1:], torch.zeros_like(af[:, :1])], dim=1).flip(1)
+        xf = xf.flip(1)
+        carry = torch.zeros((B, W), dtype=torch.float32, device=a.device)
+    else:
+        coef, carry = af, h0.float()
+    out = torch.empty_like(xf)
+    n_chunks = -(-S // chunk)
+    for g0 in range(0, n_chunks, cluster):
+        spans = [(c * chunk, min(S, (c + 1) * chunk))
+                 for c in range(g0, min(g0 + cluster, n_chunks))]
+        summaries = []
+        for lo, hi in spans:
+            A = torch.ones_like(carry)
+            H = torch.zeros_like(carry)
+            for t in range(lo, hi):
+                A = A * coef[:, t]
+                H = coef[:, t] * H + xf[:, t]
+            summaries.append((A, H))
+        for (lo, hi), (A, H) in zip(spans, summaries):
+            x = carry
+            for t in range(lo, hi):
+                x = coef[:, t] * x + xf[:, t]
+                out[:, t] = x
+            carry = A * carry + H
+    if not reverse:
+        return out.to(a.dtype)
+    g = out.flip(1)
+    h_prev = torch.cat([h0.float()[:, None], h[:, :-1].float()], dim=1)
+    return (g * h_prev).to(a.dtype), g.to(a.dtype), (af[:, 0] * g[:, 0]).to(h0.dtype)

@@ -687,18 +687,29 @@ def test_rglru_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         rglru_scan_bwd(a, a, torch.zeros(1, 16), a)
     ops.reset_launch_counts()
-    ops.rglru_scan(a, a, torch.zeros(1, 16))
-    assert ops.launch_counts()["rglru_scan_fwd"] == 0
+    leaves = [t.clone().requires_grad_(True) for t in (a, a, torch.zeros(1, 16))]
+    ops.rglru_scan(*leaves).sum().backward()
+    counts = ops.launch_counts()
+    assert counts["rglru_scan_fwd"] == counts["rglru_scan_bwd"] == 0
+
+
+# S across the planner's chunk and cluster boundaries: one chunk up to 128
+# steps, then chunks of 16 / 32 / 64 / 128 with a cluster of 8 and one step
+# more (a second group of one chunk), and the train shape.
+RGLRU_CUDA_CASES = [(4, 128, 2560, 0, 0), (1, 5, 7, 0, 0), (2, 1, 130, 0, 0),
+                    (2, 127, 64, 0, 0), (2, 129, 40, 0, 0), (1, 257, 160, 0, 0),
+                    (1, 513, 96, 0, 0), (1, 1025, 64, 0, 0), (2, 2048, 2560, 0, 0)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", RGLRU_CASES + [(4, 128, 2560, 0, 0), (1, 5, 7, 0, 0)],
-                         ids=str)
+@pytest.mark.parametrize("case", RGLRU_CASES + RGLRU_CUDA_CASES, ids=str)
 def test_rglru_kernel_matches_plain(sm90, case, dtype):
-    """The scan kernel, then its backward (the kernel over the reversed
-    sequence), against the plain versions; bf16 also with a bf16 h0."""
-    from repro_torch.kernels.rglru_scan import rglru_scan_bwd, rglru_scan_fwd
+    """The scan kernel, then its backward (the kernel run in reverse),
+    against the plain versions; bf16 also with a bf16 h0.  Two launches on
+    the same inputs are bitwise equal (the carry is folded in a fixed
+    order), and one chunk in f32 is the sequential walk bit for bit."""
+    from repro_torch.kernels.rglru_scan import launch_plan, rglru_scan_bwd, rglru_scan_fwd
 
     B, S, W, _, _ = case
     dt = getattr(torch, dtype)
@@ -708,8 +719,14 @@ def test_rglru_kernel_matches_plain(sm90, case, dtype):
         h0 = (0.1 * torch.randn(B, W, device=sm90)).to(h0_dtype)
         h = rglru_scan_fwd(a, b, h0)
         assert h.dtype == dt
-        _gpu_close(h, ref.rglru_scan_ref(a, b, h0), dt)
+        want = ref.rglru_scan_ref(a, b, h0)
+        _gpu_close(h, want, dt)
+        assert torch.equal(h, rglru_scan_fwd(a, b, h0))
+        if dt == torch.float32 and S <= launch_plan(a).chunk:
+            assert torch.equal(h, want)
         dh = torch.randn(B, S, W, device=sm90).to(dt)
-        for g, w in zip(rglru_scan_bwd(a, h, h0, dh), ref.rglru_scan_bwd_ref(a, h, h0, dh)):
+        got = rglru_scan_bwd(a, h, h0, dh)
+        for g, w in zip(got, ref.rglru_scan_bwd_ref(a, h, h0, dh)):
             assert g.shape == w.shape and g.dtype == w.dtype
             _gpu_close(g, w, dt)
+        assert all(torch.equal(x, y) for x, y in zip(got, rglru_scan_bwd(a, h, h0, dh)))
