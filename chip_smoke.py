@@ -92,6 +92,43 @@ Phases (each passes or raises; any failure exits non-zero with no result):
    ``compile_count``, tier-l traffic with finite logits, TTFT on every
    completion, the stream's chunks before resolution, and that the paged
    path's kernels were launched.
+   Between phases 5 and 6, cluster serve: a ``ClusterBackend`` of two
+   in-process replicas behind inline transports (``--transport inline``),
+   ``power_of_two`` routing and the heterogeneous spec ``2:8:0.5,1``,
+   hosting phase 5's ``Variant`` objects (no second copy: nothing is
+   allocated building the pool) with the same hedge; ``measure_profiles``
+   and ``drain_trace`` of 32 requests under sync and async dispatch, each
+   with replica 0 killed at half the trace's span (and one fault injected
+   on replica 1) and rejoined at three quarters.  Checks conservation per
+   replica and in aggregate, that the killed replica is handed nothing
+   between kill and rejoin, that lost rows are requeued or fail over to the
+   hedge, that both replicas served tier-l, that the dense path's kernels
+   were launched, and that a probe batch's tokens are bitwise equal on
+   replica 0, on replica 1, on both at once (two threads) and on phase 5's
+   plain ``JitBackend``.
+6b. process transport: phase 5's weights copied to the host and phase 5
+   released; a ``ClusterBackend`` of two spawned workers (``--transport
+   process``), each a ``JitBackend`` on its own CUDA context hosting the
+   three tiers with tier-l at full width, the weights sent as raw bytes in
+   128 MiB pieces and checksummed; the probe tokens of each worker against
+   phase 5's plain backend; ``measure_profiles`` and an async
+   ``drain_trace`` during which worker 0 is killed with a batch in flight
+   (``ReplicaDied`` on its rows, breaker open, traffic on the survivor);
+   worker 1 SIGKILLed mid-batch (the seconds to ``ReplicaDied``); then
+   worker 0 rejoined (old process reaped, respawned, re-registered) and a
+   batch served by it.  Prints registration seconds and rates,
+   spawn-to-ready seconds, the workers' and the parent's peak host RSS and
+   the workers' device memory; the workers' launch counters (read over
+   their pipe) add to the phase's, except the drain's launches on the
+   killed worker, which die with it.
+6c. serve command: ``repro_torch.launch.serve`` run in this process on the
+   card with ``--replicas 2 --transport inline --kill-replica-at 300
+   --rejoin-replica-at 700 --tenants interactive:4,batch:1:batch:32
+   --controller --max-pending 8 --overload 2 --overload-policy shed
+   --trace-out ... --metrics-out ...``: the exports pass
+   ``benchmarks/validate_obs.py``, request conservation balances, and the
+   same command untraced, untraced and traced again (in that order) gives
+   two trace-on/off p99 ratios.
 7. hybrid serve: once tier-l is released, a ``JitBackend`` engine whose one
    remote tier, tier-rg, is recurrentgemma-2b at its full published
    configuration (26 layers, bf16, seeded weights) with the measured
@@ -178,6 +215,18 @@ TRAIN_STEPS = 12
 # model phase, and the user's train command at full configuration.
 PHI3_ARCH = "phi3-mini-3.8b"
 PHI3_TRAIN_STEPS = 3
+# The cluster serve phase: requests (a kill at half the trace's span and a
+# rejoin at three quarters need several ticks) and the heterogeneous pool.
+CLUSTER_REQUESTS = 32
+# Tracing's cost is read from p99 over this many requests of one seeded
+# trace (p99 of 128 interpolates below the largest), at a rate the pool
+# serves without the SLA capping the tail.
+TRACING_REQUESTS = 128
+TRACING_RATE = 4.0
+CLUSTER_SPEC = "2:8:0.5,1"
+# A run still going after this long fails (stacks printed, workers killed)
+# inside the 1200 s a run may take.
+WATCHDOG_S = 1150.0
 
 
 # The kernels each serve phase's path must launch (the hedge tier's dense
@@ -1633,6 +1682,535 @@ def phase_continuous(torch, engine, card):
 
 
 # ---------------------------------------------------------------------------
+# Phase 5b: cluster serve — two in-process replicas over phase 5's weights.
+# ---------------------------------------------------------------------------
+def _probe(np):
+    """The probe batch every replica and transport must answer bitwise alike."""
+    return np.random.default_rng(11).integers(0, 256, (BATCH, PROMPT))
+
+
+def _served_replicas(completions):
+    return sorted({c.replica for c in completions if c.used_remote})
+
+
+def phase_cluster(torch, engine, card):
+    """A ``ClusterBackend`` of two inline-transport replicas sharing phase
+    5's ``Variant`` objects: routing, a kill and a rejoin, conservation, and
+    the probe batch bitwise equal across replicas and the plain backend."""
+    import functools
+    import threading
+
+    import numpy as np
+    from repro_torch.core.network import LognormalNetwork
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.observability.quantile import quantile
+    from repro_torch.serving.cluster import ClusterBackend, parse_replica_specs
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.loadgen import PoissonArrivals, make_trace
+    from repro_torch.serving.scheduler import MDInferenceScheduler, SchedulerConfig
+    from repro_torch.serving.transport import ProcessTransportBackend
+
+    max_len = PROMPT + GEN + 8
+    ops.reset_launch_counts()  # the cluster path starts here
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    factory = functools.partial(serve._jit_backend_factory, max_len, "cuda")
+    cluster = ClusterBackend(
+        [ProcessTransportBackend(factory, mode="inline", max_len=max_len) for _ in range(2)],
+        router="power_of_two", seed=0, specs=parse_replica_specs(CLUSTER_SPEC, 2))
+    cengine = ServingEngine(max_len=max_len, backend=cluster,
+                            hedge_backend=engine.hedge_backend, dispatch="sync")
+    for v in engine.variants.values():
+        cengine.register(v)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - before
+    shared = all(r.backend._inner.variants[n] is v
+                 for r in cluster.replicas for n, v in engine.variants.items())
+    check(shared and grown == 0,
+          f"cluster: the pool copied weights (shared Variants {shared}, {grown} bytes allocated)")
+    print(f"[cluster] 2 replicas (inline transport, router power_of_two, spec {CLUSTER_SPEC}) "
+          f"share phase 5's Variants: {grown} bytes allocated building the pool, "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB in all", flush=True)
+    registry = cengine.measure_profiles(prompt_len=PROMPT, gen_tokens=GEN, trials=3, seed=0)
+    ondevice = engine.hedge_backend.measure_profile(prompt_len=PROMPT, gen_tokens=GEN, trials=3)
+    for p in registry:
+        print(f"[cluster] profile {p.name:8s} mu_ms={p.mu_ms:.3f} sigma_ms={p.sigma_ms:.3f}",
+              flush=True)
+
+    # The probe batch: replica 0, replica 1, both at once (two threads, two
+    # streams), and phase 5's plain JitBackend — the same weights and shape.
+    probe = _probe(np)
+    r0, r1 = (r.backend for r in cluster.replicas)
+    alone = [np.asarray(b.run_batch("tier-l", probe, GEN)[0]) for b in (r0, r1)]
+    together = [None, None]
+
+    def run(i, b):
+        together[i] = np.asarray(b.run_batch("tier-l", probe, GEN)[0])
+
+    threads = [threading.Thread(target=run, args=(i, b)) for i, b in enumerate((r0, r1))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    plain = np.asarray(engine.backend.run_batch("tier-l", probe, GEN)[0])
+    for what, got in (("replica 0", alone[0]), ("replica 1", alone[1]),
+                      ("replica 0 concurrent", together[0]),
+                      ("replica 1 concurrent", together[1])):
+        check(np.array_equal(got, plain), f"cluster: probe tokens on {what} differ from the "
+              "plain JitBackend's")
+    print(f"[cluster] probe batch ({BATCH}, {PROMPT}) x {GEN} tier-l tokens bitwise equal on "
+          "replica 0, replica 1, both concurrently and the plain JitBackend", flush=True)
+
+    n_req = CLUSTER_REQUESTS
+    prompts = np.random.default_rng(0).integers(0, 256, (n_req, PROMPT))
+    results = {"probe_equal": True, "pool_bytes_allocated": grown}
+    tier_l_on = set()
+    for dispatch in ("sync", "async"):
+        sched = MDInferenceScheduler(registry, ondevice, SchedulerConfig(t_sla_ms=SLA_MS, seed=0))
+        loop = cengine.make_loop(sched, dispatch=dispatch)
+        trace = make_trace(n_req, PoissonArrivals(20.0), LognormalNetwork(300.0, 0.6), seed=0)
+        span = float(trace.arrival_ms[-1])
+        kill_at, rejoin_at = span / 2, span * 3 / 4
+        log = {"ticks": [], "kill": None, "rejoin": None}
+
+        def on_tick(t_ms, res):
+            log["ticks"].append((t_ms, dict(res.stats.replica_rows), res.stats.n_lost,
+                                 res.stats.n_requeued))
+            if log["kill"] is None and t_ms >= kill_at:
+                cluster.kill_replica(0, reason="operator kill")
+                r1.inject_failures(1)  # one lost batch on the survivor
+                log["kill"] = (t_ms, cluster.replicas[0].dispatched_rows)
+                print(f"[cluster] {dispatch}: t={t_ms:.0f} ms killed replica 0 "
+                      "(and one injected fault on replica 1)", flush=True)
+            elif log["kill"] is not None and log["rejoin"] is None and t_ms >= rejoin_at:
+                log["rejoin"] = (t_ms, cluster.replicas[0].dispatched_rows)
+                cluster.rejoin(0)
+                print(f"[cluster] {dispatch}: t={t_ms:.0f} ms rejoined replica 0", flush=True)
+
+        t1 = time.perf_counter()
+        completions, metrics = loop.drain_trace(
+            trace, 200.0, tokens_for=lambda i: prompts[i], n_steps=GEN, on_tick=on_tick)
+        wall = time.perf_counter() - t1
+        check(log["kill"] is not None and log["rejoin"] is not None,
+              f"cluster {dispatch}: the kill / rejoin never landed")
+        rejected = metrics.n_rejected if metrics is not None else 0
+        check(len({c.rid for c in completions}) == len(completions) == n_req - rejected
+              and rejected == 0, f"cluster {dispatch}: {len(completions)} resolved + {rejected} "
+              f"rejected != {n_req} submitted")
+        per_replica = {0: 0, 1: 0}
+        for c in completions:
+            if c.used_remote:
+                per_replica[c.replica] += 1
+                if c.model_name == "tier-l":
+                    tier_l_on.add(c.replica)
+        remote = sum(c.used_remote for c in completions)
+        check(sum(per_replica.values()) == remote, f"cluster {dispatch}: per-replica "
+              f"completions {per_replica} do not add up to {remote}")
+        check(all(r.inflight_rows == 0 for r in cluster.replicas),
+              f"cluster {dispatch}: rows left in flight")
+        check(log["kill"][1] == log["rejoin"][1], f"cluster {dispatch}: replica 0 was handed "
+              f"{log['rejoin'][1] - log['kill'][1]} rows between its kill and its rejoin")
+        between = [t for t in log["ticks"] if log["kill"][0] < t[0] <= log["rejoin"][0]]
+        check(all(0 not in rows for _, rows, _, _ in between),
+              f"cluster {dispatch}: replica 0 served while killed")
+        lost = sum(t[2] for t in log["ticks"])
+        requeued = sum(t[3] for t in log["ticks"])
+        failover = sum(c.race_resolution == "remote_failed" for c in completions)
+        check(lost > 0 and lost == requeued + failover,
+              f"cluster {dispatch}: {lost} lost rows, {requeued} requeued, {failover} failed over")
+        for c in completions:
+            check(c.tokens.shape == (GEN,) and int(c.tokens.min()) >= 0,
+                  f"cluster {dispatch}: request {c.rid} has bad tokens {c.tokens}")
+        lats = [c.latency_ms for c in completions]
+        races = {k: round(v, 4) for k, v in metrics.race_resolution.items()}
+        results[dispatch] = dict(resolved=len(completions), per_replica=per_replica, lost=lost,
+                                 requeued=requeued, failover=failover, race_resolution=races,
+                                 p50_ms=quantile(lats, 50), p99_ms=quantile(lats, 99),
+                                 wall_s=wall, snapshot=[_snapshot_dict(s)
+                                                        for s in cluster.snapshot()])
+        print(f"[cluster] dispatch={dispatch}: {len(completions)} resolved + 0 rejected == "
+              f"{n_req} submitted; remote rows per replica {per_replica} (sum {remote}); "
+              f"{lost} rows lost = {requeued} requeued + {failover} failed over to the hedge; "
+              f"replica 0 handed nothing between kill and rejoin; race_resolution {races}; "
+              f"latency p50 {quantile(lats, 50):.1f} ms p99 {quantile(lats, 99):.1f} ms; "
+              f"drain {wall:.1f}s; card {card}", flush=True)
+    check(tier_l_on == {0, 1}, f"cluster: tier-l served by replicas {sorted(tier_l_on)} only")
+    results["tracing"] = _tracing_cost(cengine, registry, ondevice, card)
+    counts = ops.launch_counts()  # the cluster path ends here
+    print(f"[cluster] both replicas served tier-l; kernel launches during the cluster phase: "
+          f"{counts}", flush=True)
+    for name in DENSE_PATH_KERNELS:
+        check(counts[name] > 0, f"cluster: kernel {name} was never launched on its path")
+    results["probe_tokens"] = plain.tolist()
+    return counts, results
+
+
+def _tracing_cost(cengine, registry, ondevice, card):
+    """p99 with and without an ``Observability`` handle on the full-width
+    pool: one seeded trace of ``TRACING_REQUESTS``, async dispatch, no
+    faults, run off / on / on / off so drift falls on both sides."""
+    import copy
+
+    import numpy as np
+    from repro_torch.core.network import LognormalNetwork
+    from repro_torch.observability import Observability, request_conservation
+    from repro_torch.observability.quantile import quantile
+    from repro_torch.serving.loadgen import PoissonArrivals, make_trace
+    from repro_torch.serving.scheduler import MDInferenceScheduler, SchedulerConfig
+
+    n_req = TRACING_REQUESTS
+    prompts = np.random.default_rng(1).integers(0, 256, (n_req, PROMPT))
+    trace = make_trace(n_req, PoissonArrivals(TRACING_RATE), LognormalNetwork(300.0, 0.6), seed=1)
+    runs = {"on": [], "off": []}
+    for traced in (False, True, True, False):
+        obs = Observability() if traced else None
+        sched = MDInferenceScheduler(copy.deepcopy(registry), ondevice,
+                                     SchedulerConfig(t_sla_ms=SLA_MS, seed=0))
+        loop = cengine.make_loop(sched, dispatch="async", observability=obs)
+        t0 = time.perf_counter()
+        completions, _ = loop.drain_trace(trace, 200.0, tokens_for=lambda i: prompts[i],
+                                          n_steps=GEN)
+        wall = time.perf_counter() - t0
+        check(len({c.rid for c in completions}) == len(completions) == n_req,
+              f"tracing cost: {len(completions)} of {n_req} resolved")
+        lats = sorted(c.latency_ms for c in completions)
+        run = dict(p50_ms=quantile(lats, 50), p95_ms=quantile(lats, 95),
+                   p99_ms=quantile(lats, 99), max_ms=lats[-1],
+                   at_sla=sum(x >= SLA_MS for x in lats),
+                   on_tier_l=sum(c.model_name == "tier-l" for c in completions), wall_s=wall)
+        if traced:
+            loop.attach_observability(None)  # the handle stays on the pool otherwise
+            audit = request_conservation(obs.tracer)
+            check(audit["open"] == audit["extra_terminals"] == 0
+                  and audit["submitted"] == audit["resolved"] == n_req,
+                  f"tracing cost: request conservation {audit}")
+            run["spans"] = len(obs.tracer)
+        runs["on" if traced else "off"].append(run)
+    # on / off per quantile, runs 2 / 1 and 3 / 4; a quantile is capped (the
+    # SLA, not tracing, sets it) when more requests than lie above it ended
+    # at the SLA.
+    ratios = {q: [on[f"p{q}_ms"] / off[f"p{q}_ms"] for on, off in zip(runs["on"], runs["off"])]
+              for q in (50, 95, 99)}
+    order = runs["off"][:1] + runs["on"] + runs["off"][1:]
+    capped = {q: any(r["at_sla"] > n_req * (100 - q) / 100 for r in order) for q in (50, 95, 99)}
+    print(f"[cluster] tracing on / off, {n_req} requests at {TRACING_RATE:g} req/s, async, "
+          f"run off, on, on, off: p50 {[r['p50_ms'] for r in order]} ms, p95 "
+          f"{[r['p95_ms'] for r in order]} ms, p99 {[r['p99_ms'] for r in order]} ms, largest "
+          f"{[r['max_ms'] for r in order]} ms, at the SLA {[r['at_sla'] for r in order]}, on "
+          f"tier-l {[r['on_tier_l'] for r in order]}; on / off (runs 2 / 1, 3 / 4) "
+          + "; ".join(f"p{q} {', '.join(f'{x:.4f}' for x in ratios[q])}"
+                      + (" (capped by the SLA)" if capped[q] else "") for q in ratios)
+          + f"; spans {[r['spans'] for r in runs['on']]}, conservation ok; card {card}",
+          flush=True)
+    return dict(requests=n_req, rate=TRACING_RATE, runs=runs, ratios=ratios, capped=capped)
+
+
+def _snapshot_dict(obj):
+    import dataclasses
+    import math
+
+    return {k: (None if isinstance(v, float) and math.isinf(v) else v)
+            for k, v in dataclasses.asdict(obj).items()}
+
+
+# ---------------------------------------------------------------------------
+# Phase 6b: process transport — two spawned workers at full width.
+# ---------------------------------------------------------------------------
+def _rss_mib():
+    """This process's peak resident set (MiB) and where the number is from."""
+    from repro_torch.serving.transport_worker import peak_rss
+
+    return peak_rss()
+
+
+def _rss_line(registrations):
+    """A worker's resident set around each of its registrations."""
+    keys = ("entry_mib", "before_pieces_mib", "pieces_peak_mib", "after_pieces_mib")
+    return ("RSS (MiB) per registration, at entry / before its first piece (staging buffer "
+            "and CUDA context made) / largest while its pieces arrive / after its last piece: "
+            + "; ".join(f"{name} " + " / ".join(f"{info['rss'][k]:.0f}" for k in keys)
+                        for name, info in registrations.items()))
+
+
+def _add_counts(total, counts):
+    for k, v in (counts or {}).items():
+        total[k] = total.get(k, 0) + v
+
+
+def phase_process(torch, host_variants, plain_tokens, card):
+    """Two spawned workers, each a ``JitBackend`` on its own CUDA context
+    hosting the tiers with tier-l at full width, its weights sent as host
+    bytes in pieces; a drain, a real kill mid-batch, a restart, and tokens
+    equal to the in-process ``JitBackend``'s on the same weights."""
+    import functools
+    import os
+    import threading
+
+    import numpy as np
+    from repro_torch.core.network import LognormalNetwork
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.observability.quantile import quantile
+    from repro_torch.serving.backend import OnDeviceBackend
+    from repro_torch.serving.cluster import ClusterBackend
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.loadgen import PoissonArrivals, make_trace
+    from repro_torch.serving.scheduler import MDInferenceScheduler, SchedulerConfig
+    from repro_torch.serving.transport import PIECE_BYTES, ProcessTransportBackend, ReplicaDied
+
+    max_len = PROMPT + GEN + 8
+    probe = _probe(np)
+    ops.reset_launch_counts()  # the process path starts here (workers count from 0)
+    worker_counts = {}
+    t0 = time.perf_counter()
+    factory = functools.partial(serve._jit_backend_factory, max_len, "cuda")
+    cluster = ClusterBackend(
+        [ProcessTransportBackend(factory, mode="process", max_len=max_len) for _ in range(2)],
+        router="least_inflight", seed=0)
+    hedge = OnDeviceBackend.from_zoo(max_len=max_len, seed=0, device="cuda")
+    pengine = ServingEngine(max_len=max_len, backend=cluster, hedge_backend=hedge,
+                            dispatch="async")
+    results = {"workers": []}
+    try:
+        for v in host_variants:
+            print(f"[process] registering {v.name} on both workers", flush=True)
+            pengine.register(v)  # each worker acknowledges before the next
+        for r in cluster.replicas:
+            b = r.backend
+            reg = b.registrations["tier-l"]
+            st = b.stats()
+            row = dict(pid=b.pid, ready_s=b.ready_s, tier_l_register_s=reg["wall_s"],
+                       tier_l_worker_s=reg["seconds"], tier_l_gb=reg["bytes"] / 1e9,
+                       gb_per_s=reg["bytes"] / 1e9 / reg["wall_s"],
+                       worker_peak_rss_mib=st["peak_rss_mib"], rss_source=st["rss_source"],
+                       worker_device_gib=st.get("device_allocated_gib", float("nan")),
+                       worker_device_peak_gib=st.get("device_peak_gib", float("nan")),
+                       pieces=-(-reg["bytes"] // PIECE_BYTES),
+                       rss_mib={name: info["rss"] for name, info in b.registrations.items()})
+            results["workers"].append(row)
+            check(not st["jax_loaded"], "process: a worker imported jax")
+            print(f"[process] worker {r.replica_id} pid {b.pid}: tier-l "
+                  f"{reg['bytes'] / 1e9:.2f} GB registered in {reg['wall_s']:.1f} s "
+                  f"({reg['bytes'] / 1e9 / reg['wall_s']:.2f} GB/s, pieces of "
+                  f"{PIECE_BYTES >> 20} MiB, checksums equal), spawn-to-ready "
+                  f"{b.ready_s:.1f} s; worker peak RSS {st['peak_rss_mib']:.0f} MiB "
+                  f"({st['rss_source']}; largest sampled VmRSS "
+                  f"{st['sampled_peak_rss_mib']:.0f} MiB), "
+                  f"device {row['worker_device_gib']:.1f} GiB allocated", flush=True)
+            print(f"[process] worker {r.replica_id} {_rss_line(b.registrations)}", flush=True)
+        results["parent_peak_rss_mib"], results["parent_rss_source"] = _rss_mib()
+        free, total = torch.cuda.mem_get_info()
+        results["card_free_gib_with_two_workers"] = free / 2**30
+        print(f"[process] spawn + registration of both workers {time.perf_counter() - t0:.1f} s; "
+              f"parent peak RSS {results['parent_peak_rss_mib']:.0f} MiB "
+              f"({results['parent_rss_source']}; it holds the host copy); card "
+              f"{free / 2**30:.1f} of {total / 2**30:.1f} GiB free", flush=True)
+
+        # Tokens: each worker against phase 5's in-process JitBackend.
+        for r in cluster.replicas:
+            got = np.asarray(r.backend.run_batch("tier-l", probe, GEN)[0])
+            check(np.array_equal(got, plain_tokens), f"process: worker {r.replica_id}'s probe "
+                  "tokens differ from the in-process JitBackend's on the same weights")
+        print("[process] probe tokens of both workers bitwise equal to the in-process "
+              "JitBackend's (same weights, same batch shape)", flush=True)
+
+        registry = pengine.measure_profiles(prompt_len=PROMPT, gen_tokens=GEN, trials=3, seed=0)
+        ondevice = hedge.measure_profile(prompt_len=PROMPT, gen_tokens=GEN, trials=3)
+        n_req = REQUESTS
+        prompts = np.random.default_rng(0).integers(0, 256, (n_req, PROMPT))
+        sched = MDInferenceScheduler(registry, ondevice, SchedulerConfig(t_sla_ms=SLA_MS, seed=0))
+        loop = pengine.make_loop(sched, dispatch="async")
+        trace = make_trace(n_req, PoissonArrivals(20.0), LognormalNetwork(300.0, 0.6), seed=0)
+        victim = cluster.replicas[0].backend
+        _add_counts(worker_counts, victim.stats().get("launch_counts"))  # dies with it
+        kill, drained = {}, threading.Event()
+
+        def killer():
+            # Kill worker 0 while a batch is in flight on it: rows in flight
+            # for 50 ms and still in flight (a tier-l batch takes ~0.5 s).
+            while not drained.is_set():
+                if victim.inflight_rows > 0:
+                    time.sleep(0.05)
+                    if victim.inflight_rows > 0:
+                        kill["inflight"] = victim.inflight_rows
+                        kill["t"] = time.perf_counter()
+                        cluster.kill_replica(0, reason="operator kill")
+                        victim._proc.join(60.0)
+                        kill["exit_s"] = time.perf_counter() - kill["t"]
+                        return
+                time.sleep(0.005)
+
+        th = threading.Thread(target=killer, daemon=True)
+        th.start()
+        lost = []
+        try:
+            completions, metrics = loop.drain_trace(
+                trace, 200.0, tokens_for=lambda i: prompts[i], n_steps=GEN,
+                on_tick=lambda t, res: lost.append((t, res.stats.n_lost, res.stats.n_requeued,
+                                                    _served_replicas(res.completions))))
+        finally:
+            drained.set()
+        th.join(60.0)
+        check("t" in kill, "process: the kill never landed on an in-flight batch")
+        n_lost = sum(x[1] for x in lost)
+        check(n_lost > 0, "process: the kill lost no in-flight rows")
+        check(len(completions) == n_req and metrics.n_rejected == 0,
+              f"process: {len(completions)} of {n_req} resolved")
+        snap = cluster.snapshot()[0]
+        check(snap.health == "open" and not victim.alive,
+              f"process: worker 0's breaker is {snap.health} after the kill")
+        lats = [c.latency_ms for c in completions]
+        results["drain"] = dict(resolved=len(completions), lost=n_lost,
+                                requeued=sum(x[2] for x in lost),
+                                per_tick=lost, kill_inflight_rows=kill["inflight"],
+                                worker_exit_s=kill["exit_s"],
+                                p50_ms=quantile(lats, 50), p99_ms=quantile(lats, 99))
+        print(f"[process] drain (async): {len(completions)} resolved == {n_req} submitted; "
+              f"worker 0 killed with {kill['inflight']} rows in flight: {n_lost} rows lost "
+              f"({results['drain']['requeued']} requeued, the rest failed over to the hedge), "
+              f"breaker open, its process gone {kill['exit_s']:.2f} s after the SIGTERM; "
+              f"replicas serving per tick {[x[3] for x in lost]}; latency p50 "
+              f"{quantile(lats, 50):.1f} ms p99 {quantile(lats, 99):.1f} ms", flush=True)
+
+        # Kill-to-ReplicaDied, measured on its own: a batch in flight on
+        # worker 1 and the worker SIGKILLed from outside (a real death: the
+        # parent learns of it from the pipe).
+        survivor = cluster.replicas[1].backend
+        _add_counts(worker_counts, survivor.stats().get("launch_counts"))
+        for rows in (BATCH, 8 * BATCH, 32 * BATCH):  # until a batch is caught in flight
+            batch = np.resize(probe, (rows, PROMPT))
+            h = survivor.submit_batch("tier-l", batch, GEN, sync=False)
+            time.sleep(0.05)
+            if not h.poll():
+                break
+            h.wait()
+        check(not h.poll(), "process: no tier-l batch stayed in flight for 50 ms")
+        t_k = time.perf_counter()
+        os.kill(survivor.pid, 9)
+        try:
+            h.wait(timeout=60.0)
+        except ReplicaDied:
+            died_s = time.perf_counter() - t_k
+        else:
+            fail("process: a SIGKILLed worker's batch completed")
+        results["sigkill_to_replica_died_s"] = died_s
+        print(f"[process] worker 1 SIGKILLed mid-batch: ReplicaDied after {died_s * 1e3:.1f} ms",
+              flush=True)
+
+        cluster.kill_replica(1, reason="SIGKILL")  # out of routing until it rejoins
+
+        # Rejoin worker 0: the old process is reaped, a new one spawned and
+        # the three tiers re-registered before it is routable again.
+        t_r = time.perf_counter()
+        cluster.rejoin(0)
+        rejoin_ready = time.perf_counter() - t_r
+        h = cluster.submit_batch("tier-l", probe, GEN, sync=True)
+        got = np.asarray(h.wait()[0])
+        rejoin_first = time.perf_counter() - t_r
+        check(h.replica == 0, f"process: the batch after the rejoin ran on replica {h.replica}")
+        check(np.array_equal(got, plain_tokens), "process: the rejoined worker's tokens differ")
+        check(cluster.snapshot()[0].health == "closed", "process: rejoined breaker not closed")
+        st = victim.stats()
+        _add_counts(worker_counts, st.get("launch_counts"))
+        results["rejoin"] = dict(ready_s=rejoin_ready, first_batch_s=rejoin_first,
+                                 reap_s=victim.reap_s, spawn_to_ready_s=victim.ready_s,
+                                 tier_l_register_s=victim.registrations["tier-l"]["wall_s"],
+                                 rss_mib={name: info["rss"]
+                                          for name, info in victim.registrations.items()},
+                                 worker_peak_rss_mib=st["peak_rss_mib"], rss_source=st["rss_source"],
+                                 worker_device_peak_gib=st.get("device_peak_gib", float("nan")))
+        print(f"[process] rejoin of worker 0: old process reaped in {victim.reap_s:.2f} s, "
+              f"respawned and re-registered in {rejoin_ready:.1f} s (spawn-to-ready "
+              f"{victim.ready_s:.1f} s), first batch served by it {rejoin_first:.1f} s after the "
+              f"rejoin, tokens equal; its peak RSS {st['peak_rss_mib']:.0f} MiB, device peak "
+              f"{results['rejoin']['worker_device_peak_gib']:.1f} GiB; card {card}", flush=True)
+        print(f"[process] rejoined worker 0 {_rss_line(victim.registrations)}", flush=True)
+    finally:
+        for r in cluster.replicas:
+            r.backend.close()
+    counts = ops.launch_counts()  # the process path ends here (the parent: the hedge)
+    _add_counts(counts, worker_counts)
+    print(f"[process] kernel launches during the process phase (parent + workers): {counts}",
+          flush=True)
+    for name in DENSE_PATH_KERNELS:
+        check(counts[name] > 0, f"process: kernel {name} was never launched on its path")
+    results["parent_peak_rss_mib"], results["parent_rss_source"] = _rss_mib()
+    return counts, results
+
+
+# ---------------------------------------------------------------------------
+# Phase 6c: the serve command with controller, tenants, replicas and tracing.
+# ---------------------------------------------------------------------------
+def _serve_cli(argv):
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = serve.main(argv)
+    text = buf.getvalue()
+    check(rc == 0, f"serve {' '.join(argv)} exited {rc}")
+    m = re.search(r"p50/p99 latency\s*: ([\d.]+)/([\d.]+) ms", text)
+    check(m is not None, "serve: no latency summary line")
+    return text, float(m.group(2))
+
+
+def phase_serve_cli(torch, card):
+    """``python -m repro_torch.launch.serve`` with the new flags, in this
+    process: exports validated by ``benchmarks/validate_obs.py``, request
+    conservation, and the trace-on/off p99 ratio."""
+    import importlib.util
+
+    from repro_torch.kernels import ops
+
+    out_dir = ROOT / "build" / "chip_smoke_obs"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    trace = str(out_dir / "trace.json")
+    argv = ["--device", "cuda", "--requests", "48", "--rate", "10", "--replicas", "2",
+            "--transport", "inline", "--kill-replica-at", "300", "--rejoin-replica-at", "700",
+            "--tenants", "interactive:4,batch:1:batch:32", "--controller", "--max-pending", "8",
+            "--overload", "2", "--overload-policy", "shed"]
+    ops.reset_launch_counts()  # the serve command's path starts here
+    t0 = time.perf_counter()
+    text_on, p99_on = _serve_cli(argv + ["--trace-out", trace, "--metrics-out", trace + ".prom"])
+    counts = ops.launch_counts()  # ...and ends here
+    seconds = time.perf_counter() - t0
+    for line in text_on.splitlines():
+        if not line.startswith("tick "):
+            print(f"[serve-cli] {line}", flush=True)
+    for want in ("!! killed replica 0", "!! rejoined replica 0", "controller        : retunes=",
+                 "tenancy           : class p99", "cluster           : 2 replicas",
+                 "(conservation ok)"):
+        check(want in text_on, f"serve-cli: {want!r} missing from the summary")
+    spec = importlib.util.spec_from_file_location("validate_obs",
+                                                  ROOT / "benchmarks" / "validate_obs.py")
+    validate_obs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(validate_obs)
+    check(validate_obs.main([trace]) == 0, "serve-cli: validate_obs.py rejected the exports")
+    for name in DENSE_PATH_KERNELS:
+        check(counts[name] > 0, f"serve-cli: kernel {name} was never launched on its path")
+    # The same command untraced, then untraced and traced once more (ABBA):
+    # two on/off ratios from one call.
+    p99s = {"on": [p99_on], "off": []}
+    for traced in (False, False, True):
+        extra = ["--trace-out", trace, "--metrics-out", trace + ".prom"] if traced else []
+        p99s["on" if traced else "off"].append(_serve_cli(argv + extra)[1])
+    ratios = [on / off for on, off in zip(p99s["on"], p99s["off"])]
+    print(f"[serve-cli] exports pass benchmarks/validate_obs.py; request conservation ok; p99 "
+          f"tracing on {p99s['on']} ms / off {p99s['off']} ms = "
+          f"{', '.join(f'{r:.3f}x' for r in ratios)} (the JAX package held 1.05x on the CPU; "
+          "here p99 of at most 48 requests lies between their two largest, capped by the "
+          "SLA: tracing's cost is read in the cluster phase); "
+          f"{seconds:.1f}s a run; card {card}", flush=True)
+    print(f"[serve-cli] kernel launches during the traced serve command: {counts}", flush=True)
+    return counts, dict(p99_on_ms=p99s["on"], p99_off_ms=p99s["off"], ratios=ratios,
+                        seconds=seconds)
+
+
+# ---------------------------------------------------------------------------
 # Phase 7: hybrid serve at full width (recurrentgemma-2b).
 # ---------------------------------------------------------------------------
 def _expected_launches(cfg):
@@ -1942,6 +2520,27 @@ def phase_profile(torch, runs, card):
     return out
 
 
+def _watchdog(seconds: float) -> None:
+    """Fail in time instead of hanging: if the run is still going after
+    ``seconds``, print every thread's stack, kill the worker processes this
+    run spawned and exit 1."""
+    import faulthandler
+    import multiprocessing
+    import os
+    import threading
+
+    def fire():
+        time.sleep(seconds)
+        print(f"chip_smoke: FAIL: still running after {seconds:.0f}s; stacks follow",
+              file=sys.stderr, flush=True)
+        faulthandler.dump_traceback(all_threads=True)
+        for child in multiprocessing.active_children():
+            child.kill()
+        os._exit(1)
+
+    threading.Thread(target=fire, name="watchdog", daemon=True).start()
+
+
 def _release(torch, label):
     gc.collect()
     torch.cuda.empty_cache()
@@ -1967,6 +2566,7 @@ def main(argv=None) -> int:
     import torch
 
     t_start = time.perf_counter()
+    _watchdog(WATCHDOG_S)
     card = phase_device(torch)
     phase_build(torch, args.ptxas)
 
@@ -1979,26 +2579,48 @@ def main(argv=None) -> int:
     entries = phase_kernels(torch, full)
     phase_model(torch)
     dense_counts, serve_results, engine = phase_serve(torch, args.tier_l_layers, card)
+    cluster_counts, serve_results["cluster"] = phase_cluster(torch, engine, card)
     paged_counts, serve_results["continuous"], cbackend = phase_continuous(torch, engine, card)
     profile = (phase_profile(torch, [(label, backend, "tier-l", B)
                                      for label, backend in (("dense", engine.backend),
                                                             ("continuous", cbackend))
                                      for B in (1, 4)], card)
                if args.profile else {})
-    del engine, cbackend  # release tier-l's weights before the hybrid tier
+    # The process phase's workers get phase 5's weights, copied to the host,
+    # and hold the plain JitBackend's probe tokens on the same weights.
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.models import transformer as T
+
+    t_copy = time.perf_counter()
+    host_variants = [dataclasses.replace(v, params=T.params_to(v.params, "cpu"))
+                     for v in engine.variants.values()]
+    print(f"[process] phase 5's weights copied to the host in "
+          f"{time.perf_counter() - t_copy:.1f}s", flush=True)
+    plain_tokens = np.asarray(serve_results["cluster"]["probe_tokens"])
+    del engine, cbackend  # release tier-l's weights: the workers place their own copies
     _release(torch, "serve")
+    process_counts, serve_results["process"] = phase_process(torch, host_variants, plain_tokens,
+                                                             card)
+    del host_variants
+    _release(torch, "process")
+    cli_counts, serve_results["serve command"] = phase_serve_cli(torch, card)
+    _release(torch, "serve command")
     hybrid_counts, serve_results["hybrid"], hengine = phase_hybrid(torch, card)
     if args.profile:
         profile.update(phase_profile(torch, [("hybrid", hengine.backend, HYBRID_TIER, BATCH)],
                                      card))
     del hengine  # release tier-rg's weights before training
     _release(torch, "hybrid")
-    phase_counts = {"dense": dense_counts, "continuous": paged_counts, "hybrid": hybrid_counts}
+    phase_counts = {"dense": dense_counts, "cluster": cluster_counts,
+                    "continuous": paged_counts, "process": process_counts,
+                    "serve command": cli_counts, "hybrid": hybrid_counts}
     train = {}
     for arch in TRAIN_ARCHS:
         phase_counts[f"train {arch}"], train[arch] = phase_train(torch, arch, card, args.profile)
     phase_counts["train command phi3"], train["phi3 command"] = phase_train_cli(torch, card)
-    counts = {k: sum(c[k] for c in phase_counts.values()) for k in dense_counts}
+    counts = {k: sum(c.get(k, 0) for c in phase_counts.values()) for k in dense_counts}
     names = {e["name"] for e in entries}
     check(names == set(counts), f"kernels timed {sorted(names)} != kernels counted {sorted(counts)}")
     for e in entries:
