@@ -65,7 +65,10 @@ Phases (each passes or raises; any failure exits non-zero with no result):
    versions at the shapes the recurrentgemma phases give them: the serve
    prefill (norm (4, 128, 2560), flash q (4, 10, 128, 256)) and the train
    step (norm (2, 2048, 2560), flash and its backward q (2, 10, 2048, 256)
-   with window 2048), bf16, the norm with the ``(1 + w)`` offset.
+   with window 2048), bf16, the norm with the ``(1 + w)`` offset.  The zoo
+   phase's olmoe-1b-7b adds full-width rows at G = 1: its prefill q (4, 16,
+   128, 128) over 16 kv heads, its ring decode q (4, 16, 1, 128) and its
+   paged decode q (8, 16, 1, 128) at the continuous geometry.
 4. model: the three reduced serving tiers, the hedge variant and reduced
    recurrentgemma (5 layers: one period and the epilogue), prefill plus
    16 greedy decode steps in f32, on the card through the kernels and on
@@ -76,7 +79,9 @@ Phases (each passes or raises; any failure exits non-zero with no result):
    ``loss_fn`` and every parameter gradient (remat on), card against CPU:
    a gradient cut on the card would show here.  The same for two layers of
    phi3-mini-3.8b at its full width (d 3072, 32 heads x 96, f32): head dim
-   96 through every attention kernel.
+   96 through every attention kernel.  And two full-width layers of
+   olmoe-1b-7b (d 2048, 64 experts top-8, qk-norm, f32), dense and paged,
+   without gradients (training MoE is not ported yet).
 5. serve: a ``ServingEngine`` whose ``JitBackend`` hosts tier-s, tier-m
    (reduced as served) and tier-l at the full qwen3-14b configuration
    (bf16, seeded weights on the card), plus the zoo's measured hedge; then
@@ -139,6 +144,30 @@ Phases (each passes or raises; any failure exits non-zero with no result):
    prefill and one decode step against those worked out from the layer
    kinds (18 scans and 8 flash launches per prefill, 8 ring-decode
    launches and no scan per decode step).
+8b. zoo: once tier-rg is released, the rest of the zoo at full width,
+   each released before the next.  olmoe-1b-7b as published (16 layers,
+   64 experts top-8, 6.92 B parameters, bf16) as tier-moe of a
+   ``JitBackend`` engine with the measured hedge: ``measure_profiles`` and
+   sync / async ``drain_trace`` as in phase 5, launches per prefill and
+   decode step from the layer kinds, greedy tokens bitwise the same over
+   two runs of one batch; then on a ``ContinuousBatchingBackend`` (ladder
+   1/2/4/8, 8 slots, page 8): warmup, one streamed request, slot and page
+   conservation, no ``compile_count`` growth.  llama4-scout at full width,
+   depth cut to ``SCOUT_LAYERS`` of 48 (the full model's 216 GB of bf16
+   weights exceed the card): sigmoid top-1 router and shared expert
+   through a ``JitBackend``, measured profile, finite logits, tokens
+   bitwise the same over two runs.  xlstm-350m as published (24 layers) as
+   tier-xlstm: the dense engine as olmoe's, the continuous tier refusing
+   it, and the model card against CPU: the whole model in f32 reported
+   beside a float64 CPU run, each block's cell teacher-forced in float64
+   held within 1e-6 (f32 is chaotic at this depth under the JAX init).
+   Then Table III on the card: every zoo tier this run built at full
+   width (tier-l, tier-rg, tier-moe, tier-scout, tier-xlstm), its measured
+   mu / sigma beside ``lm_zoo_registry``'s H100 roofline mu at chips=1;
+   and the paper's simulator (paper zoo and the H100 LM zoo,
+   ``FixedCVNetwork(100, 0.5)``, SLA 250 ms, 10 000 requests, seed 0,
+   every algorithm with and without duplication) with selection on the
+   card and on the CPU: ``model_index`` and metrics identical.
 8. profile (only with ``--profile``): ``torch.profiler`` over one tier-l
    ``generate`` at batch 1 and 4 on the dense and on the continuous
    backend and one tier-rg ``generate`` at batch 4 — device busy share,
@@ -162,10 +191,10 @@ Phases (each passes or raises; any failure exits non-zero with no result):
    the first, the flash launches worked out from the layer kinds, peak
    device memory.
 
-Every run measures every column of the kernels line: each serve phase and
-each train run set the launch counters to 0 just before they start and
-read them just after, and a kernel's ``launches`` is the sum over those
-phases of the same run.  The last lines are the card line, one
+Every run measures every column of the kernels line: each serve phase (the
+zoo's serve paths included) and each train run set the launch counters to
+0 just before they start and read them just after, and a kernel's
+``launches`` is the sum over those phases of the same run.  The last lines are the card line, one
 ``{"kernels": [...]}`` JSON line and the ``{"ok": true, "device": ...}``
 JSON line.
 ``--tier-l-layers`` cuts tier-l's depth (never its width) if a time limit
@@ -224,6 +253,14 @@ CLUSTER_REQUESTS = 32
 TRACING_REQUESTS = 128
 TRACING_RATE = 4.0
 CLUSTER_SPEC = "2:8:0.5,1"
+# The zoo phase: the MoE and xLSTM models of the zoo (their qualities are
+# ``repro_torch.serving.profiles.QUALITY``, the JAX package's).
+MOE_ARCH = "olmoe-1b-7b"
+SCOUT_ARCH = "llama4-scout-17b-a16e"
+SCOUT_LAYERS = 4  # of 48: the full model's 216 GB of bf16 weights exceed the card
+XLSTM_ARCH = "xlstm-350m"
+SIM_REQUESTS = 10_000
+SIM_SLA_MS = 250.0
 # A run still going after this long fails (stacks printed, workers killed)
 # inside the 1200 s a run may take.
 WATCHDOG_S = 1150.0
@@ -234,6 +271,7 @@ WATCHDOG_S = 1150.0
 DENSE_PATH_KERNELS = ("rms_norm_fwd", "flash_attention_fwd", "decode_attention_fwd")
 PAGED_PATH_KERNELS = ("rms_norm_fwd", "flash_attention_fwd", "decode_attention_paged_fwd")
 HYBRID_PATH_KERNELS = DENSE_PATH_KERNELS + ("rglru_scan_fwd",)
+ZOO_PATH_KERNELS = DENSE_PATH_KERNELS + ("decode_attention_paged_fwd",)
 TRAIN_PATH_KERNELS = ("rms_norm_fwd", "flash_attention_fwd", "flash_attention_bwd")
 
 
@@ -536,7 +574,18 @@ def phase_kernels(torch, full):
     # The flash forward at both train shapes (with the LSE the backward
     # reads) and the ring decode at the hybrid serve phase's decode step.
     gemma, hybrid = get_config(TRAIN_ARCHS[0]), get_config(HYBRID_ARCH)
+    # olmoe's one query head per kv head (G = 1) on the ring and paged
+    # decode, and its prefill (16 kv heads).
+    olmoe = get_config(MOE_ARCH)
+    olmoe_paged = _full_width_paged(torch, dict(full, n_heads=olmoe.n_heads,
+                                                n_kv_heads=olmoe.n_kv_heads,
+                                                head_dim=olmoe.head_dim), gen)
+    _print_entry(olmoe_paged)
     more = [
+        _flash_row(torch, gen, full["batch"], olmoe.n_heads, olmoe.n_kv_heads, full["prompt"],
+                   olmoe.head_dim, 0, False, "olmoe prefill"),
+        _decode_row(torch, gen, full["batch"], olmoe.n_kv_heads, 1, olmoe.head_dim,
+                    full["max_len"], full["prompt"] + 1, "olmoe G = 1"),
         _flash_row(torch, gen, TRAIN_BATCH, gemma.n_heads, gemma.n_kv_heads, TRAIN_SEQ,
                    gemma.head_dim, 0, True, "gemma-2b training"),
         _flash_row(torch, gen, TRAIN_BATCH, hybrid.n_heads, hybrid.n_kv_heads, TRAIN_SEQ,
@@ -558,7 +607,7 @@ def phase_kernels(torch, full):
     scan_bwd = _full_width_rglru_bwd(torch, gen, TRAIN_BATCH, TRAIN_SEQ, hybrid.lru_width,
                                      "recurrentgemma training")
     _print_entry(scan_bwd)
-    return entries + more + [paged, bwd, scan, scan_bwd]
+    return entries + more + [paged, olmoe_paged, bwd, scan, scan_bwd]
 
 
 def _print_entry(e):
@@ -1325,36 +1374,35 @@ def phase_model(torch):
     models.append(("hybrid", reduced(HYBRID_ARCH, n_layers=5)))
     # phi3-mini at its full width (d 3072, 32 heads x 96, MHA), 2 layers, f32.
     models.append(("phi3", get_config(PHI3_ARCH, n_layers=2, dtype="float32")))
-    B, S, steps, max_len = 2, 24, 16, 48
+    # olmoe at its full width (d 2048, 64 experts top-8, qk-norm), 2 layers, f32.
+    models.append(("olmoe", get_config(MOE_ARCH, n_layers=2, dtype="float32")))
     for name, cfg in models:
         cpu_params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
         gpu_params = T.params_to(cpu_params, "cuda")
-        tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=torch.Generator().manual_seed(1))
-        runs = {}
-        for where, params in (("card", gpu_params), ("cpu", cpu_params)):
-            device = "cuda" if where == "card" else "cpu"
-            with torch.inference_mode():
-                cache, logits = T.prefill(cfg, params, {"tokens": tokens.to(device)}, max_len)
-                all_logits, toks = [logits.float().cpu()], []
-                tok = logits.argmax(-1)
-                for i in range(steps):
-                    toks.append(tok.cpu())
-                    pos = torch.full((B,), S + i, dtype=torch.int32, device=device)
-                    logits, cache = T.decode_step(cfg, params, cache, tok, pos)
-                    all_logits.append(logits.float().cpu())
-                    tok = logits.argmax(-1)
-            runs[where] = (torch.stack(all_logits), torch.stack(toks))
-        err = float((runs["card"][0] - runs["cpu"][0]).abs().max())
-        check(bool(torch.allclose(runs["card"][0], runs["cpu"][0], atol=1e-3, rtol=1e-3)),
-              f"model {name}: card vs CPU logits max |err| {err:.3g} beyond atol 1e-3 rtol 1e-3")
-        check(bool(torch.equal(runs["card"][1], runs["cpu"][1])),
-              f"model {name}: greedy tokens differ between card and CPU")
-        print(f"[model] {name:6s} {cfg.name}: prefill + {steps} greedy steps, card vs CPU "
-              f"logits max|err| {err:.3g} (atol 1e-3), tokens equal", flush=True)
+        _card_vs_cpu(torch, name, cfg, cpu_params, gpu_params, S=24)
         if T.supports_paged_decode(cfg):  # recurrent state is not paged
             _model_paged(torch, name, cfg, cpu_params, gpu_params)
-        if name != "hedge":
+        if name != "hedge" and not set(cfg.layer_kinds()) & {"moe", "mlstm", "slstm"}:
             _model_grads(torch, name, cfg, cpu_params, f64_reference=name == "phi3")
+
+
+def _card_vs_cpu(torch, name, cfg, cpu_params, gpu_params, S, B=2, steps=16):
+    """Prefill of (B, S) seeded tokens plus ``steps`` greedy decode steps on
+    the card through the kernels and on the CPU through the plain versions:
+    logits allclose (atol 1e-3, rtol 1e-3), tokens equal."""
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=torch.Generator().manual_seed(1))
+    runs = {where: _prefill_decode(torch, cfg, params, tokens.to(device), steps)
+            for where, params, device in (("card", gpu_params, "cuda"), ("cpu", cpu_params, "cpu"))}
+    err = float((runs["card"][0] - runs["cpu"][0]).abs().max())
+    scale = float(runs["cpu"][0].abs().max())
+    check(bool(torch.allclose(runs["card"][0], runs["cpu"][0], atol=1e-3, rtol=1e-3)),
+          f"model {name}: card vs CPU logits max |err| {err:.3g} (largest logit {scale:.3g}) "
+          "beyond atol 1e-3 rtol 1e-3")
+    check(bool(torch.equal(runs["card"][1], runs["cpu"][1])),
+          f"model {name}: greedy tokens differ between card and CPU")
+    print(f"[model] {name:6s} {cfg.name}: prefill of {S} + {steps} greedy steps, card vs CPU "
+          f"logits max|err| {err:.3g} of largest {scale:.3g} (atol 1e-3), tokens equal",
+          flush=True)
 
 
 def _model_grads(torch, name, cfg, cpu_params, f64_reference=False):
@@ -1530,7 +1578,7 @@ def _serve_engine(torch, label, configs, tier, card):
     n_req = REQUESTS
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, 256, (n_req, prompt))
-    results = {}
+    results = {"profiles": {p.name: (p.mu_ms, p.sigma_ms) for p in list(registry) + [ondevice]}}
     for dispatch in ("sync", "async"):
         sched = MDInferenceScheduler(registry, ondevice, SchedulerConfig(t_sla_ms=sla, seed=0))
         loop = engine.make_loop(sched, dispatch=dispatch)
@@ -2215,14 +2263,16 @@ def phase_serve_cli(torch, card):
 # ---------------------------------------------------------------------------
 def _expected_launches(cfg):
     """Launches per prefill and per decode step worked out from the layer
-    kinds: a scan per recurrent layer and a flash launch per attention layer
-    in prefill, a ring-decode launch per attention layer in decode (the
-    recurrent state is updated elementwise), two norms per block plus the
-    final norm in both."""
+    kinds: a scan per recurrent layer and a flash launch per attention (or
+    MoE) layer in prefill, a ring-decode launch per attention layer in
+    decode (recurrent and xLSTM state is updated elementwise), two norms per
+    block (one per xLSTM block), two more per attention layer with qk-norm,
+    plus the final norm in both."""
     kinds = cfg.layer_kinds()
     n_rec = sum(k == "recurrent" for k in kinds)
-    n_attn = sum(k in ("attn", "local") for k in kinds)
-    norms = 2 * len(kinds) + 1 + (2 * n_attn if cfg.qk_norm else 0)
+    n_attn = sum(k in ("attn", "local", "moe") for k in kinds)
+    norms = (sum(1 if k in ("mlstm", "slstm") else 2 for k in kinds) + 1
+             + (2 * n_attn if cfg.qk_norm else 0))
     prefill = dict(rms_norm_fwd=norms, flash_attention_fwd=n_attn, rglru_scan_fwd=n_rec,
                    rglru_scan_bwd=0, decode_attention_fwd=0)
     decode = dict(rms_norm_fwd=norms, flash_attention_fwd=0, rglru_scan_fwd=0, rglru_scan_bwd=0,
@@ -2234,7 +2284,6 @@ def phase_hybrid(torch, card):
     """Full-width recurrentgemma-2b served as tier-rg by a ``JitBackend``."""
     from repro_torch.configs.archs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.models import transformer as T
 
     cfg = get_config(HYBRID_ARCH)
     ops.reset_launch_counts()  # the hybrid path starts here
@@ -2245,10 +2294,18 @@ def phase_hybrid(torch, card):
     for name in HYBRID_PATH_KERNELS:
         check(counts[name] > 0, f"hybrid: kernel {name} was never launched on its path")
 
-    # Launches of one prefill and one decode step, counted on their own (the
-    # phase's counts above are already read).
-    v = engine.variants[HYBRID_TIER]
-    want_prefill, want_decode = _expected_launches(cfg)
+    results.update(_step_launches(torch, "hybrid", engine.variants[HYBRID_TIER]))
+    return counts, results, engine
+
+
+def _step_launches(torch, label, v):
+    """Launches of one prefill and one decode step of variant ``v``, counted
+    on their own (the phase's counts are read before), against those
+    worked out from the layer kinds."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+
+    want_prefill, want_decode = _expected_launches(v.cfg)
     tokens = torch.randint(0, 256, (BATCH, PROMPT), device="cuda")
     with torch.inference_mode():
         ops.reset_launch_counts()
@@ -2261,13 +2318,412 @@ def phase_hybrid(torch, card):
     for what, got, want in (("prefill", got_prefill, want_prefill),
                             ("decode step", got_decode, want_decode)):
         check({k: got[k] for k in want} == want,
-              f"hybrid: launches per {what} {got}, expected {want} from the layer kinds")
-    print(f"[hybrid] launches per prefill {want_prefill}, per decode step {want_decode}: "
+              f"{label}: launches per {what} {got}, expected {want} from the layer kinds")
+    print(f"[{label}] launches per prefill {want_prefill}, per decode step {want_decode}: "
           "as worked out from the layer kinds", flush=True)
     ops.reset_launch_counts()
-    results["launches_per_prefill"] = want_prefill
-    results["launches_per_decode_step"] = want_decode
-    return counts, results, engine
+    return dict(launches_per_prefill=want_prefill, launches_per_decode_step=want_decode)
+
+
+# ---------------------------------------------------------------------------
+# Phase 8b: the rest of the zoo — MoE and xLSTM at full width, Table III on
+# the card, the simulator.
+# ---------------------------------------------------------------------------
+def phase_zoo(torch, card, measured):
+    """olmoe-1b-7b (dense and continuous tiers), llama4-scout cut to
+    ``SCOUT_LAYERS`` layers at full width and xlstm-350m, each released
+    before the next; then the measured Table III beside the H100 roofline
+    (``measured``: the earlier phases' ``{tier: (config, mu, sigma, note)}``)
+    and the simulator on the card against the CPU.  Returns (launch counts
+    of the zoo's serve paths, results)."""
+    counts, results, table = {}, {}, dict(measured)
+    for label, run in (("olmoe", _zoo_moe), ("scout", _zoo_scout), ("xlstm", _zoo_xlstm)):
+        c, results[label], row = run(torch, card)
+        _add_counts(counts, c)
+        table.update(row)
+        _release(torch, f"zoo {label}")
+    print(f"[zoo] kernel launches during the zoo's serve paths: {counts}", flush=True)
+    for name in ZOO_PATH_KERNELS:
+        check(counts.get(name, 0) > 0, f"zoo: kernel {name} was never launched on its path")
+    results["table3"] = _zoo_table3(table, card)
+    results["simulator"] = _zoo_simulator(torch, card)
+    return counts, results
+
+
+def _zoo_moe(torch, card):
+    """Full olmoe-1b-7b as tier-moe: the dense engine (measured hedge,
+    sync / async drains), launches per step, greedy tokens bitwise the same
+    over two runs, then its continuous tier."""
+    import numpy as np
+
+    from repro_torch.configs.archs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.serving.profiles import QUALITY
+
+    cfg = get_config(MOE_ARCH)
+    ops.reset_launch_counts()  # the MoE dense path starts here
+    engine, results = _serve_engine(torch, "zoo olmoe", [("tier-moe", cfg, QUALITY[MOE_ARCH])],
+                                    "tier-moe", card)
+    counts = ops.launch_counts()  # ... and ends here
+    v = engine.variants["tier-moe"]
+    results.update(_step_launches(torch, "zoo olmoe", v))
+    ops.reset_launch_counts()
+    prompts = _probe(np)
+    a, _ = engine.backend.generate("tier-moe", prompts, GEN)
+    b, _ = engine.backend.generate("tier-moe", prompts, GEN)
+    _add_counts(counts, ops.launch_counts())
+    check(np.array_equal(a, b), "zoo olmoe: greedy tokens differ between two runs of one batch")
+    print(f"[zoo olmoe] greedy tokens of a {prompts.shape} batch bitwise the same over two "
+          "runs (fixed-order combine)", flush=True)
+    results["decode_cost"] = _moe_decode_cost(torch, v, card)
+    ops.reset_launch_counts()  # the MoE continuous path starts here
+    results["continuous"] = _zoo_continuous(torch, engine, "tier-moe", card)
+    _add_counts(counts, ops.launch_counts())
+    mu, sigma = results["profiles"]["tier-moe"]
+    return counts, results, {"tier-moe": (cfg, mu, sigma, "")}
+
+
+def _moe_decode_cost(torch, v, card):
+    """Where an olmoe decode step's time goes, at batch ``BATCH``: the
+    step's wall (host clock to a synchronize), one layer's MoE FFN eagerly
+    (launch cost included) and, on the device alone, its dense expert
+    product over the (E, capacity, D) buffer against the bytes of the
+    expert weights it reads (every expert's, whatever the routing)."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+
+    cfg = v.cfg
+    layer = {k: t[0] for k, t in v.params["periods"][0]["moe"].items()}
+    cap = moe.capacity(BATCH, cfg.n_experts, cfg.top_k, cfg.capacity_factor)
+    buf = torch.randn(cfg.n_experts, cap, cfg.d_model, device="cuda").to(torch.bfloat16)
+    x = torch.randn(BATCH, 1, cfg.d_model, device="cuda").to(torch.bfloat16)
+
+    def experts():
+        h = F.silu(torch.bmm(buf, layer["wi"])) * torch.bmm(buf, layer["wg"])
+        return torch.bmm(h, layer["wo"])
+
+    with torch.inference_mode():
+        expert_ms = time_ms(torch, experts, launches=5)
+        moe_ms = time_ms(torch, lambda: moe.moe_apply(cfg, layer, x), launches=5, graph=False)
+        tokens = torch.randint(0, 256, (BATCH, PROMPT), device="cuda")
+        cache, logits = T.prefill(cfg, v.params, {"tokens": tokens}, PROMPT + GEN + 8)
+        tok = logits.argmax(-1)
+        walls = []
+        for i in range(GEN):
+            pos = torch.full((BATCH,), PROMPT + i, dtype=torch.int32, device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = T.decode_step(cfg, v.params, cache, tok, pos)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            tok = logits.argmax(-1)
+    nbytes = sum(layer[k].numel() * layer[k].element_size() for k in ("wi", "wg", "wo"))
+    bound_ms = (nbytes + 2 * buf.numel() * buf.element_size()) / H100_BYTES_PER_S * 1e3
+    step_ms = statistics.median(walls)
+    n = cfg.n_layers
+    print(f"[zoo olmoe] decode step at batch {BATCH}: wall {step_ms:.2f} ms (median of {GEN}); "
+          f"per layer the MoE FFN eagerly {moe_ms:.3f} ms, its dense expert product over "
+          f"{tuple(buf.shape)} {expert_ms:.4f} ms on the device against {bound_ms:.4f} ms for "
+          f"the {nbytes / 1e6:.0f} MB of expert weights it reads; x {n} layers: {n * moe_ms:.2f} "
+          f"/ {n * expert_ms:.2f} / {n * bound_ms:.2f} ms; card {card}", flush=True)
+    return dict(step_ms=step_ms, moe_layer_ms=moe_ms, expert_ms=expert_ms,
+                expert_bound_ms=bound_ms, expert_bytes=nbytes, layers=n)
+
+
+def _zoo_continuous(torch, engine, tier, card):
+    """``tier`` on a ``ContinuousBatchingBackend`` (ladder 1/2/4/8, 8 slots,
+    page 8) over the dense engine's ``Variant``: warmup, one streamed
+    request, slot and page conservation, no ``compile_count`` growth."""
+    import numpy as np
+    from repro_torch.configs.mdinference_zoo import ServingGeometry
+    from repro_torch.core.duplication import HedgePolicy
+    from repro_torch.launch import serve
+    from repro_torch.serving.backend import ContinuousBatchingBackend
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.scheduler import MDInferenceScheduler, SchedulerConfig
+
+    geo = ServingGeometry(prompt_width=PROMPT, bs_ladder=(1, 2, 4, 8), n_slots=N_SLOTS,
+                          page_size=PAGE, max_steps=GEN)
+    t0 = time.perf_counter()
+    backend = ContinuousBatchingBackend(geo, device="cuda")
+    backend.register(engine.variants[tier])  # the same weight tensors, no copy
+    cengine = ServingEngine(backend=backend, hedge_backend=engine.hedge_backend,
+                            dispatch="stepped")
+    backend.warmup()
+    compiles = backend.compile_count
+    registry = cengine.measure_profiles(prompt_len=PROMPT, gen_tokens=GEN, trials=3, seed=0)
+    ondevice = engine.hedge_backend.measure_profile(prompt_len=PROMPT, gen_tokens=GEN, trials=3)
+    p = registry[registry.index_of(tier)]
+    print(f"[zoo continuous] {tier} warmed in {time.perf_counter() - t0:.1f}s, {compiles} "
+          f"entry-point shapes; profile mu_ms={p.mu_ms:.3f} sigma_ms={p.sigma_ms:.3f}",
+          flush=True)
+    sched = MDInferenceScheduler(registry, ondevice, SchedulerConfig(
+        t_sla_ms=60_000.0, seed=0, hedge=HedgePolicy(always=False, deadline_headroom_ms=0.0)))
+    prompt = np.random.default_rng(0).integers(0, 256, PROMPT)
+    chunks, done_at_yield, c = serve.stream_demo(cengine, sched, prompt, GEN, 60_000.0)
+    check(c.model_name == tier, f"zoo continuous: the stream resolved on {c.model_name}")
+    check(len(chunks) == GEN and [ch.token for ch in chunks] == list(c.tokens),
+          f"zoo continuous: {len(chunks)} chunks for {GEN} tokens {list(c.tokens)}")
+    check(not any(done_at_yield[:-1]), "zoo continuous: the request resolved before its last chunk")
+    growth = backend.compile_count - compiles
+    check(growth == 0, f"zoo continuous: compile_count grew by {growth} after warmup")
+    backend.check_conservation()
+    check(backend.joined_total == backend.recycled_total,
+          f"zoo continuous: joined {backend.joined_total} != recycled {backend.recycled_total}")
+    print(f"[zoo continuous] {serve.continuous_summary(backend, [c], compiles)}; stream of "
+          f"{len(chunks)} chunks, ttft {c.ttft_ms:.1f} ms; card {card}", flush=True)
+    return dict(mu_ms=p.mu_ms, sigma_ms=p.sigma_ms, chunks=len(chunks), ttft_ms=c.ttft_ms,
+                joined=backend.joined_total, recycled=backend.recycled_total)
+
+
+def _zoo_scout(torch, card):
+    """llama4-scout at full width, depth cut to ``SCOUT_LAYERS``: the
+    sigmoid top-1 router and the shared expert through a ``JitBackend``;
+    measured profile, finite logits, tokens bitwise the same over two runs."""
+    import numpy as np
+
+    from repro_torch.configs.archs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.backend import JitBackend, Variant
+    from repro_torch.serving.profiles import QUALITY
+    from repro_torch.tree import tree_leaves
+
+    full = get_config(SCOUT_ARCH)
+    cfg = get_config(SCOUT_ARCH, n_layers=SCOUT_LAYERS)
+    print(f"[zoo scout] CUT: depth {cfg.n_layers} of {full.n_layers} layers (width unchanged; "
+          f"the full model's {full.param_count() / 1e9:.1f} B parameters do not fit one card)",
+          flush=True)
+    ops.reset_launch_counts()  # the scout's path starts here
+    t0 = time.perf_counter()
+    backend = JitBackend(max_len=PROMPT + GEN + 8, device="cuda")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+    backend.register(Variant("tier-scout", cfg, params, QUALITY[SCOUT_ARCH]))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    print(f"[zoo scout] built in {time.perf_counter() - t0:.1f}s: {n_params / 1e9:.2f}B params "
+          f"{cfg.dtype}, {torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated", flush=True)
+    prof = backend.measure_profile("tier-scout", PROMPT, GEN, trials=3)
+    prompts = _probe(np)
+    a, wall_a = backend.generate("tier-scout", prompts, GEN)
+    b, wall_b = backend.generate("tier-scout", prompts, GEN)
+    check(np.array_equal(a, b), "zoo scout: greedy tokens differ between two runs of one batch")
+    with torch.inference_mode():
+        _, logits = T.prefill(cfg, params, {"tokens": torch.as_tensor(prompts, device="cuda")},
+                              PROMPT + GEN + 8)
+    check(tuple(logits.shape) == (BATCH, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
+          f"zoo scout: logits {tuple(logits.shape)} not finite")
+    counts = ops.launch_counts()  # ... and ends here
+    print(f"[zoo scout] profile mu_ms={prof.mu_ms:.3f} sigma_ms={prof.sigma_ms:.3f}; {BATCH} "
+          f"requests x {GEN} tokens in {wall_a:.1f} / {wall_b:.1f} ms, tokens bitwise the same, "
+          f"logits finite; card {card}", flush=True)
+    note = f" (depth {SCOUT_LAYERS} of {full.n_layers})"
+    return counts, dict(mu_ms=prof.mu_ms, sigma_ms=prof.sigma_ms, walls_ms=[wall_a, wall_b]), {
+        "tier-scout": (cfg, prof.mu_ms, prof.sigma_ms, note)}
+
+
+def _zoo_xlstm(torch, card):
+    """Full xlstm-350m as tier-xlstm: the dense engine and its launches per
+    step; the continuous tier refuses it; the whole model card against CPU
+    (:func:`_xlstm_card_vs_cpu`)."""
+    from repro_torch.configs.archs import get_config
+    from repro_torch.configs.mdinference_zoo import ServingGeometry
+    from repro_torch.kernels import ops
+    from repro_torch.serving.backend import ContinuousBatchingBackend
+    from repro_torch.serving.profiles import QUALITY
+
+    cfg = get_config(XLSTM_ARCH)
+    ops.reset_launch_counts()  # the xLSTM path starts here
+    engine, results = _serve_engine(torch, "zoo xlstm",
+                                    [("tier-xlstm", cfg, QUALITY[XLSTM_ARCH])],
+                                    "tier-xlstm", card)
+    counts = ops.launch_counts()  # ... and ends here
+    v = engine.variants["tier-xlstm"]
+    results.update(_step_launches(torch, "zoo xlstm", v))
+    geo = ServingGeometry(prompt_width=PROMPT, bs_ladder=(1, 2), n_slots=2, page_size=PAGE,
+                          max_steps=GEN)
+    try:
+        ContinuousBatchingBackend(geo, device="cuda").register(v)
+    except ValueError as e:
+        print(f"[zoo xlstm] the continuous tier refuses it, as the JAX package's does: {e}",
+              flush=True)
+    else:
+        fail("zoo xlstm: the continuous tier took an xLSTM stack")
+    ops.reset_launch_counts()  # the comparison's launches are not the path's
+    results["card_vs_cpu"] = _xlstm_card_vs_cpu(torch, cfg, v.params)
+    ops.reset_launch_counts()
+    mu, sigma = results["profiles"]["tier-xlstm"]
+    return counts, results, {"tier-xlstm": (cfg, mu, sigma, "")}
+
+
+def _xlstm_card_vs_cpu(torch, cfg, params, B=2, steps=16, forced_steps=2):
+    """xlstm-350m's weights (the served bf16 values, exact in f32 and f64),
+    card against CPU.
+
+    At full depth the JAX init recipe makes f32 itself the limit: the
+    residual stream grows to ~1e6 (no block rescales it), each block's f32
+    output is ~1e-4 of its largest entry from float64, and the 24 layers
+    amplify that until f32 prefill logits are O(1) from float64's on any
+    device.  So the whole model in f32 is reported (prefill logits card vs
+    CPU and each against float64 on the CPU, greedy steps until the tokens
+    part), and the check is per block, in float64: each block's cell
+    (mLSTM or sLSTM, the prefill of ``PROMPT`` tokens, then
+    ``forced_steps`` decode steps), teacher-forced from the CPU float64
+    run's normed input and state, on the card against the CPU, its output
+    and every state leaf within 1e-6 of the leaf's largest entry (an
+    implementation fault is off by the whole leaf; in float64 the mLSTM
+    cells agree to ~1e-12 while the sLSTM's 128-step exponential-gate
+    recurrence amplifies rounding to ~2e-8, measured on the card)."""
+    import dataclasses
+
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+
+    def copy(dt, dev):
+        return tree_map(lambda p: p.detach().to(dev, getattr(torch, dt)), params)
+
+    c32, c64 = (dataclasses.replace(cfg, dtype=dt) for dt in ("float32", "float64"))
+    tokens = torch.randint(0, cfg.vocab_size, (B, PROMPT),
+                           generator=torch.Generator().manual_seed(1))
+    whole = {name: _prefill_decode(torch, c, copy(c.dtype, dev), tokens.to(dev), steps)
+             for name, c, dev in (("card", c32, "cuda"), ("cpu", c32, "cpu"),
+                                  ("f64", c64, "cpu"))}
+    err = {f"{a}_vs_{b}": float((whole[a][0][0].double() - whole[b][0][0].double()).abs().max())
+           for a, b in (("card", "cpu"), ("card", "f64"), ("cpu", "f64"))}
+    agree = int((whole["card"][1] == whole["cpu"][1]).all(dim=1).long().cumprod(0).sum())
+    scale = float(whole["f64"][0][0].abs().max())
+    for name in ("card", "cpu"):
+        check(bool(torch.isfinite(whole[name][0]).all()), f"xlstm: {name} logits not finite")
+    print(f"[zoo xlstm] whole model in f32, prefill of {PROMPT}: logits max|err| card vs CPU "
+          f"{err['card_vs_cpu']:.3g}, card vs float64 {err['card_vs_f64']:.3g}, CPU vs float64 "
+          f"{err['cpu_vs_f64']:.3g} (largest logit {scale:.3g}); greedy tokens of card and CPU "
+          f"equal for {agree} of {steps} steps", flush=True)
+
+    def blocks(p):
+        n = c64.n_periods
+        per_kind = [T._unstack(leaves, n) for leaves in p["periods"]]
+        return ([(kind, per_kind[i][li]) for li in range(n) for i, kind in enumerate(c64.pattern)]
+                + list(zip(c64.epilogue, p["epilogue"])))
+
+    host, card = blocks(copy("float64", "cpu")), blocks(copy("float64", "cuda"))
+    states = {dev: [T._block_cache(c64, kind, B, 0, torch.float64, dev) for kind, _ in host]
+              for dev in ("cpu", "cuda")}
+    p64 = copy("float64", "cpu")
+    worst, n_checked = 0.0, 0
+    with torch.inference_mode():
+        x = T._embed_inputs(c64, p64, {"tokens": tokens})[0]
+        for step in range(1 + forced_steps):
+            ctx = T.SeqContext(positions=None, sin=None, cos=None, decode=step > 0)
+            for j, ((kind, ph), (_, pc)) in enumerate(zip(host, card)):
+                for key, t in states["cuda"][j].items():  # start from the host's state
+                    t.copy_(states["cpu"][j][key])
+                h = T._norm(c64, ph["ln1"], x)
+                y = T._xlstm_cell(c64, kind, ph["cell"], h, ctx, states["cpu"][j])
+                yc = T._xlstm_cell(c64, kind, pc["cell"], h.to("cuda"), ctx, states["cuda"][j])
+                for key, a, b in [("out", y, yc)] + [(k, states["cpu"][j][k], states["cuda"][j][k])
+                                                     for k in states["cpu"][j]]:
+                    e, big = float((b.cpu() - a).abs().max()), float(a.abs().max())
+                    check(e <= 1e-6 * big, f"xlstm block {j} ({kind}) step {step} {key}: card vs "
+                          f"CPU in float64 max|err| {e:.3g}, beyond 1e-6 of {big:.3g}")
+                    worst = max(worst, e / max(big, 1e-300))
+                    n_checked += 1
+                x = x + y
+            h = T._norm(c64, p64["final_norm"], x[:, -1:])
+            tok = T._unembed(c64, p64, h)[:, 0].argmax(-1)
+            x = T._embed_inputs(c64, p64, {"tokens": tok[:, None]})[0]
+    print(f"[zoo xlstm] {len(host)} cells teacher-forced in float64, prefill + {forced_steps} "
+          f"decode steps: {n_checked} outputs and state leaves, card vs CPU within "
+          f"{worst:.3g} of their largest entry (bound 1e-6)", flush=True)
+    return dict(err, steps_equal=agree, largest_logit=scale, float64_cells_worst=worst)
+
+
+def _prefill_decode(torch, cfg, params, tokens, steps):
+    """Prefill plus ``steps`` greedy decode steps: (logits (1 + steps, B, V)
+    f32 on the CPU, tokens (steps, B))."""
+    from repro_torch.models import transformer as T
+
+    B, S = tokens.shape
+    device = tokens.device
+    with torch.inference_mode():
+        cache, logits = T.prefill(cfg, params, {"tokens": tokens}, S + steps + 8)
+        all_logits, toks = [logits.float().cpu()], []
+        tok = logits.argmax(-1)
+        for i in range(steps):
+            toks.append(tok.cpu())
+            pos = torch.full((B,), S + i, dtype=torch.int32, device=device)
+            logits, cache = T.decode_step(cfg, params, cache, tok, pos)
+            all_logits.append(logits.float().cpu())
+            tok = logits.argmax(-1)
+    return torch.stack(all_logits), torch.stack(toks)
+
+
+def _zoo_table3(table, card):
+    """Table III on the card: each tier's measured profile (batch 1, a
+    prompt of ``PROMPT`` and ``GEN`` greedy tokens) beside the H100 roofline
+    mu of ``lm_zoo_registry`` for the same request on one card (the
+    published depth) and of the configuration as served (a depth cut)."""
+    from repro_torch.serving.profiles import QUALITY, lm_zoo_registry, roofline_ms
+
+    reg = lm_zoo_registry(prompt=PROMPT, gen_tokens=GEN, chips=1)
+    roof = dict(zip(reg.names, reg.mu))
+    rows = {}
+    print(f"[zoo] Table III on {card}: measured mu / sigma (ms, batch 1, prompt {PROMPT}, "
+          f"{GEN} tokens) beside the H100 roofline mu at chips=1 (lm_zoo_registry, published "
+          "depth; and as served)", flush=True)
+    for tier, (cfg, mu, sigma, note) in sorted(table.items(), key=lambda kv: kv[1][1]):
+        served = roofline_ms(cfg, prompt=PROMPT, gen_tokens=GEN, chips=1)
+        rows[tier] = dict(arch=cfg.name, mu_ms=mu, sigma_ms=sigma, roofline_mu_ms=roof[cfg.name],
+                          served_roofline_mu_ms=served, quality=QUALITY[cfg.name],
+                          note=note.strip())
+        print(f"[zoo]   {tier:11s} {cfg.name:22s} quality {QUALITY[cfg.name]:4.1f}  measured "
+              f"{mu:9.3f} +- {sigma:7.3f}  roofline {roof[cfg.name]:8.3f}  as served "
+              f"{served:8.3f}  measured / served {mu / served:6.2f}{note}", flush=True)
+    return rows
+
+
+def _zoo_simulator(torch, card):
+    """The paper's simulator with selection on the card and on the CPU:
+    every algorithm, with and without duplication, over the paper zoo and
+    the H100 LM zoo; ``model_index`` and the metrics must be identical."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs.mdinference_zoo import paper_zoo
+    from repro_torch.core.baselines import ALGORITHMS
+    from repro_torch.core.network import FixedCVNetwork
+    from repro_torch.core.simulator import SimConfig, run_simulation
+    from repro_torch.serving.profiles import ONDEVICE_TIER, lm_zoo_registry
+
+    out = {}
+    for zoo, reg, extra in (("paper", paper_zoo(), {}),
+                            ("lm", lm_zoo_registry(), {"ondevice": ONDEVICE_TIER})):
+        for alg in ALGORITHMS:
+            for dup in (False, True):
+                cfg = SimConfig(registry=reg, algorithm=alg, t_sla_ms=SIM_SLA_MS,
+                                n_requests=SIM_REQUESTS, network=FixedCVNetwork(100.0, 0.5),
+                                duplication=dup, seed=0, **extra)
+                t0 = time.perf_counter()
+                a = run_simulation(cfg, device="cuda")
+                t1 = time.perf_counter()
+                b = run_simulation(cfg, device="cpu")
+                t2 = time.perf_counter()
+                same = (np.array_equal(a.model_index, b.model_index)
+                        and dataclasses.asdict(a.metrics) == dataclasses.asdict(b.metrics))
+                check(same, f"simulator {zoo} {alg} dup={dup}: the card and the CPU differ")
+                m = a.metrics
+                out[f"{zoo}/{alg}/{'dup' if dup else 'plain'}"] = dict(
+                    accuracy=m.aggregate_accuracy, sla_attainment=m.sla_attainment,
+                    card_s=t1 - t0, cpu_s=t2 - t1)
+                print(f"[zoo simulator] {zoo:5s} {alg:16s} dup={int(dup)}: aggregate accuracy "
+                      f"{m.aggregate_accuracy:.4f}, SLA attainment {m.sla_attainment:.4f}; "
+                      f"model_index and metrics identical on the card and the CPU "
+                      f"({t1 - t0:.3f} / {t2 - t1:.3f} s)", flush=True)
+    print(f"[zoo simulator] {len(out)} runs of {SIM_REQUESTS} requests, SLA {SIM_SLA_MS:.0f} ms, "
+          f"FixedCVNetwork(100, 0.5), seed 0: the card and the CPU choose the same models; "
+          f"card {card}", flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2611,11 +3067,17 @@ def main(argv=None) -> int:
     if args.profile:
         profile.update(phase_profile(torch, [("hybrid", hengine.backend, HYBRID_TIER, BATCH)],
                                      card))
-    del hengine  # release tier-rg's weights before training
+    del hengine  # release tier-rg's weights before the zoo and training
     _release(torch, "hybrid")
+    measured = {tier: (cfg, *results["profiles"][tier], note) for tier, cfg, results, note in (
+        ("tier-l", get_config("qwen3-14b", n_layers=args.tier_l_layers), serve_results,
+         "" if args.tier_l_layers == q14.n_layers else
+         f" (depth {args.tier_l_layers} of {q14.n_layers})"),
+        (HYBRID_TIER, get_config(HYBRID_ARCH), serve_results["hybrid"], ""))}
+    zoo_counts, serve_results["zoo"] = phase_zoo(torch, card, measured)
     phase_counts = {"dense": dense_counts, "cluster": cluster_counts,
                     "continuous": paged_counts, "process": process_counts,
-                    "serve command": cli_counts, "hybrid": hybrid_counts}
+                    "serve command": cli_counts, "hybrid": hybrid_counts, "zoo": zoo_counts}
     train = {}
     for arch in TRAIN_ARCHS:
         phase_counts[f"train {arch}"], train[arch] = phase_train(torch, arch, card, args.profile)
@@ -2636,7 +3098,8 @@ def main(argv=None) -> int:
         Path(args.json_out).write_text(json.dumps(
             dict(card=card, kernels=entries, serve=serve_results, train=train,
                  launches=counts, launches_by_phase=phase_counts, profile=profile,
-                 seconds=time.perf_counter() - t_start), indent=1))
+                 seconds=time.perf_counter() - t_start), indent=1,
+            default=lambda o: o.item() if hasattr(o, "item") else str(o)))
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)
     print(f"card: {card}")
     print(json.dumps(kernels_line))

@@ -7,8 +7,12 @@ Two implementations are provided:
   tests.
 * :func:`selection_probabilities` — stages 1–3 vectorized over a batch of
   requests in torch float32 (the serving scheduler samples from its rows).
-  The keyed sampler ``select_batch`` of the JAX package serves only the
-  simulator and is not ported yet.
+* :func:`select_batch` — the same plus the stage-3 draw, on the device of
+  its inputs (the simulator's selection).  The JAX package draws with a
+  PRNG key; here each request brings a uniform, drawn on the host, and the
+  draw is the inverse CDF of its probability row, as the serving
+  scheduler samples.  The row sums run column by column in a fixed order,
+  so the card and the CPU choose the same models bit for bit.
 
 Stage 1 (greedy base, Eq. 1–2):
     maximize A(m) subject to mu(m) + sigma(m) < T_budget.
@@ -35,6 +39,7 @@ Notes on faithfulness:
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -43,10 +48,13 @@ import torch.nn.functional as F
 from repro_torch.core.registry import ModelRegistry
 
 __all__ = [
+    "BatchSelection",
     "SelectionResult",
     "compute_budget",
     "select_ref",
     "selection_probabilities",
+    "select_batch",
+    "sample_rows",
 ]
 
 _EPS = 1e-9
@@ -188,3 +196,53 @@ def selection_probabilities(
     if squeeze:
         return probs[0], base_index[0], ~any_fit[0]
     return probs, base_index, ~any_fit
+
+
+class BatchSelection(NamedTuple):
+    """Vectorized selection outcome for a batch of requests."""
+
+    index: torch.Tensor  # (R,) int32: model chosen per request
+    base_index: torch.Tensor  # (R,) int32: stage-1 base model
+    fallback: torch.Tensor  # (R,) bool: stage-1 infeasible, fastest used
+    probabilities: torch.Tensor  # (R, N) float32: stage-3 probs (0 outside M_E)
+
+
+def sample_rows(uniforms, probs) -> torch.Tensor:
+    """Inverse-CDF draw of one index per row of ``probs`` (R, N) against
+    ``uniforms`` (R,) in [0, 1): the count of running sums ``<= u * total``,
+    capped at N - 1, as the serving scheduler samples (running sums in
+    float32 added column by column, compared in float64).  Returns (R,)
+    int32 on ``probs``' device."""
+    n = probs.shape[-1]
+    u = torch.as_tensor(uniforms, dtype=torch.float64, device=probs.device)
+    cums = [probs[:, 0]]
+    for j in range(1, n):
+        cums.append(cums[-1] + probs[:, j])
+    threshold = u * cums[-1].double()
+    count = sum((c.double() <= threshold).to(torch.int32) for c in cums)
+    return torch.clamp_max(count, n - 1).to(torch.int32)
+
+
+def select_batch(
+    uniforms,
+    accuracy,
+    mu,
+    sigma,
+    t_budget,
+    *,
+    utility_power: float = 1.0,
+) -> BatchSelection:
+    """Vectorized three-stage selection for a batch of requests, on the
+    device of ``accuracy``; ``uniforms`` (R,) are the stage-3 draws."""
+    accuracy = _f32(accuracy)
+    dev = accuracy.device
+    probs, base_index, fallback = selection_probabilities(
+        accuracy, _f32(mu).to(dev), _f32(sigma).to(dev),
+        torch.atleast_1d(_f32(t_budget).to(dev)), utility_power=utility_power,
+    )
+    return BatchSelection(
+        index=sample_rows(uniforms, probs),
+        base_index=base_index,
+        fallback=torch.atleast_1d(fallback),
+        probabilities=probs,
+    )

@@ -12,7 +12,8 @@ asked for):
 
 Reduced configs by default; ``--full-config`` trains the architecture as
 published (full-width gemma-2b and recurrentgemma-2b fit one 80 GB card
-with AdamW at batch 2 x 2048).  The hybrid recurrentgemma-2b reduced to one
+with AdamW at batch 2 x 2048).  MoE and xLSTM configs are refused
+(``NotImplementedError``): their training is a later slice.  The hybrid recurrentgemma-2b reduced to one
 period plus its (recurrent, recurrent) epilogue is ``--layers 5``.
 
 Usage:
@@ -32,6 +33,7 @@ import torch
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.archs import get_config, reduced
 from repro_torch.device import resolve_device
+from repro_torch.models.transformer import check_trainable
 from repro_torch.training import (
     DataConfig,
     OptimizerConfig,
@@ -73,6 +75,7 @@ def main(argv=None):
         if args.layers:
             over["n_layers"] = args.layers
         cfg = reduced(args.arch, **over)
+    check_trainable(cfg)
     print(f"arch={cfg.name} params~{cfg.param_count()/1e6:.1f}M device={device}")
 
     opt_cfg = OptimizerConfig(

@@ -1,5 +1,5 @@
-"""Model assembly for the attention and hybrid recurrent stacks: init,
-prefill, decode, and the training loss.
+"""Model assembly for the block stacks of the zoo: init, prefill, decode,
+and the training loss.
 
 Parameters are plain dicts of tensors built from *spec tables*
 (``{name: shape}``) with the JAX package's tree: ``embed``, ``final_norm``,
@@ -38,9 +38,14 @@ kernels on CUDA), ``cfg.remat`` checkpoints each period
 each loss chunk is checkpointed too, so no (B, S, vocab) logits tensor is
 ever held for the backward pass.
 
-Attention (``attn``, ``local``) and RG-LRU (``recurrent``) blocks over
-token inputs are ported; MoE and xLSTM blocks, the audio/vision frontends
-and the int8 KV cache raise ``NotImplementedError``.
+Every block kind over token inputs is ported: attention (``attn``,
+``local``), MoE (``moe``: attention plus :mod:`~repro_torch.models.moe`),
+RG-LRU (``recurrent``) and xLSTM (``mlstm`` with its (C, n) state, ``slstm``
+with its (c, n, h, m) state, both f32 and updated in place like the
+RG-LRU's).  The audio/vision frontends, prefix-LM and the int8 KV cache
+raise ``NotImplementedError``, and so does training a stack with MoE or
+xLSTM blocks (:func:`check_trainable`).  A MoE block's load-balancing loss
+only matters to training, so serving drops it.
 """
 from __future__ import annotations
 
@@ -55,7 +60,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import HEAD_DIMS
-from repro_torch.models import layers, rglru
+from repro_torch.models import layers, moe, rglru, xlstm
 from repro_torch.models.attention import (
     decode_attention,
     flash_attention,
@@ -65,6 +70,7 @@ from repro_torch.models.config import ModelConfig
 
 __all__ = [
     "check_supported",
+    "check_trainable",
     "model_spec",
     "init_params",
     "params_from_numpy",
@@ -85,7 +91,8 @@ __all__ = [
     "SeqContext",
 ]
 
-_KINDS = ("attn", "local", "recurrent")
+_KINDS = ("attn", "local", "moe", "recurrent", "mlstm", "slstm")
+_ATTN_KINDS = ("attn", "local", "moe")
 
 
 def check_supported(cfg: ModelConfig, device=None) -> None:
@@ -103,7 +110,7 @@ def check_supported(cfg: ModelConfig, device=None) -> None:
     if cfg.kv_cache_quant:
         raise NotImplementedError(f"{cfg.name}: the int8 KV cache is not ported yet")
     if (device is not None and torch.device(device).type == "cuda"
-            and any(k in ("attn", "local") for k in kinds) and cfg.head_dim not in HEAD_DIMS):
+            and any(k in _ATTN_KINDS for k in kinds) and cfg.head_dim not in HEAD_DIMS):
         raise NotImplementedError(
             f"{cfg.name}: head dim {cfg.head_dim} has no CUDA attention kernel (the flash "
             f"and decode kernels take {HEAD_DIMS}); use one of those or run on the CPU")
@@ -126,16 +133,32 @@ def _attn_spec(cfg: ModelConfig):
     return spec
 
 
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a stack whose training is not
+    ported: MoE (its load-balancing loss) and xLSTM blocks are served, and
+    train in a later slice."""
+    bad = sorted(set(cfg.layer_kinds()) & {"moe", "mlstm", "slstm"})
+    if bad:
+        raise NotImplementedError(
+            f"{cfg.name}: training stacks with {bad} blocks is not ported yet (a later "
+            "training slice); serving them is")
+
+
 def block_spec(cfg: ModelConfig, kind: str):
     if kind not in _KINDS:
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     d = cfg.d_model
+    if kind == "mlstm":
+        return {"ln1": (d,), "cell": xlstm.mlstm_init_spec(cfg)}
+    if kind == "slstm":
+        return {"ln1": (d,), "cell": xlstm.slstm_init_spec(cfg)}
     return {
         "ln1": (d,),
         **({"rec": rglru.rglru_init_spec(cfg)} if kind == "recurrent"
            else {"attn": _attn_spec(cfg)}),
         "ln2": (d,),
-        "mlp": layers.mlp_init_spec(d, cfg.d_ff, cfg.mlp_type),
+        **({"moe": moe.moe_init_spec(cfg)} if kind == "moe"
+           else {"mlp": layers.mlp_init_spec(d, cfg.d_ff, cfg.mlp_type)}),
     }
 
 
@@ -367,15 +390,40 @@ def _recurrent(cfg, p, x, ctx: SeqContext, cache):
     return y
 
 
+def _xlstm_cell(cfg, kind, p, x, ctx: SeqContext, cache):
+    """An mLSTM or sLSTM cell; a cache's state leaves are updated in place
+    (prefill seeds them, each decode step advances them)."""
+    if kind == "mlstm":
+        if ctx.decode:
+            y, new = xlstm.mlstm_decode_step(cfg, p, x, cache)
+        else:
+            carry = (cache["C"], cache["n"]) if cache is not None else None
+            y, (C, n) = xlstm.mlstm_apply(cfg, p, x, carry=carry)
+            new = {"C": C, "n": n}
+    elif ctx.decode:
+        y, new = xlstm.slstm_decode_step(cfg, p, x, cache)
+    else:
+        y, new = xlstm.slstm_apply(cfg, p, x, state=cache)
+    if cache is not None:
+        for key, t in new.items():
+            cache[key].copy_(t)
+    return y
+
+
 def apply_block(cfg, kind: str, p, x, ctx: SeqContext, cache):
     if kind not in _KINDS:
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     h = _norm(cfg, p["ln1"], x)
+    if kind in ("mlstm", "slstm"):
+        return x + _xlstm_cell(cfg, kind, p["cell"], h, ctx, cache)
     if kind == "recurrent":
         x = x + _recurrent(cfg, p["rec"], h, ctx, cache)
     else:
         x = x + _attention(cfg, p["attn"], h, ctx, kind, cache)
-    return x + layers.mlp_apply(p["mlp"], _norm(cfg, p["ln2"], x), cfg.mlp_type)
+    h2 = _norm(cfg, p["ln2"], x)
+    if kind == "moe":
+        return x + moe.moe_apply(cfg, p["moe"], h2)[0]  # the aux loss is training's
+    return x + layers.mlp_apply(p["mlp"], h2, cfg.mlp_type)
 
 
 # ---------------------------------------------------------------------------
@@ -384,6 +432,9 @@ def apply_block(cfg, kind: str, p, x, ctx: SeqContext, cache):
 def _block_cache(cfg, kind, batch, max_len, dtype, device, lead=()):
     if kind == "recurrent":
         return rglru.rglru_init_cache(cfg, batch, dtype, device, lead)
+    if kind in ("mlstm", "slstm"):  # f32 state (f64 for a float64 model)
+        init = xlstm.mlstm_init_cache if kind == "mlstm" else xlstm.slstm_init_cache
+        return init(cfg, batch, device, lead, dtype=torch.promote_types(dtype, torch.float32))
     sc = max_len if kind != "local" else min(cfg.window, max_len)
     shape = (*lead, batch, sc, cfg.n_kv_heads, cfg.head_dim)
     return {
@@ -503,11 +554,12 @@ def loss_fn(cfg, params, batch):
     """Chunked softmax-xent.  ``batch``: ``tokens`` (B, S) and ``labels``
     (B, S_out); labels < 0 are ignored (prefix / padding).  Returns
     ``(loss, metrics)`` with ``loss = xent + 0.01 * aux`` and the metrics
-    ``xent``, ``aux`` (0 for these dense stacks: only MoE blocks add one)
-    and ``tokens`` (valid labels), all f32, as the JAX package's
-    ``loss_fn``.  Each ``cfg.loss_chunk`` slice of the sequence is
+    ``xent``, ``aux`` (0: only MoE blocks add one, and :func:`check_trainable`
+    refuses them) and ``tokens`` (valid labels), all f32, as the JAX
+    package's ``loss_fn``.  Each ``cfg.loss_chunk`` slice of the sequence is
     checkpointed when autograd records, so the backward pass holds one
     chunk's logits at a time."""
+    check_trainable(cfg)
     x = forward_hidden(cfg, params, batch)
     labels = batch["labels"].long()
     B, S = labels.shape
@@ -556,14 +608,10 @@ def decode_step(cfg, params, cache, token, pos):
 # ---------------------------------------------------------------------------
 def supports_paged_decode(cfg: ModelConfig) -> bool:
     """Whether the paged continuous-batching path can serve this config
-    (the JAX package's predicate: a causal attention-only stack without KV
-    quantization; MoE blocks qualify there but are not ported here)."""
+    (the JAX package's predicate: a causal stack of attention and MoE blocks
+    without KV quantization; recurrent and xLSTM state is not paged)."""
     kinds = tuple(cfg.pattern) + tuple(cfg.epilogue)
-    return (
-        cfg.causal
-        and not cfg.kv_cache_quant
-        and all(k in ("attn", "local", "moe") for k in kinds)
-    )
+    return cfg.causal and not cfg.kv_cache_quant and all(k in _ATTN_KINDS for k in kinds)
 
 
 def prefill_ragged(cfg, params, batch_inputs, lengths, max_len: int):
@@ -585,7 +633,7 @@ def prefill_ragged(cfg, params, batch_inputs, lengths, max_len: int):
 
 
 def _paged_block_cache(cfg, kind, n_pages, page_size, dtype, device, lead=()):
-    if kind not in ("attn", "moe", "local"):
+    if kind not in _ATTN_KINDS:
         raise ValueError(f"paged decode supports attention blocks only, got {kind!r}")
     shape = (*lead, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
     return {

@@ -81,7 +81,9 @@ def test_reduced_hybrid_has_a_period_and_an_epilogue():
     assert cfg.n_periods == 1 and cfg.epilogue == ("recurrent", "recurrent")
     T.check_supported(cfg)
     T.check_supported(archs.ARCHS[ARCH])
-    for arch in ("olmoe-1b-7b", "xlstm-350m"):
+    for arch in ("olmoe-1b-7b", "xlstm-350m"):  # ported since: tests/test_torch_moe.py
+        T.check_supported(archs.ARCHS[arch])
+    for arch in ("hubert-xlarge", "paligemma-3b"):
         with pytest.raises(NotImplementedError):
             T.check_supported(archs.ARCHS[arch])
 
