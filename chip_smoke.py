@@ -11,10 +11,10 @@ Phases (each passes or raises; any failure exits non-zero with no result):
    power limit; TF32 off for f32 matmuls and convolutions.
 2. build: compiles every CUDA kernel (one ``nvcc`` per source, in
    parallel, with ``-Xptxas -v``) and JITs the Triton kernel; prints the
-   seconds, the tensor-core flash kernel's registers, shared memory and
-   spills, and the count of HGMMA (``wgmma``) instructions in its SASS
-   (``cuobjdump -sass``), failing if one of its six instantiations has
-   none.
+   seconds, the tensor-core flash kernels' (forward and backward)
+   registers, shared memory and spills, and the count of HGMMA (``wgmma``)
+   instructions in their SASS (``cuobjdump -sass``), failing if one of the
+   six instantiations of either has none.
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the kernel-test sweep shapes and at the full-width shapes of the main
    path, with f32 atol 1e-4 (summation order) and bf16 atol 2e-2 + rtol
@@ -44,9 +44,14 @@ Phases (each passes or raises; any failure exits non-zero with no result):
    flash backward, ring and paged sweeps (f32, bf16, f16).  The
    flash backward kernel runs the tests/test_kernels.py cases plus D 128 /
    256, G 5 / 8 / 10, ragged S, windowed and bidirectional, in f32, bf16
-   and f16 (the forward kernel's LSE is checked too), and a full-width row
-   at the train phase's gemma-2b shape, whose library time is the backward
-   of ``F.scaled_dot_product_attention`` alone.  The RG-LRU scan kernel (S
+   and f16 (the forward kernel's LSE is checked too); then its wgmma route
+   (bf16 / f16 at D = 64 / 128 / 256) on S up to 3000, ragged head groups,
+   windows cut mid-tile and a window of 1, each bitwise equal over two
+   launches; and full-width rows at both train shapes (gemma-2b q (2, 8,
+   2048, 256) causal, recurrentgemma-2b q (2, 10, 2048, 256) window 2048),
+   each bitwise equal over two launches, whose library time is the
+   backward of ``F.scaled_dot_product_attention`` alone, eager, printed
+   beside the kernel's eager time.  The RG-LRU scan kernel (S
    cut into chunks across a thread-block cluster) and its reverse mode
    (the backward, one launch) run the tests/test_kernels.py sweep, ragged S
    and W with a non-zero h0, S = 1, one chunk up to 128 steps and one step
@@ -64,8 +69,8 @@ Phases (each passes or raises; any failure exits non-zero with no result):
    the flash forward and backward are also held against their plain
    versions at the shapes the recurrentgemma phases give them: the serve
    prefill (norm (4, 128, 2560), flash q (4, 10, 128, 256)) and the train
-   step (norm (2, 2048, 2560), flash and its backward q (2, 10, 2048, 256)
-   with window 2048), bf16, the norm with the ``(1 + w)`` offset.  The zoo
+   step (norm (2, 2048, 2560), flash q (2, 10, 2048, 256) with window
+   2048), bf16, the norm with the ``(1 + w)`` offset.  The zoo
    phase's olmoe-1b-7b adds full-width rows at G = 1: its prefill q (4, 16,
    128, 128) over 16 kv heads, its ring decode q (4, 16, 1, 128) and its
    paged decode q (8, 16, 1, 128) at the continuous geometry.
@@ -179,12 +184,14 @@ Phases (each passes or raises; any failure exits non-zero with no result):
    repro_torch.launch.train --full-config``) on batch 2 x 2048 tokens of
    ``SyntheticTokens`` seed 0.  Prints loss, grad norm and ms per step,
    tokens/s, model FLOPs utilisation against 989 TFLOP/s, peak device
-   memory and kernel launches per step.  Checks finite losses, the mean of
-   the last 3 below the first, a finite non-zero gradient for every leaf
+   memory and kernel launches per step.  Checks finite losses, the loss of
+   a fixed held-out batch (``batch_at(1000)``) lower after the 12 steps
+   than before, the mean of the last 3 below the first, a finite non-zero gradient for every leaf
    at step 0, and the flash and scan launches per step (forward and
    backward counted apart) worked out from the layer kinds (remat reruns
-   the periods' forward, not the epilogue's).
-   With ``--profile``, one more step of each under ``torch.profiler``.
+   the periods' forward, not the epilogue's).  Then one more step of each
+   under ``torch.profiler``: device busy share and the flash backward
+   family's device ms (printed in full with ``--profile``).
    Then the user's command ``python -m repro_torch.launch.train --arch
    phi3-mini-3.8b --full-config --batch 2 --seq 2048`` for 3 steps, in this
    process (its launches counted): exit 0, finite losses, the last below
@@ -197,6 +204,8 @@ zoo's serve paths included) and each train run set the launch counters to
 ``launches`` is the sum over those phases of the same run.  The last lines are the card line, one
 ``{"kernels": [...]}`` JSON line and the ``{"ok": true, "device": ...}``
 JSON line.
+Each release between phases prints what stays allocated: the bytes of live
+CUDA tensors and what is left after clearing PyTorch's cuBLAS workspaces.
 ``--tier-l-layers`` cuts tier-l's depth (never its width) if a time limit
 forces it.
 """
@@ -240,6 +249,7 @@ TRAIN_ARCHS = ("gemma-2b", "recurrentgemma-2b")
 TRAIN_BATCH = 2
 TRAIN_SEQ = 2048
 TRAIN_STEPS = 12
+HELD_OUT_BATCH = 1000  # a batch index the train runs never reach
 # phi3-mini-3.8b (head dim 96): two full-width layers card vs CPU in the
 # model phase, and the user's train command at full configuration.
 PHI3_ARCH = "phi3-mini-3.8b"
@@ -327,12 +337,17 @@ def phase_build(torch, ptxas: bool):
     ops.reset_launch_counts()
 
 
-_WGMMA = re.compile(r"flash_fwd_wgmma_kernelI(?:\d+)?(\w+?)Li(\d+)E")
+# The tensor-core kernels: (library, kernel name) and the pattern of their
+# mangled names (element type, head dim).
+_WGMMA_KERNELS = (("flash_attention", "flash_fwd_wgmma_kernel"),
+                  ("flash_attention_bwd", "flash_bwd_wgmma_kernel"))
+_WGMMA = re.compile(r"(flash_(?:fwd|bwd)_wgmma_kernel)I(?:\d+)?(\w+?)Li(\d+)E")
 
 
 def _ptxas_report(stderr: str, every: bool):
     """``-Xptxas -v`` lines (registers, shared memory, spills): always for the
-    tensor-core flash kernel, for every kernel with ``--ptxas``."""
+    tensor-core flash kernels (forward and backward), for every kernel with
+    ``--ptxas``."""
     entry = None
     for line in stderr.splitlines():
         if "Compiling entry" in line:
@@ -344,7 +359,7 @@ def _ptxas_report(stderr: str, every: bool):
             continue
         m = _WGMMA.search(entry or "")
         if m:
-            print(f"[build]   flash_fwd_wgmma_kernel<{m.group(1)}, D={m.group(2)}>: "
+            print(f"[build]   {m.group(1)}<{m.group(2)}, D={m.group(3)}>: "
                   f"{line.strip().removeprefix('ptxas info    : ')}", flush=True)
         elif every:
             print(f"[build]   {line.strip()}")
@@ -352,25 +367,25 @@ def _ptxas_report(stderr: str, every: bool):
 
 def _hgmma_report(cuda_build):
     """Counts HGMMA (wgmma) instructions in the SASS of each tensor-core flash
-    kernel; fails if one has none."""
-    sass = cuda_build.sass("flash_attention")
-    if sass is None:
-        print("[build] cuobjdump not in the toolkit: HGMMA count not measured", flush=True)
-        return
-    counts, func = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            m = _WGMMA.search(line)
-            func = f"{m.group(1)}, D={m.group(2)}" if m else None
-            if func:
-                counts[func] = 0
-        elif func and "HGMMA" in line:
-            counts[func] += 1
-    check(len(counts) == 6, f"expected 6 tensor-core flash kernels in the SASS, found {counts}")
-    for func, n in counts.items():
-        check(n > 0, f"flash_fwd_wgmma_kernel<{func}> has no HGMMA instruction")
-    print(f"[build] HGMMA instructions per flash_fwd_wgmma_kernel (cuobjdump -sass): {counts}",
-          flush=True)
+    kernel, forward and backward; fails if one has none."""
+    for lib, kernel in _WGMMA_KERNELS:
+        sass = cuda_build.sass(lib)
+        if sass is None:
+            print("[build] cuobjdump not in the toolkit: HGMMA count not measured", flush=True)
+            return
+        counts, func = {}, None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                m = _WGMMA.search(line)
+                func = f"{m.group(2)}, D={m.group(3)}" if m and m.group(1) == kernel else None
+                if func:
+                    counts[func] = 0
+            elif func and "HGMMA" in line:
+                counts[func] += 1
+        check(len(counts) == 6, f"expected 6 {kernel} instantiations in the SASS, found {counts}")
+        for func, n in counts.items():
+            check(n > 0, f"{kernel}<{func}> has no HGMMA instruction")
+        print(f"[build] HGMMA instructions per {kernel} (cuobjdump -sass): {counts}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -596,8 +611,9 @@ def phase_kernels(torch, full):
     ]
     for e in more:
         _print_entry(e)
-    bwd = _full_width_bwd(torch, gen)
-    _print_entry(bwd)
+    bwd = [_full_width_bwd(torch, gen, arch) for arch in TRAIN_ARCHS]
+    for e in bwd:
+        _print_entry(e)
     print("[kernels] rglru_scan_fwd / rglru_scan_bwd have no library yardstick: no single "
           "PyTorch call computes a linear recurrence (library_ms null)", flush=True)
     for B, S, label in ((full["batch"], full["prompt"], "hybrid serve prefill"),
@@ -607,7 +623,7 @@ def phase_kernels(torch, full):
     scan_bwd = _full_width_rglru_bwd(torch, gen, TRAIN_BATCH, TRAIN_SEQ, hybrid.lru_width,
                                      "recurrentgemma training")
     _print_entry(scan_bwd)
-    return entries + more + [paged, olmoe_paged, bwd, scan, scan_bwd]
+    return entries + more + [paged, olmoe_paged, *bwd, scan, scan_bwd]
 
 
 def _print_entry(e):
@@ -999,12 +1015,106 @@ def _paged_split_sweep(torch, gen) -> int:
     return n
 
 
+def _bwd_f64(torch, q, k, v, out, dout, lse, causal, window, round_to=None, scale=None,
+             split_p=True):
+    """The flash backward's math (``ref.flash_attention_bwd_ref``) in float64
+    on the card, returning float64 dq, dk, dv.  With ``round_to``, the
+    operands as the kernels round them: ds rounded to that dtype, and p as
+    the sum of p rounded and its remainder rounded (two products in the
+    wgmma kernels) or, without ``split_p``, p rounded once (the WMMA
+    kernels): the plain version of the kernel's arithmetic."""
+    from repro_torch.kernels import ref
+
+    B, NQ, S, D = q.shape
+    NKV = k.shape[1]
+    G, f64 = NQ // NKV, torch.float64
+    scale = D**-0.5 if scale is None else scale
+    qd = q.to(f64).reshape(B, NKV, G, S, D)
+    dod = dout.to(f64).reshape(B, NKV, G, S, D)
+    kd, vd = k.to(f64), v.to(f64)
+    delta = (dout.to(f64) * out.to(f64)).sum(-1).reshape(B, NKV, G, S, 1)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qd, kd) * scale
+    ok = ref._scores_mask(S, S, causal=causal, window=window, device=q.device)
+    s = torch.where(ok, s, torch.full_like(s, ref._NEG_INF))
+    p = torch.exp(s - lse.to(f64).reshape(B, NKV, G, S, 1))
+    del s
+    ds = p * (torch.einsum("bkgqd,bksd->bkgqs", dod, vd) - delta) * scale
+    if round_to is not None:
+        hi = p.to(round_to).to(f64)
+        p = hi + (p - hi).to(round_to).to(f64) if split_p else hi
+        ds = ds.to(round_to).to(f64)
+    return (torch.einsum("bkgqs,bksd->bkgqd", ds, kd).reshape(B, NQ, S, D),
+            torch.einsum("bkgqs,bkgqd->bksd", ds, qd),
+            torch.einsum("bkgqs,bkgqd->bksd", p, dod))
+
+
+def _rel_err(torch, got, want):
+    """(whole, per tile): the relative Frobenius error of ``got`` against
+    float64 ``want`` ((B, N, S, D)), over the tensor and over each 64 rows of
+    S (all batches, heads and columns)."""
+    d2 = ((got.to(torch.float64) - want) ** 2).sum((0, 1, 3))
+    w2 = (want ** 2).sum((0, 1, 3))
+    pad = -len(d2) % 64
+    d2t = torch.nn.functional.pad(d2, (0, pad)).view(-1, 64).sum(1)
+    w2t = torch.nn.functional.pad(w2, (0, pad)).view(-1, 64).sum(1)
+    return (float((d2.sum() / w2.sum().clamp_min(1e-300)).sqrt()),
+            (d2t / w2t.clamp_min(1e-300)).sqrt())
+
+
+# The relative-error gate of the bf16 / f16 backward: against float64, each
+# of dq, dk, dv, whole and per 64-row tile, within REL_GATE times the error
+# of the plain version of the kernel's arithmetic (``_bwd_f64`` with the
+# kernel's operand rounding, the rest float64, the result rounded), plus
+# REL_FLOOR (a hundredth of one bf16 rounding step, 2^-8) where both are
+# near zero.
+# Unlike atol, it scales with the gradients: a kernel that drops a tile's
+# keys or a q head of a group fails it at any magnitude.
+REL_GATE = 1.5
+REL_FLOOR = 4e-5
+
+
+def _rel_gate(torch, tag, q, k, v, out, dout, lse, got, causal, window):
+    """Holds the kernel's ``got`` (dq, dk, dv) to the gate above; returns
+    {part: (kernel error, plain error, worst tile's kernel / plain)}."""
+    from repro_torch.kernels.flash_attention_bwd import bwd_route
+
+    exact = _bwd_f64(torch, q, k, v, out, dout, lse, causal, window)
+    split = bwd_route(q.dtype, q.shape[-1]) == "wgmma"
+    plain = [t.to(q.dtype) for t in _bwd_f64(torch, q, k, v, out, dout, lse, causal, window,
+                                                round_to=q.dtype, split_p=split)]
+    readings = {}
+    for part, g, p, w in zip(("dq", "dk", "dv"), got, plain, exact):
+        (ke, kt), (pe, pt) = _rel_err(torch, g, w), _rel_err(torch, p, w)
+        check(ke <= REL_GATE * pe + REL_FLOOR,
+              f"{tag} {part}: relative error {ke:.4g} against float64, beyond {REL_GATE}x the "
+              f"plain bf16 version's {pe:.4g}")
+        bad = torch.nonzero(kt > REL_GATE * pt + REL_FLOOR).flatten().tolist()
+        check(not bad, f"{tag} {part}: 64-row tiles {bad[:8]} beyond {REL_GATE}x the plain "
+              f"version's relative error (kernel {kt[bad[:8]].tolist()}, plain "
+              f"{pt[bad[:8]].tolist()})")
+        readings[part] = (ke, pe, float((kt / pt.clamp_min(REL_FLOOR)).max()))
+    del exact, plain
+    return readings
+
+
 def _bwd_sweep(torch, gen) -> int:
     """The flash backward kernel against ``flash_attention_bwd_ref``, both
     fed the forward kernel's output and LSE, on model-layout views: the
     tests/test_kernels.py cases, then D 128 / 256, G 5 / 8 / 10 (MQA), ragged S,
     windowed and bidirectional; f32 (the CUDA-core kernels), bf16 and f16
-    (the tensor-core kernels)."""
+    (the tensor-core kernels: wgmma at D = 64 / 128 / 256, WMMA at the
+    others).  Then, bf16 and f16 only, the wgmma route's own cases: D 64 /
+    128 / 256, S 63 / 65 / 1000 / 2047 / 2048 / 2100 / 3000, G 8 / 10 with
+    ragged head groups (the planner's 3 + 3 + 2, 4 + 4 + 2 and 3 + 3 + 3 +
+    1), windows cut mid-tile, a window of 1 (every off-diagonal pair
+    masked) and rows past S that see no key; each also bitwise equal over
+    two launches, and from S = 1000 up (but the window of 1, whose dq and
+    dk are exactly 0) held to the relative-error gate (``_rel_gate``).
+    Last, bf16 only, three cases at a train step's magnitudes (q, k, v
+    drawn x 8, dout x 1e-9, as gemma-2b's first step gives them: |q| to
+    ~50, |dout| ~3e-9, LSE ~490), where atol says nothing and the gate
+    does: gemma-2b's and recurrentgemma-2b's heads on the wgmma route and
+    phi3-mini's on the WMMA route."""
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import flash_attention_bwd as bk
     from repro_torch.kernels import ref
@@ -1021,35 +1131,64 @@ def _bwd_sweep(torch, gen) -> int:
         # head dims 96 (phi3-mini: 32 heads, MHA) and 80
         (1, 4, 2, 200, 96, True, 0), (2, 4, 4, 130, 80, False, 40), (1, 32, 32, 128, 96, True, 0),
     ]
+    wgmma_cases = [
+        (1, 8, 1, 63, 64, True, 0), (1, 10, 1, 65, 128, True, 0), (1, 8, 1, 1000, 256, True, 0),
+        (1, 10, 1, 2047, 256, True, 0), (1, 8, 2, 2048, 128, True, 0),
+        (1, 10, 1, 2100, 128, True, 0), (2, 10, 1, 2100, 64, True, 100),
+        (1, 8, 1, 3000, 256, True, 0), (1, 10, 1, 2900, 256, False, 0),
+        (1, 10, 2, 517, 128, True, 130), (2, 4, 4, 2048, 64, False, 65),
+        (1, 4, 2, 1000, 64, True, 1), (1, 2, 1, 1, 256, True, 0),
+    ]
+    train_scale_cases = [
+        (1, 8, 1, 2048, 256, True, 0), (1, 10, 1, 2048, 256, True, 1000),
+        (1, 32, 32, 1024, 96, True, 0),
+    ]
     n = 0
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
-        for B, NQ, NKV, S, D, causal, window in cases:
-            q = _randn(torch, (B, S, NQ, D), dtype, gen).transpose(1, 2)
-            k = _randn(torch, (B, S, NKV, D), dtype, gen).transpose(1, 2)
-            v = _randn(torch, (B, S, NKV, D), dtype, gen).transpose(1, 2)
-            dout = _randn(torch, (B, S, NQ, D), dtype, gen).transpose(1, 2)
+        for B, NQ, NKV, S, D, causal, window in cases + (
+                wgmma_cases if dtype != torch.float32 else []) + (
+                train_scale_cases if dtype == torch.bfloat16 else []):
+            case = (B, NQ, NKV, S, D, causal, window)
+            xs, ds = (8.0, 1e-9) if case in train_scale_cases else (1.0, 1.0)
+            q = _randn(torch, (B, S, NQ, D), dtype, gen, xs).transpose(1, 2)
+            k = _randn(torch, (B, S, NKV, D), dtype, gen, xs).transpose(1, 2)
+            v = _randn(torch, (B, S, NKV, D), dtype, gen, xs).transpose(1, 2)
+            dout = _randn(torch, (B, S, NQ, D), dtype, gen, ds).transpose(1, 2)
             out, lse = fk.flash_attention_fwd(q, k, v, causal=causal, window=window,
                                               return_lse=True)
             got = bk.flash_attention_bwd(q, k, v, out, dout, lse, causal=causal, window=window)
             want = ref.flash_attention_bwd_ref(q, k, v, out, dout, lse, causal=causal,
                                                window=window)
-            tag = f"flash bwd{(B, NQ, NKV, S, D)} causal={causal} window={window} {dtype}"
+            route = bk.bwd_route(dtype, D)
+            tag = (f"flash bwd{(B, NQ, NKV, S, D)} causal={causal} window={window} {dtype} "
+                   f"({route})")
             for part, g, w in zip(("dq", "dk", "dv"), got, want):
                 _compare(torch, f"{tag} {part}", g, w, dtype)
+            if case in wgmma_cases:
+                again = bk.flash_attention_bwd(q, k, v, out, dout, lse, causal=causal,
+                                               window=window)
+                check(all(torch.equal(g, g2) for g, g2 in zip(got, again)),
+                      f"{tag}: two launches differ (plan "
+                      f"{bk.bwd_plan(B, NQ, NKV, S, D, _sm_count(torch))})")
+            if (case in wgmma_cases and S >= 1000 and window != 1) or case in train_scale_cases:
+                rel = _rel_gate(torch, tag, q, k, v, out, dout, lse, got, causal, window)
+                print(f"[kernels] {tag}" + (" at train magnitudes" if xs != 1.0 else "")
+                      + ": relative error against float64 (kernel / plain / worst tile's "
+                      "ratio) " + ", ".join(f"{p} {a:.5f} / {b:.5f} / {c:.3f}"
+                                            for p, (a, b, c) in rel.items()), flush=True)
             n += 1
     return n
 
 
 def _hybrid_shapes(torch, gen) -> int:
-    """The norm, flash forward and flash backward kernels against their
-    plain versions at the shapes the hybrid serve prefill and the
-    recurrentgemma train step give them (bf16, the ``(1 + w)`` norm, the
-    local layers' window); prints each with the kernel's and the plain
-    version's times (the flash forward's at the train shape are a row of
-    the kernels line)."""
+    """The norm and flash forward kernels against their plain versions at
+    the shapes the hybrid serve prefill and the recurrentgemma train step
+    give them (bf16, the ``(1 + w)`` norm, the local layers' window);
+    prints each with the kernel's and the plain version's times (the flash
+    forward's at the train shape, and the flash backward's there, are rows
+    of the kernels line)."""
     from repro_torch.configs.archs import get_config
     from repro_torch.kernels import flash_attention as fk
-    from repro_torch.kernels import flash_attention_bwd as bk
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as rk
 
@@ -1087,53 +1226,51 @@ def _hybrid_shapes(torch, gen) -> int:
             print(f"[kernels] {label}: flash_attention_fwd q {tuple(q.shape)} bf16 window "
                   f"{window}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
                   f"max|err| {err:.3g}", flush=True)
-            continue
-        out, lse = got
-        dout = _randn(torch, (B, S, NQ, D), bf16, gen).transpose(1, 2)
-
-        def kernel():
-            return bk.flash_attention_bwd(q, k, v, out, dout, lse, window=window)
-
-        def plain():
-            return ref.flash_attention_bwd_ref(q, k, v, out, dout, lse, window=window)
-
-        err = max(_compare(torch, f"flash bwd q {tuple(q.shape)} window {window} ({label}) "
-                           f"{part}", g, w_, bf16)
-                  for part, g, w_ in zip(("dq", "dk", "dv"), kernel(), plain()))
-        print(f"[kernels] {label}: flash_attention_bwd q {tuple(q.shape)} bf16 window "
-              f"{window}: kernel {time_ms(torch, kernel, launches=5):.4f} ms, plain "
-              f"{time_ms(torch, plain, launches=5):.4f} ms, max|err| {err:.3g}", flush=True)
-        n += 1
     return n
 
 
-def _full_width_bwd(torch, gen):
-    """The flash backward kernel at the train phase's gemma-2b shape: q
-    (2, 8, 2048, 256), one kv head, bf16, causal."""
+def _full_width_bwd(torch, gen, arch):
+    """The flash backward kernel at a train phase's shape, bf16: gemma-2b q
+    (2, 8, 2048, 256) causal and recurrentgemma-2b q (2, 10, 2048, 256)
+    with its window of 2048, one kv head each.  Also checks that two
+    launches are bitwise equal and prints the kernel's eager time beside
+    SDPA's eager backward, like with like."""
     from repro_torch.configs.archs import get_config
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import flash_attention_bwd as bk
     from repro_torch.kernels import ref
 
-    cfg = get_config(TRAIN_ARCHS[0])
+    cfg = get_config(arch)
     bf16 = torch.bfloat16
     B, S, NQ, NKV, D = TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    window = cfg.window or 0
     q = _randn(torch, (B, S, NQ, D), bf16, gen).transpose(1, 2)
     k = _randn(torch, (B, S, NKV, D), bf16, gen).transpose(1, 2)
     v = _randn(torch, (B, S, NKV, D), bf16, gen).transpose(1, 2)
     dout = _randn(torch, (B, S, NQ, D), bf16, gen).transpose(1, 2)
-    out, lse = fk.flash_attention_fwd(q, k, v, return_lse=True)
+    out, lse = fk.flash_attention_fwd(q, k, v, window=window, return_lse=True)
 
     def kernel():
-        return bk.flash_attention_bwd(q, k, v, out, dout, lse)
+        return bk.flash_attention_bwd(q, k, v, out, dout, lse, window=window)
 
     def plain():
-        return ref.flash_attention_bwd_ref(q, k, v, out, dout, lse)
+        return ref.flash_attention_bwd_ref(q, k, v, out, dout, lse, window=window)
 
-    err = max(_compare(torch, f"flash bwd full width {part}", g, w, bf16)
-              for part, g, w in zip(("dq", "dk", "dv"), kernel(), plain()))
+    first, second = kernel(), kernel()
+    err = max(_compare(torch, f"flash bwd full width {arch} {part}", g, w, bf16)
+              for part, g, w in zip(("dq", "dk", "dv"), first, plain()))
+    check(all(torch.equal(a, b) for a, b in zip(first, second)),
+          f"flash bwd full width {arch}: two launches differ")
+    rel = _rel_gate(torch, f"flash bwd full width {arch}", q, k, v, out, dout, lse, first,
+                    True, window)
+    print(f"[kernels] flash_attention_bwd {arch}: relative error against float64 (kernel / "
+          f"plain bf16 version / worst 64-row tile's ratio): "
+          + ", ".join(f"{p} {a:.5f} / {b:.5f} / {c:.3f}" for p, (a, b, c) in rel.items()),
+          flush=True)
     # The library yardstick: the backward of SDPA alone (its forward runs
-    # once, outside the timing), through torch.autograd.grad.
+    # once, outside the timing), through torch.autograd.grad.  A window of
+    # S is causal attention.
+    check(window in (0, S), f"{arch}: SDPA has no window of {window} < S")
     qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
     o = _sdpa(torch, qq, kk, vv, is_causal=True)
 
@@ -1143,16 +1280,20 @@ def _full_width_bwd(torch, gen):
     # q, k, v, out, dout and the f32 LSE read once; dq, dk, dv written once.
     nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
     # The function needs five S x S x D products over the causal (q, k)
-    # pairs: s = q.k^T, dp = dout.v^T, dv = p^T.dout, dq = ds.k, dk = ds^T.q.
-    # (This kernel's two-launch split recomputes s and dp, seven in all:
-    # that is its own cost, not the bound's.)
-    flops = 5 * 2 * D * B * NQ * (S * (S + 1) // 2)
+    # pairs in the window: s = q.k^T, dp = dout.v^T, dv = p^T.dout,
+    # dq = ds.k, dk = ds^T.q.  (This kernel's dq pass recomputes s and dp
+    # and it adds p's rounding remainder to dv, eight in all: that is its
+    # own cost, not the bound's.)
+    pairs = sum(min(i + 1, window or S) for i in range(S))
+    flops = 5 * 2 * D * B * NQ * pairs
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_BF16_FLOPS * 1e3
-    return dict(
+    plan = bk.bwd_plan(B, NQ, NKV, S, D, _sm_count(torch))
+    e = dict(
         name="flash_attention_bwd", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         replaces="src/repro/kernels/flash_attention_bwd.py:161", max_abs_err=err,
-        shape=f"q {tuple(q.shape)} kv heads {NKV} bf16 causal (gemma-2b training)",
+        shape=f"q {tuple(q.shape)} kv heads {NKV} bf16 causal"
+              + (f" window {window}" if window else "") + f" ({arch} training)",
         ms=time_ms(torch, kernel, launches=5),
         eager_ms=time_ms(torch, kernel, launches=5, graph=False),
         plain_ms=time_ms(torch, plain, launches=5),
@@ -1160,6 +1301,12 @@ def _full_width_bwd(torch, gen):
         library="SDPA backward (eager)",
         bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
     )
+    print(f"[kernels] flash_attention_bwd {arch}: route {bk.bwd_route(bf16, D)}, plan (rows, "
+          f"heads per group, groups) {plan}, two launches bitwise equal; eager {e['eager_ms']:.4f}"
+          f" ms vs SDPA backward eager {e['library_ms']:.4f} ms ({e['eager_ms'] / e['library_ms']:.2f}"
+          f"x); device (graph) {e['ms']:.4f} ms, {e['ms'] / e['bound_ms']:.2f}x its bound",
+          flush=True)
+    return e
 
 
 def _full_width_paged(torch, full, gen):
@@ -1384,6 +1531,70 @@ def phase_model(torch):
             _model_paged(torch, name, cfg, cpu_params, gpu_params)
         if name != "hedge" and not set(cfg.layer_kinds()) & {"moe", "mlstm", "slstm"}:
             _model_grads(torch, name, cfg, cpu_params, f64_reference=name == "phi3")
+    _model_bf16_grads(torch, get_config(TRAIN_ARCHS[0], n_layers=2))
+
+
+def _model_bf16_grads(torch, cfg):
+    """``loss_fn``'s bf16 gradient through the flash backward's wgmma route,
+    leaf by leaf, on the card: gemma-2b at its full width (d 2048, 8 q
+    heads / 1 kv head x 256, bf16), 2 layers, batch 2 x 2048 tokens (the
+    train phase's attention shape).  Three runs differ only in the
+    attention backward: the kernel; the plain version
+    (``ref.flash_attention_bwd_ref``, f32, p and ds not rounded); and the
+    plain version of the kernel's arithmetic (``_bwd_f64`` with p and ds
+    rounded to bf16).  Each leaf of the kernel's run stays within REL_GATE
+    times the rounded plain run's relative Frobenius distance from the f32
+    plain run, plus REL_FLOOR; every leaf finite and non-zero.  The model
+    phase's other gradient checks are f32 (the CUDA-core route)."""
+    from repro_torch.kernels import flash_attention_bwd as bk
+    from repro_torch.kernels import ref
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import named_leaves, tree_map
+
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    check(bk.bwd_route(torch.bfloat16, cfg.head_dim) == "wgmma" and cfg.dtype == "bfloat16",
+          f"model bf16 grads: {cfg.name} does not take the wgmma route")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=torch.Generator().manual_seed(4))
+    batch = {"tokens": toks[:, :-1].cuda(), "labels": toks[:, 1:].cuda()}
+
+    def rounded(q, k, v, out, dout, lse, *, causal=True, window=0, scale=None):
+        return tuple(t.to(q.dtype) for t in _bwd_f64(torch, q, k, v, out, dout, lse, causal,
+                                                     window, round_to=q.dtype, scale=scale))
+
+    kernel = bk.flash_attention_bwd
+    runs = {}
+    try:
+        for label, bwd in (("kernel", kernel), ("plain", ref.flash_attention_bwd_ref),
+                           ("rounded", rounded)):
+            bk.flash_attention_bwd = bwd
+            leaves = tree_map(lambda p: p.detach().clone().requires_grad_(p.is_floating_point()),
+                              params)
+            named = [(path, leaf) for path, leaf in named_leaves(leaves) if leaf.requires_grad]
+            loss, _ = T.loss_fn(cfg, leaves, batch)
+            runs[label] = (float(loss.detach()),
+                           torch.autograd.grad(loss, [leaf for _, leaf in named]))
+    finally:
+        bk.flash_attention_bwd = kernel
+    check(runs["kernel"][0] == runs["plain"][0], "model bf16 grads: the forwards differ")
+    worst_k = worst_r = worst_ratio = 0.0
+    for (path, _), g, p, r in zip(named, runs["kernel"][1], runs["plain"][1], runs["rounded"][1]):
+        check(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0,
+              f"model bf16 grads: gradient {path} zero or not finite through the kernel")
+        norm = max(float(p.double().norm()), 1e-300)
+        dk, dr = (float((x.double() - p.double()).norm()) / norm for x in (g, r))
+        check(dk <= REL_GATE * dr + REL_FLOOR,
+              f"model bf16 grads: gradient {path} {dk:.4g} (relative) from the plain f32 "
+              f"backward's run, beyond {REL_GATE}x the rounded plain version's {dr:.4g}")
+        worst_k, worst_r = max(worst_k, dk), max(worst_r, dr)
+        worst_ratio = max(worst_ratio, dk / max(dr, REL_FLOOR))
+    print(f"[model] gemma-2b width, 2 layers, bf16, batch {B} x {S}: loss_fn + grads with the "
+          f"wgmma backward vs the plain f32 backward, {len(named)} leaves, all non-zero: "
+          f"worst relative distance {worst_k:.4g} (the plain version of the kernel's "
+          f"arithmetic: {worst_r:.4g}; worst leaf's ratio {worst_ratio:.3f}, gate {REL_GATE})",
+          flush=True)
+    del params, runs
+    torch.cuda.empty_cache()
 
 
 def _card_vs_cpu(torch, name, cfg, cpu_params, gpu_params, S, B=2, steps=16):
@@ -2748,6 +2959,31 @@ def _train_launches(cfg):
                 rglru_scan_fwd=rec_fwd, rglru_scan_bwd=rec_bwd)
 
 
+def train_setup(torch, cfg):
+    """``(step_fn, pipe, state, held_out_loss)`` of the train phase: its
+    optimizer settings, batch ``TRAIN_BATCH`` x ``TRAIN_SEQ`` of the seed-0
+    pipeline, the state from seed 0 on the card, and the loss of a fixed
+    batch the run never trains on (``held_out_loss(state)``)."""
+    from repro_torch.models.transformer import loss_fn
+    from repro_torch.training import (
+        DataConfig, OptimizerConfig, TrainConfig, init_train_state, make_pipeline,
+        make_train_step,
+    )
+
+    opt_cfg = OptimizerConfig(learning_rate=3e-4, warmup_steps=min(100, TRAIN_STEPS // 10 + 1),
+                              total_steps=TRAIN_STEPS)
+    step_fn = make_train_step(cfg, opt_cfg, TrainConfig())
+    pipe = make_pipeline(DataConfig(batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=0), cfg)
+    state = init_train_state(cfg, torch.Generator().manual_seed(0), TrainConfig(), device="cuda")
+    held = {k: torch.from_numpy(v).to("cuda") for k, v in pipe.batch_at(HELD_OUT_BATCH).items()}
+
+    def held_out_loss(st):
+        with torch.no_grad():
+            return float(loss_fn(cfg, st["params"], held)[0])
+
+    return step_fn, pipe, state, held_out_loss
+
+
 def phase_train(torch, arch, card, profile: bool):
     """12 steps of ``make_train_step`` on full-width ``arch`` (the code path
     of ``python -m repro_torch.launch.train --arch ARCH --full-config``,
@@ -2755,36 +2991,29 @@ def phase_train(torch, arch, card, profile: bool):
     import numpy as np
     from repro_torch.configs.archs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.training import (
-        DataConfig, OptimizerConfig, TrainConfig, init_train_state, make_pipeline,
-        make_train_step,
-    )
     from repro_torch.tree import tree_leaves
 
     cfg = get_config(arch)
     B, S, L = TRAIN_BATCH, TRAIN_SEQ, cfg.n_layers
-    opt_cfg = OptimizerConfig(learning_rate=3e-4, warmup_steps=min(100, TRAIN_STEPS // 10 + 1),
-                              total_steps=TRAIN_STEPS)
-    step_fn = make_train_step(cfg, opt_cfg, TrainConfig())
-    pipe = make_pipeline(DataConfig(batch_size=B, seq_len=S, seed=0), cfg)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
-
-    ops.reset_launch_counts()  # the train path starts here
     t0 = time.perf_counter()
-    state = init_train_state(cfg, torch.Generator().manual_seed(0), TrainConfig(), device="cuda")
+    step_fn, pipe, state, held_out_loss = train_setup(torch, cfg)
     torch.cuda.synchronize()
+    t_state = time.perf_counter() - t0
+    held_before = held_out_loss(state)
     n_params = sum(p.numel() for p in tree_leaves(state["params"]))
     print(f"[train] {cfg.name}: {L} layers {cfg.layer_kinds().count('recurrent')} recurrent "
           f"(lru width {cfg.lru_width}), d {cfg.d_model}, {cfg.n_heads} q / "
           f"{cfg.n_kv_heads} kv heads x {cfg.head_dim}, d_ff {cfg.d_ff} {cfg.mlp_type}, vocab "
           f"{cfg.vocab_size}, {cfg.dtype}, remat={cfg.remat}; {n_params / 1e9:.3f}B params; "
-          f"state built in {time.perf_counter() - t0:.1f}s, "
+          f"state built in {t_state:.1f}s, "
           f"{(torch.cuda.memory_allocated() - before) / 2**30:.1f} GiB; batch {B} x {S} "
           f"tokens, {TRAIN_STEPS} steps", flush=True)
 
     losses, step_ms = [], []
+    ops.reset_launch_counts()  # the train path starts here
     for step in range(TRAIN_STEPS):
         batch = {k: torch.from_numpy(v).to("cuda") for k, v in pipe.batch_at(step).items()}
         torch.cuda.synchronize()
@@ -2805,19 +3034,21 @@ def phase_train(torch, arch, card, profile: bool):
               f"lr {float(metrics['lr']):.2e}  {step_ms[-1]:.1f} ms", flush=True)
     counts = ops.launch_counts()  # the train path ends here
     peak = torch.cuda.max_memory_allocated()
-
-    check(all(np.isfinite(losses)), f"train {arch}: non-finite losses {losses}")
-    check(float(np.mean(losses[-3:])) < losses[0],
-          f"train {arch}: mean of the last 3 losses {np.mean(losses[-3:]):.4f} not below the "
-          f"first {losses[0]:.4f}")
+    held_after = held_out_loss(state)
+    print(f"[train] {arch} held-out batch {HELD_OUT_BATCH} (never trained on): loss "
+          f"{held_before:.4f} before, {held_after:.4f} after {TRAIN_STEPS} steps", flush=True)
     want = _train_launches(cfg)
-    scan = ("rglru_scan_fwd", "rglru_scan_bwd") if want["rglru_scan_fwd"] else ()
-    for name in TRAIN_PATH_KERNELS + scan:
-        check(counts[name] > 0, f"train {arch}: kernel {name} was never launched on the "
-              "train path")
-    got = {k: counts[k] / TRAIN_STEPS for k in want}
-    check(got == want, f"train {arch}: launches per step {got}, expected {want} (remat on "
-          "the periods)")
+    # One more step under torch.profiler: the flash backward's share of it.
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in pipe.batch_at(TRAIN_STEPS).items()}
+    prof = _profile_step(torch, lambda: step_fn(state, batch), f"{arch} train step", card,
+                         verbose=profile)
+    bwd_ms = sum(ms for fam, ms in prof["families"].items() if fam.startswith("flash_bwd"))
+    print(f"[train] {arch} profiled step: device busy {prof['device_busy_ms']:.1f} ms of "
+          f"{prof['wall_ms']:.1f} ms wall; flash backward family {bwd_ms:.2f} ms "
+          f"({100 * bwd_ms / prof['device_busy_ms']:.1f} % of busy, "
+          f"{bwd_ms / want['flash_attention_bwd']:.3f} ms a call over "
+          f"{want['flash_attention_bwd']} calls); card {card}", flush=True)
+
     steady = statistics.median(step_ms[1:])
     tokens = B * S
     # Model FLOPs (remat's recompute not counted): 6 per parameter and
@@ -2829,6 +3060,7 @@ def phase_train(torch, arch, card, profile: bool):
     flops = 6 * n_params * tokens + 12 * n_attn * cfg.head_dim * B * cfg.n_heads * pairs
     result = dict(
         arch=cfg.name, params=n_params, batch=B, seq=S, steps=TRAIN_STEPS, losses=losses,
+        held_out_loss=[held_before, held_after], profile=prof, flash_bwd_ms=bwd_ms,
         step_ms=step_ms, median_step_ms=steady, tokens_per_s=tokens / steady * 1e3,
         mfu=flops / (steady / 1e3) / H100_BF16_FLOPS, model_flops_per_step=flops,
         peak_gib=peak / 2**30, launches_per_step={k: v / TRAIN_STEPS for k, v in counts.items()},
@@ -2839,10 +3071,19 @@ def phase_train(torch, arch, card, profile: bool):
           f"FLOPs per step); peak memory {result['peak_gib']:.1f} GiB; loss {losses[0]:.4f} -> "
           f"{np.mean(losses[-3:]):.4f} (mean of last 3); card {card}", flush=True)
     print(f"[train] {arch} kernel launches per step: {result['launches_per_step']}", flush=True)
-    if profile:
-        batch = {k: torch.from_numpy(v).to("cuda") for k, v in pipe.batch_at(TRAIN_STEPS).items()}
-        result["profile"] = _profile_step(torch, lambda: step_fn(state, batch),
-                                          f"{arch} train step", card)
+    check(all(np.isfinite(losses)), f"train {arch}: non-finite losses {losses}")
+    check(held_after < held_before, f"train {arch}: the held-out batch's loss {held_after:.4f} "
+          f"after training is not below its {held_before:.4f} before")
+    check(float(np.mean(losses[-3:])) < losses[0],
+          f"train {arch}: mean of the last 3 losses {np.mean(losses[-3:]):.4f} not below the "
+          f"first {losses[0]:.4f}")
+    scan = ("rglru_scan_fwd", "rglru_scan_bwd") if want["rglru_scan_fwd"] else ()
+    for name in TRAIN_PATH_KERNELS + scan:
+        check(counts[name] > 0, f"train {arch}: kernel {name} was never launched on the "
+              "train path")
+    got = {k: counts[k] / TRAIN_STEPS for k in want}
+    check(got == want, f"train {arch}: launches per step {got}, expected {want} (remat on "
+          "the periods)")
     del state
     torch.cuda.empty_cache()
     return counts, result
@@ -2902,9 +3143,10 @@ def phase_train_cli(torch, card):
 # Optional phase: where a request's time goes.
 # ---------------------------------------------------------------------------
 _PORT_KERNELS = ("rms_norm_kernel", "flash_fwd_wgmma_kernel", "flash_fwd_kernel",
-                 "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_tc_kernel",
-                 "flash_bwd_dkv_tc_kernel", "flash_bwd_group_sum_kernel",
-                 "decode_split_kernel", "rglru_scan_kernel")
+                 "flash_bwd_wgmma_kernel", "flash_bwd_prep_kernel",
+                 "flash_bwd_group_merge_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+                 "flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel",
+                 "flash_bwd_group_sum_kernel", "decode_split_kernel", "rglru_scan_kernel")
 
 
 def _families(prof):
@@ -2932,9 +3174,9 @@ def _families(prof):
     return by_name, families, len(kernels)
 
 
-def _profile_step(torch, fn, label, card):
+def _profile_step(torch, fn, label, card, verbose=True):
     """torch.profiler over one call of ``fn``: wall, device busy share and
-    device time by kernel family."""
+    device time by kernel family (printed unless ``verbose`` is False)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2945,15 +3187,20 @@ def _profile_step(torch, fn, label, card):
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name, families, n = _families(prof)
     busy = sum(by_name.values())
+    if verbose:
+        _print_profile(label, wall_ms, busy, n, families, by_name, card)
+    return dict(wall_ms=wall_ms, device_busy_ms=busy, device_kernels=n,
+                busy_share=busy / wall_ms, families=dict(families),
+                top=by_name.most_common(8))
+
+
+def _print_profile(label, wall_ms, busy, n, families, by_name, card):
     print(f"[profile] {label}: wall {wall_ms:.1f} ms (profiled), device busy {busy:.1f} ms "
           f"({100 * busy / wall_ms:.1f}%), {n} kernels; card {card}", flush=True)
     for fam, ms in families.most_common():
         print(f"[profile]   {fam:22s} {ms:9.3f} ms ({100 * ms / busy:.1f}% of busy)", flush=True)
     for name, ms in by_name.most_common(8):
         print(f"[profile]   top {ms:9.3f} ms  {name[:90]}", flush=True)
-    return dict(wall_ms=wall_ms, device_busy_ms=busy, device_kernels=n,
-                busy_share=busy / wall_ms, families=dict(families),
-                top=by_name.most_common(8))
 
 
 def phase_profile(torch, runs, card):
@@ -2997,10 +3244,38 @@ def _watchdog(seconds: float) -> None:
     threading.Thread(target=fire, name="watchdog", daemon=True).start()
 
 
+def _live_cuda_bytes(torch):
+    """(bytes, count) of the distinct CUDA storages that live tensors the
+    garbage collector can reach hold."""
+    seen = {}
+    for obj in gc.get_objects():
+        try:
+            if isinstance(obj, torch.Tensor) and obj.is_cuda:
+                st = obj.untyped_storage()
+                seen[st.data_ptr()] = st.nbytes()
+        except Exception:  # noqa: BLE001 - objects that refuse inspection
+            continue
+    return sum(seen.values()), len(seen)
+
+
 def _release(torch, label):
+    """Collect, empty the cache and say what stays allocated: the bytes of
+    live CUDA tensors, and what clearing PyTorch's cuBLAS workspaces (one
+    per cuBLAS handle and stream, from the caching allocator) gives back."""
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"[{label}] released: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated",
+    held = torch.cuda.memory_allocated()
+    live, n_live = _live_cuda_bytes(torch)
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    after = None
+    if clear is not None:
+        clear()
+        torch.cuda.empty_cache()
+        after = torch.cuda.memory_allocated()
+    print(f"[{label}] released: {held / 2**30:.2f} GiB still allocated, of which "
+          f"{live / 2**30:.2f} GiB in {n_live} live CUDA tensor storages; "
+          + (f"{after / 2**30:.2f} GiB after clearing the cuBLAS workspaces"
+             if after is not None else "no torch._C._cuda_clearCublasWorkspaces here"),
           flush=True)
 
 
@@ -3010,8 +3285,8 @@ def main(argv=None) -> int:
                     help="tier-l depth (qwen3-14b has 40); width is never cut")
     ap.add_argument("--profile", action="store_true",
                     help="profile one tier-l generate per backend and batch 1 / 4 after "
-                    "the serve phases, one tier-rg generate at batch 4 after the hybrid "
-                    "phase, and one step after each train run")
+                    "the serve phases and one tier-rg generate at batch 4 after the hybrid "
+                    "phase; print each train run's profiled step in full")
     ap.add_argument("--ptxas", action="store_true", help="print nvcc -Xptxas -v register use")
     ap.add_argument("--json-out", default=None, help="also write the results here")
     args = ap.parse_args(argv)
@@ -3079,9 +3354,13 @@ def main(argv=None) -> int:
                     "continuous": paged_counts, "process": process_counts,
                     "serve command": cli_counts, "hybrid": hybrid_counts, "zoo": zoo_counts}
     train = {}
-    for arch in TRAIN_ARCHS:
-        phase_counts[f"train {arch}"], train[arch] = phase_train(torch, arch, card, args.profile)
+    # recurrentgemma-2b last: its train-loss check compares batch noise and
+    # can fail (ROADMAP.md Queue C), so every other check runs before it.
+    gemma, hybrid = TRAIN_ARCHS
+    phase_counts[f"train {gemma}"], train[gemma] = phase_train(torch, gemma, card, args.profile)
     phase_counts["train command phi3"], train["phi3 command"] = phase_train_cli(torch, card)
+    phase_counts[f"train {hybrid}"], train[hybrid] = phase_train(torch, hybrid, card,
+                                                                 args.profile)
     counts = {k: sum(c.get(k, 0) for c in phase_counts.values()) for k in dense_counts}
     names = {e["name"] for e in entries}
     check(names == set(counts), f"kernels timed {sorted(names)} != kernels counted {sorted(counts)}")

@@ -494,30 +494,6 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-// A 4-D map (D, S, heads, batch) over a 16-bit operand with the given
-// element strides, boxes of 64 features x ``rows``, 128-byte swizzle.  A
-// stride of a size-1 dim is never used; it is replaced by the packed one.
-bool make_map(CUtensorMap* map, const void* ptr, CUtensorMapDataType dtype, int D, int S,
-              int N, int B, Strides3 st, int rows) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const unsigned long long esz = 2;
-  cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)N, (cuuint64_t)B};
-  cuuint64_t strides[3] = {(cuuint64_t)st.s * esz, (cuuint64_t)st.h * esz,
-                           (cuuint64_t)st.b * esz};
-  if (S == 1) strides[0] = (cuuint64_t)D * esz;
-  if (N == 1) strides[1] = strides[0] * (cuuint64_t)S;
-  if (B == 1) strides[2] = strides[1] * (cuuint64_t)N;
-  for (cuuint64_t s : strides)
-    if (s % 16 != 0 || s >= (1ull << 40)) return false;
-  if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return false;
-  cuuint32_t box[4] = {(cuuint32_t)kBox, (cuuint32_t)rows, 1, 1};
-  cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, dtype, 4, const_cast<void*>(ptr), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse,
                    int B, int NQ, int NKV, int S, Strides3 qs, Strides3 ks,
@@ -527,9 +503,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, float
                                      ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap qmap, kmap, vmap;
-  if (!make_map(&qmap, q, dt, D, S, NQ, B, qs, kBQ) ||
-      !make_map(&kmap, k, dt, D, S, NKV, B, ks, kBK) ||
-      !make_map(&vmap, v, dt, D, S, NKV, B, vs, kBK))
+  if (!make_map_4d(&qmap, q, dt, D, S, NQ, B, qs.s, qs.h, qs.b, kBQ) ||
+      !make_map_4d(&kmap, k, dt, D, S, NKV, B, ks.s, ks.h, ks.b, kBK) ||
+      !make_map_4d(&vmap, v, dt, D, S, NKV, B, vs.s, vs.h, vs.b, kBK))
     return cudaErrorInvalidValue;
   constexpr int smem = Layout<D>::kAlloc;
   auto kernel = flash_fwd_wgmma_kernel<T, D>;

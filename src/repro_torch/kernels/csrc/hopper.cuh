@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks for the port's kernels: mbarriers, TMA
-// tile loads and the tensor-map encoder, wgmma descriptors and the wgmma
-// shapes the flash-attention forward uses, all as inline PTX (no CUTLASS /
-// CuTe).
+// tile loads and the tensor-map encoder, named barriers, wgmma descriptors
+// and the wgmma shapes the flash-attention forward and backward use, all as
+// inline PTX (no CUTLASS / CuTe).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap (a type only: the kernels link no driver library)
@@ -95,6 +95,38 @@ inline EncodeTiled encode_tiled() {
                : nullptr;
   }();
   return fn;
+}
+
+// A 4-D map (D, S, heads, batch) over a 16-bit operand with the given
+// element strides, boxes of 64 features x ``rows``, 128-byte swizzle (the
+// layout the wgmma descriptors below read).  A stride of a size-1 dim is
+// never used; it is replaced by the packed one.  False if TMA cannot take
+// the operand (base or strides not in 16-byte units).
+inline bool make_map_4d(CUtensorMap* map, const void* ptr, CUtensorMapDataType dtype, int D,
+                        int S, int N, int B, long long st_s, long long st_h, long long st_b,
+                        int rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const unsigned long long esz = 2;
+  cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)N, (cuuint64_t)B};
+  cuuint64_t strides[3] = {(cuuint64_t)st_s * esz, (cuuint64_t)st_h * esz,
+                           (cuuint64_t)st_b * esz};
+  if (S == 1) strides[0] = (cuuint64_t)D * esz;
+  if (N == 1) strides[1] = strides[0] * (cuuint64_t)S;
+  if (B == 1) strides[2] = strides[1] * (cuuint64_t)N;
+  for (cuuint64_t s : strides)
+    if (s % 16 != 0 || s >= (1ull << 40)) return false;
+  if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return false;
+  cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, dtype, 4, const_cast<void*>(ptr), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Named barrier ``id`` (1..15; 0 is __syncthreads) over ``count`` threads.
+__device__ __forceinline__ void named_bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // ---- register rebalancing between warpgroups (whole warpgroup, sm_90a) ----
@@ -225,6 +257,9 @@ struct Mma<__nv_bfloat16> {
     __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&v);
   }
+  static __device__ __forceinline__ float round(float x) {  // to the element type and back
+    return __bfloat162float(__float2bfloat16_rn(x));
+  }
 };
 template <>
 struct Mma<__half> {
@@ -240,6 +275,9 @@ struct Mma<__half> {
   static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
     __half2 v = __floats2half2_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&v);
+  }
+  static __device__ __forceinline__ float round(float x) {
+    return __half2float(__float2half_rn(x));
   }
 };
 

@@ -27,6 +27,7 @@ __all__ = [
     "decode_attention_paged_ref",
     "decode_attention_paged_split_ref",
     "flash_attention_bwd_ref",
+    "flash_attention_bwd_tiled_ref",
     "rms_norm_bwd_ref",
     "rglru_scan_ref",
     "rglru_scan_bwd_ref",
@@ -301,6 +302,101 @@ def flash_attention_bwd_ref(q, k, v, out, dout, lse, *, causal: bool = True,
     dq = torch.einsum("bkgqs,bksd->bkgqd", ds, kf).reshape(B, NQ, S, D)
     dk = torch.einsum("bkgqs,bkgqd->bksd", ds, qf)
     dv = torch.einsum("bkgqs,bkgqd->bksd", p, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_tiled_ref(q, k, v, out, dout, lse, *, causal: bool = True,
+                                  window: int = 0, scale: Optional[float] = None,
+                                  block_q: int = 64, block_k: int = 64,
+                                  heads_per_group: Optional[int] = None):
+    """Test-only model of the wgmma backward's arithmetic
+    (``csrc/flash_attention_bwd.cu``, namespace ``tcb``), in f32.
+
+    dq: each ``block_q``-row q tile walks the ``block_k``-key tiles of its
+    band in order (whole tiles with no visible pair skipped) and adds
+    ``ds . k`` tile by tile.  dk / dv: each key tile walks its kv head's
+    group of ``heads_per_group`` consecutive q heads (the last group may be
+    shorter; default one group of all G), head by head, and each head's q
+    tiles of the band in order, adding ``ds^T . q`` and ``p^T . dout``; the
+    groups' f32 partials are then summed in group order.  As in the kernel,
+    ``p = exp(s - lse)`` with masked scores at the sentinel -1e30 and ``ds
+    = p * (dp - delta) * scale`` are f32; ds is rounded to q's dtype before
+    its products, and p enters ``p^T . dout`` as two products, of p rounded
+    to q's dtype and of its remainder ``p - rnd(p)`` rounded (no-ops in
+    f32).  Kernel layout, as
+    :func:`flash_attention_bwd_ref`; returns ``(dq, dk, dv)`` in the dtypes
+    of q, k and v.
+    """
+    B, NQ, S, D = q.shape
+    NKV = k.shape[1]
+    G = NQ // NKV
+    hpg = G if heads_per_group is None else heads_per_group
+    if scale is None:
+        scale = D**-0.5
+
+    def rnd(x):
+        return x.to(q.dtype).float()
+
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, dout))
+    delta = (dout.float() * out.float()).sum(-1)
+    lsef = lse.float()
+    ok = _scores_mask(S, S, causal=causal, window=window, device=q.device)
+
+    def scores(h, q0, q1, k0, k1):
+        """p, ds of q heads ``h`` (a tensor of indices), rows q0:q1, keys k0:k1."""
+        kvh = h // G
+        qt, dot = qf[:, h, q0:q1], dof[:, h, q0:q1]
+        kt, vt = kf[:, kvh, k0:k1], vf[:, kvh, k0:k1]
+        s = torch.einsum("bhqd,bhkd->bhqk", qt, kt) * scale
+        s = torch.where(ok[q0:q1, k0:k1], s, torch.full_like(s, _NEG_INF))
+        p = torch.exp(s - lsef[:, h, q0:q1, None])
+        dp = torch.einsum("bhqd,bhkd->bhqk", dot, vt)
+        return p, p * (dp - delta[:, h, q0:q1, None]) * scale
+
+    dq = torch.zeros_like(qf)
+    heads = torch.arange(NQ, device=q.device)
+    n_kt = -(-S // block_k)
+    for q0 in range(0, S, block_q):
+        q1 = min(q0 + block_q, S)
+        begin, end = 0, n_kt
+        if causal:
+            end = min(end, (q1 - 1) // block_k + 1)
+        if window and q0 - window + 1 > 0:
+            begin = (q0 - window + 1) // block_k
+        for kt in range(begin, end):
+            k0, k1 = kt * block_k, min(kt * block_k + block_k, S)
+            if not ok[q0:q1, k0:k1].any():
+                continue
+            _, ds = scores(heads, q0, q1, k0, k1)
+            dq[:, :, q0:q1] += torch.einsum("bhqk,bhkd->bhqd", rnd(ds), kf[:, heads // G, k0:k1])
+
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    n_qt = -(-S // block_q)
+    for k0 in range(0, S, block_k):
+        k1 = min(k0 + block_k, S)
+        begin = k0 // block_q if causal else 0
+        end = n_qt
+        if window:
+            end = min(end, (k1 - 1 + window - 1) // block_q + 1)
+        parts = []
+        for g0 in range(0, G, hpg):
+            pk = torch.zeros_like(dk[:, :, k0:k1])
+            pv = torch.zeros_like(pk)
+            for j in range(g0, min(G, g0 + hpg)):
+                h = torch.arange(NKV, device=q.device) * G + j
+                for qt in range(begin, end):
+                    q0, q1 = qt * block_q, min(qt * block_q + block_q, S)
+                    if not ok[q0:q1, k0:k1].any():
+                        continue
+                    p, ds = scores(h, q0, q1, k0, k1)
+                    pv += torch.einsum("bhqk,bhqd->bhkd", rnd(p), dof[:, h, q0:q1])
+                    pv += torch.einsum("bhqk,bhqd->bhkd", rnd(p - rnd(p)), dof[:, h, q0:q1])
+                    pk += torch.einsum("bhqk,bhqd->bhkd", rnd(ds), qf[:, h, q0:q1])
+            parts.append((pk, pv))
+        for pk, pv in parts:  # the merge, in group order
+            dk[:, :, k0:k1] += pk
+            dv[:, :, k0:k1] += pv
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
