@@ -48,7 +48,8 @@ Phases (each passes or raises; any failure exits non-zero with no result):
    (bf16 / f16 at D = 64 / 128 / 256) on S up to 3000, ragged head groups,
    windows cut mid-tile and a window of 1, each bitwise equal over two
    launches; and full-width rows at both train shapes (gemma-2b q (2, 8,
-   2048, 256) causal, recurrentgemma-2b q (2, 10, 2048, 256) window 2048),
+   2048, 256) causal, recurrentgemma-2b q (2, 10, 2048, 256) window 2048,
+   olmoe-1b-7b q (2, 16, 2048, 128) with one q head per kv head, G = 1),
    each bitwise equal over two launches, whose library time is the
    backward of ``F.scaled_dot_product_attention`` alone, eager, printed
    beside the kernel's eager time.  The RG-LRU scan kernel (S
@@ -73,7 +74,8 @@ Phases (each passes or raises; any failure exits non-zero with no result):
    2048), bf16, the norm with the ``(1 + w)`` offset.  The zoo
    phase's olmoe-1b-7b adds full-width rows at G = 1: its prefill q (4, 16,
    128, 128) over 16 kv heads, its ring decode q (4, 16, 1, 128) and its
-   paged decode q (8, 16, 1, 128) at the continuous geometry.
+   paged decode q (8, 16, 1, 128) at the continuous geometry; its train
+   phase adds the flash forward at q (2, 16, 2048, 128) with the LSE.
 4. model: the three reduced serving tiers, the hedge variant and reduced
    recurrentgemma (5 layers: one period and the epilogue), prefill plus
    16 greedy decode steps in f32, on the card through the kernels and on
@@ -85,8 +87,18 @@ Phases (each passes or raises; any failure exits non-zero with no result):
    a gradient cut on the card would show here.  The same for two layers of
    phi3-mini-3.8b at its full width (d 3072, 32 heads x 96, f32): head dim
    96 through every attention kernel.  And two full-width layers of
-   olmoe-1b-7b (d 2048, 64 experts top-8, qk-norm, f32), dense and paged,
-   without gradients (training MoE is not ported yet).
+   olmoe-1b-7b (d 2048, 64 experts top-8, qk-norm, f32), dense, paged and
+   ``loss_fn`` (its load-balancing loss included) with every gradient.
+   The three tiers again with the int8 ring cache (``kv_cache_quant``), a
+   24-token prompt into 16 slots (the write wraps) and 16 greedy steps,
+   the CPU quantising the card's keys and values: the prefill's codes and
+   scales bitwise equal, logits allclose, tokens equal (a free-running CPU
+   run reported beside it: its codes flip where f32 rounding crosses a
+   code boundary).  Then ``loss_fn``'s bf16
+   gradient, leaf by leaf, through the flash backward's wgmma route on two
+   full-width layers of gemma-2b and of olmoe-1b-7b (batch 2 x 2048),
+   within 1.5x + 4e-5 of the plain version of the kernel's arithmetic's
+   distance from the plain f32 backward; olmoe's bitwise the same twice.
 5. serve: a ``ServingEngine`` whose ``JitBackend`` hosts tier-s, tier-m
    (reduced as served) and tier-l at the full qwen3-14b configuration
    (bf16, seeded weights on the card), plus the zoo's measured hedge; then
@@ -101,7 +113,10 @@ Phases (each passes or raises; any failure exits non-zero with no result):
    conservation of requests, slots and pages, zero post-warmup growth of
    ``compile_count``, tier-l traffic with finite logits, TTFT on every
    completion, the stream's chunks before resolution, and that the paged
-   path's kernels were launched.
+   path's kernels were launched.  Then tier-l with the int8 ring cache on
+   the same weights: ``generate`` twice (tokens bitwise equal), finite
+   logits, ring-decode launches counted, and the dequantise pass's device
+   ms per decode step beside the ring kernel's.
    Between phases 5 and 6, cluster serve: a ``ClusterBackend`` of two
    in-process replicas behind inline transports (``--transport inline``),
    ``power_of_two`` routing and the heterogeneous spec ``2:8:0.5,1``,
@@ -179,14 +194,19 @@ Phases (each passes or raises; any failure exits non-zero with no result):
    device time by kernel family, port-kernel launches per generate.
 9. train: once the serve phases have released their weights, full-width
    gemma-2b (all 18 layers, bf16, remat, tied 256k vocab; seeded weights),
-   then full-width recurrentgemma-2b (all 26 layers) each train for 12
+   olmoe-1b-7b at full width cut to 8 of 16 layers (3.56 B parameters,
+   its load-balancing loss printed each step, every expert that took
+   tokens given a gradient; MFU from the active parameters) and, last,
+   full-width recurrentgemma-2b (all 26 layers) each train for 12
    steps of ``make_train_step`` (the code path of ``python -m
    repro_torch.launch.train --full-config``) on batch 2 x 2048 tokens of
    ``SyntheticTokens`` seed 0.  Prints loss, grad norm and ms per step,
    tokens/s, model FLOPs utilisation against 989 TFLOP/s, peak device
    memory and kernel launches per step.  Checks finite losses, the loss of
    a fixed held-out batch (``batch_at(1000)``) lower after the 12 steps
-   than before, the mean of the last 3 below the first, a finite non-zero gradient for every leaf
+   than before and the mean of the last 3 below the first (not for olmoe,
+   whose plain witness run, ``scripts/train_witness.py``, does not learn
+   beyond its batch noise in 12 steps), a finite non-zero gradient for every leaf
    at step 0, and the flash and scan launches per step (forward and
    backward counted apart) worked out from the layer kinds (remat reruns
    the periods' forward, not the epilogue's).  Then one more step of each
@@ -196,7 +216,10 @@ Phases (each passes or raises; any failure exits non-zero with no result):
    phi3-mini-3.8b --full-config --batch 2 --seq 2048`` for 3 steps, in this
    process (its launches counted): exit 0, finite losses, the last below
    the first, the flash launches worked out from the layer kinds, peak
-   device memory.
+   device memory; and ``--arch xlstm-350m`` the same way for 3 steps (no
+   learning check), followed by its gradient block by block: each of the
+   24 blocks' vjp, teacher-forced from the CPU float64 forward, card
+   against CPU in float64 within 1e-6 (its f32 forward is chaotic).
 
 Every run measures every column of the kernels line: each serve phase (the
 zoo's serve paths included) and each train run set the launch counters to
@@ -205,7 +228,12 @@ zoo's serve paths included) and each train run set the launch counters to
 ``{"kernels": [...]}`` JSON line and the ``{"ok": true, "device": ...}``
 JSON line.
 Each release between phases prints what stays allocated: the bytes of live
-CUDA tensors and what is left after clearing PyTorch's cuBLAS workspaces.
+CUDA tensors, the (cuBLAS handle, stream) pairs the serving backends'
+``generate`` used on the device's stream set (one stream per call in
+flight at once, at the peak), and (from the hybrid
+phase's release on) what is left after clearing PyTorch's cuBLAS
+workspaces; the serving phases' releases keep them, so their lines show
+whether one drain grows them over another.
 ``--tier-l-layers`` cuts tier-l's depth (never its width) if a time limit
 forces it.
 """
@@ -269,6 +297,18 @@ MOE_ARCH = "olmoe-1b-7b"
 SCOUT_ARCH = "llama4-scout-17b-a16e"
 SCOUT_LAYERS = 4  # of 48: the full model's 216 GB of bf16 weights exceed the card
 XLSTM_ARCH = "xlstm-350m"
+# The train phase: olmoe-1b-7b at full width cut to 8 of its 16 layers (its
+# 6.92 B parameters with bf16 gradients and f32 moments are ~83 GB, over the
+# card's 80); no learning check, as its plain witness run does not learn in
+# 12 steps (scripts/train_witness.py).  The xlstm-350m train command runs 3
+# steps at the command's default batch of 8 x 128 tokens: under the JAX
+# init its gradient overflows to non-finite values from 512 tokens a row,
+# on the CPU as on the card, and its sLSTM's time loop takes ~33 s a step
+# at 2 x 2048.
+MOE_TRAIN_LAYERS = 8
+MOE_LEARNS = False
+XLSTM_TRAIN_STEPS = 3
+XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ = 8, 128
 SIM_REQUESTS = 10_000
 SIM_SLA_MS = 250.0
 # A run still going after this long fails (stacks printed, workers killed)
@@ -406,6 +446,17 @@ def _compare(torch, name, got, want, dtype):
     return err
 
 
+_WARMUP_STREAM = []
+
+
+def _warmup_stream(torch):
+    """The one stream every timing warms up on (PyTorch keeps a cuBLAS
+    workspace per handle and stream, so a new stream per timing adds one)."""
+    if not _WARMUP_STREAM:
+        _WARMUP_STREAM.append(torch.cuda.Stream())
+    return _WARMUP_STREAM[0]
+
+
 def time_ms(torch, fn, launches: int = 20, trials: int = 7, graph: bool = True) -> float:
     """Median over ``trials`` of (CUDA-event time of ``launches`` calls) / launches.
 
@@ -413,7 +464,7 @@ def time_ms(torch, fn, launches: int = 20, trials: int = 7, graph: bool = True) 
     graph is replayed, so the time is the device's alone (back-to-back
     kernels, no Python launch cost); without it the calls run eagerly and
     the time includes whatever the host adds between launches."""
-    side = torch.cuda.Stream()
+    side = _warmup_stream(torch)
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
@@ -605,13 +656,15 @@ def phase_kernels(torch, full):
                    gemma.head_dim, 0, True, "gemma-2b training"),
         _flash_row(torch, gen, TRAIN_BATCH, hybrid.n_heads, hybrid.n_kv_heads, TRAIN_SEQ,
                    hybrid.head_dim, hybrid.window, True, "recurrentgemma training"),
+        _flash_row(torch, gen, TRAIN_BATCH, olmoe.n_heads, olmoe.n_kv_heads, TRAIN_SEQ,
+                   olmoe.head_dim, 0, True, "olmoe training"),
         _decode_row(torch, gen, full["batch"], hybrid.n_kv_heads,
                     hybrid.n_heads // hybrid.n_kv_heads, hybrid.head_dim,
                     min(hybrid.window, full["max_len"]), full["prompt"] + 1, "tier-rg"),
     ]
     for e in more:
         _print_entry(e)
-    bwd = [_full_width_bwd(torch, gen, arch) for arch in TRAIN_ARCHS]
+    bwd = [_full_width_bwd(torch, gen, arch) for arch in TRAIN_ARCHS + (MOE_ARCH,)]
     for e in bwd:
         _print_entry(e)
     print("[kernels] rglru_scan_fwd / rglru_scan_bwd have no library yardstick: no single "
@@ -1232,7 +1285,8 @@ def _hybrid_shapes(torch, gen) -> int:
 def _full_width_bwd(torch, gen, arch):
     """The flash backward kernel at a train phase's shape, bf16: gemma-2b q
     (2, 8, 2048, 256) causal and recurrentgemma-2b q (2, 10, 2048, 256)
-    with its window of 2048, one kv head each.  Also checks that two
+    with its window of 2048, one kv head each, and olmoe-1b-7b's q (2, 16,
+    2048, 128) with a kv head per q head (G = 1).  Also checks that two
     launches are bitwise equal and prints the kernel's eager time beside
     SDPA's eager backward, like with like."""
     from repro_torch.configs.archs import get_config
@@ -1509,6 +1563,8 @@ def _decode_row(torch, gen, B, NKV, G, D, S_cache, valid, label):
 # Phase 4: small models, card vs CPU.
 # ---------------------------------------------------------------------------
 def phase_model(torch):
+    import dataclasses
+
     from repro_torch.configs.archs import get_config, reduced
     from repro_torch.configs.mdinference_zoo import ONDEVICE_HEDGE
     from repro_torch.launch.serve import tier_configs
@@ -1529,22 +1585,32 @@ def phase_model(torch):
         _card_vs_cpu(torch, name, cfg, cpu_params, gpu_params, S=24)
         if T.supports_paged_decode(cfg):  # recurrent state is not paged
             _model_paged(torch, name, cfg, cpu_params, gpu_params)
-        if name != "hedge" and not set(cfg.layer_kinds()) & {"moe", "mlstm", "slstm"}:
+        if name.startswith("tier-"):  # the int8 ring cache on the same weights
+            _model_int8(torch, name, dataclasses.replace(cfg, kv_cache_quant=True), cpu_params,
+                        gpu_params)
+        if name != "hedge":
             _model_grads(torch, name, cfg, cpu_params, f64_reference=name == "phi3")
+        del cpu_params, gpu_params
     _model_bf16_grads(torch, get_config(TRAIN_ARCHS[0], n_layers=2))
+    _model_bf16_grads(torch, get_config(MOE_ARCH, n_layers=2))
 
 
 def _model_bf16_grads(torch, cfg):
     """``loss_fn``'s bf16 gradient through the flash backward's wgmma route,
     leaf by leaf, on the card: gemma-2b at its full width (d 2048, 8 q
-    heads / 1 kv head x 256, bf16), 2 layers, batch 2 x 2048 tokens (the
-    train phase's attention shape).  Three runs differ only in the
-    attention backward: the kernel; the plain version
-    (``ref.flash_attention_bwd_ref``, f32, p and ds not rounded); and the
-    plain version of the kernel's arithmetic (``_bwd_f64`` with p and ds
-    rounded to bf16).  Each leaf of the kernel's run stays within REL_GATE
-    times the rounded plain run's relative Frobenius distance from the f32
-    plain run, plus REL_FLOOR; every leaf finite and non-zero.  The model
+    heads / 1 kv head x 256, bf16) and olmoe-1b-7b at its (d 2048, 16 q /
+    16 kv heads x 128, 64 experts top-8), 2 layers each, batch 2 x 2048
+    tokens (the train phase's attention shapes).  Three runs differ only in
+    the attention backward, the forward being the same kernels (a swapped
+    forward could flip a near-tied top-k choice and move whole expert
+    leaves): the kernel; the plain version (``ref.flash_attention_bwd_ref``,
+    f32, p and ds not rounded); and the plain version of the kernel's
+    arithmetic (``_bwd_f64`` with p and ds rounded to bf16).  Each leaf of
+    the kernel's run stays within REL_GATE times the rounded plain run's
+    relative Frobenius distance from the f32 plain run, plus REL_FLOOR;
+    every leaf finite and non-zero.  For the MoE stack the kernel's run is
+    made twice and must be bitwise the same (the combine's index backward
+    accumulates, dropped assignments adding exact zeros).  The model
     phase's other gradient checks are f32 (the CUDA-core route)."""
     from repro_torch.kernels import flash_attention_bwd as bk
     from repro_torch.kernels import ref
@@ -1563,10 +1629,11 @@ def _model_bf16_grads(torch, cfg):
                                                      window, round_to=q.dtype, scale=scale))
 
     kernel = bk.flash_attention_bwd
+    moe = "moe" in cfg.layer_kinds()
     runs = {}
     try:
-        for label, bwd in (("kernel", kernel), ("plain", ref.flash_attention_bwd_ref),
-                           ("rounded", rounded)):
+        for label, bwd in ((("kernel", kernel),) + ((("again", kernel),) if moe else ())
+                           + (("plain", ref.flash_attention_bwd_ref), ("rounded", rounded))):
             bk.flash_attention_bwd = bwd
             leaves = tree_map(lambda p: p.detach().clone().requires_grad_(p.is_floating_point()),
                               params)
@@ -1577,6 +1644,10 @@ def _model_bf16_grads(torch, cfg):
     finally:
         bk.flash_attention_bwd = kernel
     check(runs["kernel"][0] == runs["plain"][0], "model bf16 grads: the forwards differ")
+    if moe:
+        check(all(torch.equal(a, b) for a, b in zip(runs["kernel"][1], runs["again"][1])),
+              f"model bf16 grads: {cfg.name}'s gradient differs between two runs")
+        del runs["again"]
     worst_k = worst_r = worst_ratio = 0.0
     for (path, _), g, p, r in zip(named, runs["kernel"][1], runs["plain"][1], runs["rounded"][1]):
         check(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0,
@@ -1588,13 +1659,85 @@ def _model_bf16_grads(torch, cfg):
               f"backward's run, beyond {REL_GATE}x the rounded plain version's {dr:.4g}")
         worst_k, worst_r = max(worst_k, dk), max(worst_r, dr)
         worst_ratio = max(worst_ratio, dk / max(dr, REL_FLOOR))
-    print(f"[model] gemma-2b width, 2 layers, bf16, batch {B} x {S}: loss_fn + grads with the "
-          f"wgmma backward vs the plain f32 backward, {len(named)} leaves, all non-zero: "
+    print(f"[model] {cfg.name} width, 2 layers, bf16, batch {B} x {S}: loss_fn + grads with the "
+          f"wgmma backward vs the plain f32 backward, {len(named)} leaves, all non-zero"
+          f"{', bitwise equal over two runs' if moe else ''}: "
           f"worst relative distance {worst_k:.4g} (the plain version of the kernel's "
           f"arithmetic: {worst_r:.4g}; worst leaf's ratio {worst_ratio:.3f}, gate {REL_GATE})",
           flush=True)
     del params, runs
     torch.cuda.empty_cache()
+
+
+def _model_int8(torch, name, cfg, cpu_params, gpu_params, S=24, ring=16, B=2, steps=16):
+    """The int8 ring cache (``cfg.kv_cache_quant``) card against CPU: a
+    prefill of ``S`` tokens into a ring of ``ring`` slots (its write wraps)
+    and ``steps`` greedy decode steps (each quantises its write and
+    dequantises the whole ring before the ring kernel).
+
+    The card's and the CPU's f32 keys and values differ in their last bits,
+    and a code flips where one lies within rounding of a code boundary,
+    moving that key's score by a whole code step.  So the checked CPU run
+    quantises the card's keys and values (recorded at every call, in call
+    order) in place of its own: the prefill's int8 codes and scales must be
+    bitwise the card's (the quantisation's arithmetic and the wrapped
+    write), and the logits allclose (atol 1e-3, rtol 1e-3) with tokens
+    equal (the dequantise and the ring kernel against the plain version).
+    A free-running CPU run is reported beside it: the codes that differ and
+    its logits' distance."""
+    from repro_torch.models import transformer as T
+
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=torch.Generator().manual_seed(5))
+    quant, card_x = T._kv_quant, []
+
+    def recording(x):
+        card_x.append(x.to("cpu", copy=True))
+        return quant(x)
+
+    def replaying(x):
+        return quant(forced.pop(0).to(x.dtype))
+
+    runs = {}
+    for run, device, params in (("card", "cuda", gpu_params), ("free", "cpu", cpu_params),
+                                ("forced", "cpu", cpu_params)):
+        forced = list(card_x)
+        T._kv_quant = {"card": recording, "free": quant, "forced": replaying}[run]
+        try:
+            with torch.inference_mode():
+                cache, logits = T.prefill(cfg, params, {"tokens": tokens.to(device)}, ring)
+                # Copies: the decode steps below update the cache in place.
+                codes = [(layer[k].to("cpu", copy=True), layer[k + "_scale"].to("cpu", copy=True))
+                         for layer in cache["periods"] for k in ("k", "v")]
+                all_logits, toks, tok = [logits.float().cpu()], [], logits.argmax(-1)
+                for i in range(steps):
+                    toks.append(tok.cpu())
+                    pos = torch.full((B,), S + i, dtype=torch.int32, device=device)
+                    logits, cache = T.decode_step(cfg, params, cache, tok, pos)
+                    all_logits.append(logits.float().cpu())
+                    tok = logits.argmax(-1)
+        finally:
+            T._kv_quant = quant
+        runs[run] = (torch.stack(all_logits), torch.stack(toks), codes)
+    check(len(card_x) == 2 * cfg.n_layers * (1 + steps) and not forced,
+          f"model {name} int8: {len(card_x)} quantisations on the card")
+    check(all(torch.equal(a, b) for (qc, sc), (qf, sf) in zip(runs["card"][2], runs["forced"][2])
+              for a, b in ((qc, qf), (sc, sf))),
+          f"model {name} int8: the prefill's codes or scales differ from the CPU's on the same "
+          "keys and values")
+    off = sum(int((qc != qh).sum()) for (qc, _), (qh, _) in zip(runs["card"][2], runs["free"][2]))
+    total = sum(qc.numel() for qc, _ in runs["card"][2])
+    err = float((runs["card"][0] - runs["forced"][0]).abs().max())
+    free = float((runs["card"][0] - runs["free"][0]).abs().max())
+    check(bool(torch.allclose(runs["card"][0], runs["forced"][0], atol=1e-3, rtol=1e-3)),
+          f"model {name} int8: card vs CPU logits max |err| {err:.3g} beyond atol 1e-3")
+    check(bool(torch.equal(runs["card"][1], runs["forced"][1])),
+          f"model {name} int8: greedy tokens differ between card and CPU")
+    print(f"[model] {name:6s} int8 ring: prefill of {S} into {ring} slots + {steps} greedy "
+          f"steps, the CPU quantising the card's keys and values: codes and scales of the "
+          f"prefill bitwise equal, logits max|err| {err:.3g} (atol 1e-3), tokens equal; free-"
+          f"running CPU: {off} of {total} prefill codes differ, logits max|err| {free:.3g}, "
+          f"tokens {'equal' if torch.equal(runs['card'][1], runs['free'][1]) else 'differ'}",
+          flush=True)
 
 
 def _card_vs_cpu(torch, name, cfg, cpu_params, gpu_params, S, B=2, steps=16):
@@ -1826,6 +1969,83 @@ def _serve_engine(torch, label, configs, tier, card):
     check(bool(torch.isfinite(logits).all()), f"{tier} logits are not finite")
     print(f"[{label}] {tier} logits finite, shape {tuple(logits.shape)}", flush=True)
     return engine, results
+
+
+def phase_int8(torch, engine, card):
+    """tier-l (the dense phase's weights) served with the int8 ring cache
+    (``kv_cache_quant``): a ``JitBackend`` over the same weights, batch
+    ``BATCH``, prompt ``PROMPT``, ``GEN`` greedy tokens, twice (tokens
+    bitwise equal), then one prefill and ``GEN`` decode steps whose logits
+    must be finite; the ring kernel's launches counted.  Then the cost of
+    the dequantise pass a decode step makes over every layer's ring, device
+    ms beside the ring kernel's at the same shape."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.backend import JitBackend, Variant
+
+    v = engine.variants["tier-l"]
+    cfg = dataclasses.replace(v.cfg, kv_cache_quant=True)
+    max_len = PROMPT + GEN + 8
+    backend = JitBackend(max_len=max_len, device="cuda")
+    backend.register(Variant("tier-l-int8", cfg, v.params, v.quality))
+    prompts = np.random.default_rng(0).integers(0, 256, (BATCH, PROMPT))
+    backend.generate("tier-l-int8", prompts, 1)  # warm-up
+    ops.reset_launch_counts()  # the int8 path starts here
+    (tok_a, wall_a), (tok_b, wall_b) = (backend.generate("tier-l-int8", prompts, GEN)
+                                        for _ in range(2))
+    with torch.inference_mode():
+        tokens = torch.as_tensor(prompts, device="cuda")
+        cache, logits = T.prefill(cfg, v.params, {"tokens": tokens}, max_len)
+        finite = bool(torch.isfinite(logits).all())
+        tok = logits.argmax(-1)
+        for i in range(GEN):
+            pos = torch.full((BATCH,), PROMPT + i, dtype=torch.int32, device="cuda")
+            logits, cache = T.decode_step(cfg, v.params, cache, tok, pos)
+            finite &= bool(torch.isfinite(logits).all())
+            tok = logits.argmax(-1)
+    counts = ops.launch_counts()  # ... and ends here
+    check(np.array_equal(tok_a, tok_b), "int8 tier-l: tokens differ between two runs")
+    check(finite, "int8 tier-l: logits are not finite")
+    want = 3 * GEN * cfg.n_layers
+    check(counts["decode_attention_fwd"] == want,
+          f"int8 tier-l: {counts['decode_attention_fwd']} ring-decode launches, expected {want}")
+    for name in DENSE_PATH_KERNELS:
+        check(counts[name] > 0, f"int8 tier-l: kernel {name} was never launched")
+
+    # One layer's ring after the last step, dequantised as a decode step does.
+    layer = {k: t[0] for k, t in cache["periods"][0].items()}
+    dtype = getattr(torch, cfg.dtype)
+    q = torch.randn((BATCH, 1, cfg.n_heads, cfg.head_dim), generator=torch.Generator()
+                    .manual_seed(6)).to("cuda", dtype)
+    pos = torch.full((BATCH,), PROMPT + GEN - 1, dtype=torch.int32, device="cuda")
+    kd, vd = (T._kv_dequant(layer[k], layer[k + "_scale"], dtype) for k in ("k", "v"))
+
+    def dequant():
+        return (T._kv_dequant(layer["k"], layer["k_scale"], dtype),
+                T._kv_dequant(layer["v"], layer["v_scale"], dtype))
+
+    def ring():
+        return attention.decode_attention(q, kd, vd, layer["slot_pos"], pos)
+
+    dq_ms, ring_ms = time_ms(torch, dequant), time_ms(torch, ring)
+    result = dict(tokens_equal=True, walls_ms=[wall_a, wall_b], launches=counts,
+                  dequant_ms_per_layer=dq_ms, ring_ms_per_layer=ring_ms,
+                  dequant_ms_per_step=dq_ms * cfg.n_layers,
+                  ring_ms_per_step=ring_ms * cfg.n_layers)
+    print(f"[int8] tier-l {cfg.name} {cfg.n_layers} layers {cfg.dtype} with the int8 ring cache, "
+          f"batch {BATCH}, prompt {PROMPT}, {GEN} tokens: tokens bitwise equal over two runs "
+          f"({wall_a:.1f} / {wall_b:.1f} ms), logits finite, launches {counts}", flush=True)
+    print(f"[int8] dequantise pass of a decode step over a ring of {max_len} slots x "
+          f"{cfg.n_kv_heads} kv heads x {cfg.head_dim}: {dq_ms:.4f} ms a layer, "
+          f"{result['dequant_ms_per_step']:.3f} ms a step ({cfg.n_layers} layers), against the "
+          f"ring-decode kernel's {ring_ms:.4f} ms a layer at the same shape; card {card}",
+          flush=True)
+    del backend, cache, layer, kd, vd
+    return counts, result
 
 
 # ---------------------------------------------------------------------------
@@ -2769,6 +2989,18 @@ def _zoo_xlstm(torch, card):
     return counts, results, {"tier-xlstm": (cfg, mu, sigma, "")}
 
 
+def _f32_grid_norm(T, cfg, w, x):
+    """A block's normed input for the float64 cell checks: the norm in f32,
+    widened to float64.  On this f32 grid, with the bf16 weights, the
+    cells' float64 input products round alike on the card and the CPU, so
+    only the elementwise ops' last bits part the two, and the sLSTM's
+    recurrence amplifies that to 5e-7 of a leaf (6.1e-7 in the vjps).  From
+    full float64 inputs it amplifies the products' different summation
+    orders to 1.7e-6 at block 7: beyond the 1e-6 that resolves an
+    implementation fault (NVIDIA H100 80GB HBM3, 700.00 W)."""
+    return T._norm(cfg, w.float(), x.float()).double()
+
+
 def _xlstm_card_vs_cpu(torch, cfg, params, B=2, steps=16, forced_steps=2):
     """xlstm-350m's weights (the served bf16 values, exact in f32 and f64),
     card against CPU.
@@ -2782,7 +3014,8 @@ def _xlstm_card_vs_cpu(torch, cfg, params, B=2, steps=16, forced_steps=2):
     part), and the check is per block, in float64: each block's cell
     (mLSTM or sLSTM, the prefill of ``PROMPT`` tokens, then
     ``forced_steps`` decode steps), teacher-forced from the CPU float64
-    run's normed input and state, on the card against the CPU, its output
+    run's input (normed in f32: :func:`_f32_grid_norm`) and state, on the
+    card against the CPU, its output
     and every state leaf within 1e-6 of the leaf's largest entry (an
     implementation fault is off by the whole leaf; in float64 the mLSTM
     cells agree to ~1e-12 while the sLSTM's 128-step exponential-gate
@@ -2830,7 +3063,7 @@ def _xlstm_card_vs_cpu(torch, cfg, params, B=2, steps=16, forced_steps=2):
             for j, ((kind, ph), (_, pc)) in enumerate(zip(host, card)):
                 for key, t in states["cuda"][j].items():  # start from the host's state
                     t.copy_(states["cpu"][j][key])
-                h = T._norm(c64, ph["ln1"], x)
+                h = _f32_grid_norm(T, c64, ph["ln1"], x)
                 y = T._xlstm_cell(c64, kind, ph["cell"], h, ctx, states["cpu"][j])
                 yc = T._xlstm_cell(c64, kind, pc["cell"], h.to("cuda"), ctx, states["cuda"][j])
                 for key, a, b in [("out", y, yc)] + [(k, states["cpu"][j][k], states["cuda"][j][k])
@@ -2952,7 +3185,7 @@ def _train_launches(cfg):
         epilogue = sum(k in kinds for k in cfg.epilogue)
         return 2 * n_p * period + epilogue, n_p * period + epilogue
 
-    attn_fwd, attn_bwd = count(("attn", "local"))
+    attn_fwd, attn_bwd = count(("attn", "local", "moe"))
     rec_fwd, rec_bwd = count(("recurrent",))
     # The scan's backward is the same kernel run in reverse, counted apart.
     return dict(flash_attention_fwd=attn_fwd, flash_attention_bwd=attn_bwd,
@@ -2984,17 +3217,46 @@ def train_setup(torch, cfg):
     return step_fn, pipe, state, held_out_loss
 
 
-def phase_train(torch, arch, card, profile: bool):
+def _expert_loads(torch, cfg, params, batch):
+    """Tokens routed to each expert of each MoE layer, (layers, experts),
+    by one forward of ``batch`` without autograd (the layers in order)."""
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import loss_fn
+
+    route, loads = moe._route, []
+
+    def counting(c, router_w, x):
+        top_idx, top_gate, aux = route(c, router_w, x)
+        loads.append(torch.bincount(top_idx.flatten(), minlength=c.n_experts).cpu())
+        return top_idx, top_gate, aux
+
+    moe._route = counting
+    try:
+        with torch.no_grad():
+            loss_fn(cfg, params, batch)
+    finally:
+        moe._route = route
+    return torch.stack(loads)
+
+
+def phase_train(torch, arch, card, profile: bool, layers=None, learn_check=True):
     """12 steps of ``make_train_step`` on full-width ``arch`` (the code path
     of ``python -m repro_torch.launch.train --arch ARCH --full-config``,
-    with its optimizer settings)."""
+    with its optimizer settings), cut to ``layers`` when given (never its
+    width).  ``learn_check``: whether the held-out batch must fall and the
+    last train losses sit below the first (only for a model whose plain
+    witness run learns, ``scripts/train_witness.py``)."""
     import numpy as np
     from repro_torch.configs.archs import get_config
     from repro_torch.kernels import ops
     from repro_torch.tree import tree_leaves
 
-    cfg = get_config(arch)
+    cfg = get_config(arch) if layers is None else get_config(arch, n_layers=layers)
+    moe = "moe" in cfg.layer_kinds()
     B, S, L = TRAIN_BATCH, TRAIN_SEQ, cfg.n_layers
+    if L != get_config(arch).n_layers:
+        print(f"[train] CUT: {arch} reduced: depth {L} of {get_config(arch).n_layers} layers "
+              "(width unchanged)", flush=True)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
@@ -3005,14 +3267,21 @@ def phase_train(torch, arch, card, profile: bool):
     held_before = held_out_loss(state)
     n_params = sum(p.numel() for p in tree_leaves(state["params"]))
     print(f"[train] {cfg.name}: {L} layers {cfg.layer_kinds().count('recurrent')} recurrent "
-          f"(lru width {cfg.lru_width}), d {cfg.d_model}, {cfg.n_heads} q / "
+          f"(lru width {cfg.lru_width}), {cfg.layer_kinds().count('moe')} MoE ({cfg.n_experts} "
+          f"experts top-{cfg.top_k}, expert d_ff {cfg.expert_d_ff}), d {cfg.d_model}, "
+          f"{cfg.n_heads} q / "
           f"{cfg.n_kv_heads} kv heads x {cfg.head_dim}, d_ff {cfg.d_ff} {cfg.mlp_type}, vocab "
           f"{cfg.vocab_size}, {cfg.dtype}, remat={cfg.remat}; {n_params / 1e9:.3f}B params; "
           f"state built in {t_state:.1f}s, "
           f"{(torch.cuda.memory_allocated() - before) / 2**30:.1f} GiB; batch {B} x {S} "
           f"tokens, {TRAIN_STEPS} steps", flush=True)
 
-    losses, step_ms = [], []
+    losses, auxes, step_ms = [], [], []
+    loads = None
+    if moe:  # which experts the first batch reaches, layer by layer
+        first = {k: torch.from_numpy(v).to("cuda") for k, v in pipe.batch_at(0).items()}
+        loads = _expert_loads(torch, cfg, state["params"], first)
+        del first
     ops.reset_launch_counts()  # the train path starts here
     for step in range(TRAIN_STEPS):
         batch = {k: torch.from_numpy(v).to("cuda") for k, v in pipe.batch_at(step).items()}
@@ -3023,6 +3292,7 @@ def phase_train(torch, arch, card, profile: bool):
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t1) * 1e3)
         losses.append(loss)
+        auxes.append(float(metrics["aux"]))
         if step == 0:
             # mu = (1 - beta1) * clip * grad after the first update: each
             # leaf's gradient was finite and non-zero iff its mu is.
@@ -3030,8 +3300,12 @@ def phase_train(torch, arch, card, profile: bool):
                 check(bool(torch.isfinite(mu).all()) and float(mu.abs().max()) > 0,
                       f"train {arch}: leaf {i} {tuple(mu.shape)} got a zero or non-finite "
                       "gradient")
-        print(f"[train] {arch} step {step:2d}  loss {loss:.4f}  gnorm {gnorm:.3f}  "
-              f"lr {float(metrics['lr']):.2e}  {step_ms[-1]:.1f} ms", flush=True)
+            if moe:  # and every expert that took tokens, layer by layer
+                _check_expert_grads(torch, arch, state["opt"]["mu"], loads)
+        print(f"[train] {arch} step {step:2d}  loss {loss:.4f}  "
+              + (f"aux {auxes[-1]:.4f}  " if moe else "")
+              + f"gnorm {gnorm:.3f}  lr {float(metrics['lr']):.2e}  {step_ms[-1]:.1f} ms",
+              flush=True)
     counts = ops.launch_counts()  # the train path ends here
     peak = torch.cuda.max_memory_allocated()
     held_after = held_out_loss(state)
@@ -3053,13 +3327,16 @@ def phase_train(torch, arch, card, profile: bool):
     tokens = B * S
     # Model FLOPs (remat's recompute not counted): 6 per parameter and
     # token, plus attention's 12 * D per (q, k) pair in the causal window
-    # and q head, over the attention layers.
-    n_attn = sum(k in ("attn", "local") for k in cfg.layer_kinds())
+    # and q head, over the attention layers.  A MoE token meets its top-k
+    # experts only: the active parameters.
+    active = cfg.param_count(active_only=True) if moe else n_params
+    n_attn = sum(k in ("attn", "local", "moe") for k in cfg.layer_kinds())
     span = cfg.window if cfg.window else S
     pairs = sum(min(q + 1, span) for q in range(S))
-    flops = 6 * n_params * tokens + 12 * n_attn * cfg.head_dim * B * cfg.n_heads * pairs
+    flops = 6 * active * tokens + 12 * n_attn * cfg.head_dim * B * cfg.n_heads * pairs
     result = dict(
-        arch=cfg.name, params=n_params, batch=B, seq=S, steps=TRAIN_STEPS, losses=losses,
+        arch=cfg.name, params=n_params, active_params=active, layers=L, aux=auxes,
+        batch=B, seq=S, steps=TRAIN_STEPS, losses=losses,
         held_out_loss=[held_before, held_after], profile=prof, flash_bwd_ms=bwd_ms,
         step_ms=step_ms, median_step_ms=steady, tokens_per_s=tokens / steady * 1e3,
         mfu=flops / (steady / 1e3) / H100_BF16_FLOPS, model_flops_per_step=flops,
@@ -3068,15 +3345,19 @@ def phase_train(torch, arch, card, profile: bool):
     print(f"[train] {arch} median step {steady:.1f} ms (steps 1-{TRAIN_STEPS - 1}; step 0 "
           f"{step_ms[0]:.1f} ms): {result['tokens_per_s']:.0f} tokens/s, MFU "
           f"{100 * result['mfu']:.2f} % of 989 TFLOP/s bf16 ({flops / 1e12:.1f} TFLOP model "
-          f"FLOPs per step); peak memory {result['peak_gib']:.1f} GiB; loss {losses[0]:.4f} -> "
+          f"FLOPs per step, {active / 1e9:.3f}B {'active ' if moe else ''}params); peak memory "
+          f"{result['peak_gib']:.1f} GiB; loss {losses[0]:.4f} -> "
           f"{np.mean(losses[-3:]):.4f} (mean of last 3); card {card}", flush=True)
     print(f"[train] {arch} kernel launches per step: {result['launches_per_step']}", flush=True)
     check(all(np.isfinite(losses)), f"train {arch}: non-finite losses {losses}")
-    check(held_after < held_before, f"train {arch}: the held-out batch's loss {held_after:.4f} "
-          f"after training is not below its {held_before:.4f} before")
-    check(float(np.mean(losses[-3:])) < losses[0],
-          f"train {arch}: mean of the last 3 losses {np.mean(losses[-3:]):.4f} not below the "
-          f"first {losses[0]:.4f}")
+    check(all(np.isfinite(auxes)) and (min(auxes) > 0) == moe,
+          f"train {arch}: load-balancing losses {auxes}")
+    if learn_check:
+        check(held_after < held_before, f"train {arch}: the held-out batch's loss "
+              f"{held_after:.4f} after training is not below its {held_before:.4f} before")
+        check(float(np.mean(losses[-3:])) < losses[0],
+              f"train {arch}: mean of the last 3 losses {np.mean(losses[-3:]):.4f} not below "
+              f"the first {losses[0]:.4f}")
     scan = ("rglru_scan_fwd", "rglru_scan_bwd") if want["rglru_scan_fwd"] else ()
     for name in TRAIN_PATH_KERNELS + scan:
         check(counts[name] > 0, f"train {arch}: kernel {name} was never launched on the "
@@ -3089,13 +3370,38 @@ def phase_train(torch, arch, card, profile: bool):
     return counts, result
 
 
-def phase_train_cli(torch, card):
-    """The user's command ``python -m repro_torch.launch.train --arch
-    phi3-mini-3.8b --full-config --batch 2 --seq 2048`` for 3 steps, run in
-    this process (``launch.train.main``) so its launches are counted: every
-    attention call at head dim 96 (the CUDA-core flash forward, the
-    tensor-core backward).  Checks exit 0, finite losses, the last below the
-    first, and the flash launches worked out from the layer kinds."""
+def _check_expert_grads(torch, arch, mu, loads):
+    """After the first update, each expert's slice of every expert weight
+    (``wi``, ``wg``, ``wo``, stacked (layers, experts, ...)) has a finite,
+    non-zero ``mu``, hence gradient, wherever ``loads`` (layers, experts)
+    says the expert took tokens."""
+    took = loads > 0
+    for i, block in enumerate(mu["periods"]):
+        for name, leaf in block["moe"].items():
+            if leaf.dim() != 4:  # the router and shared experts are checked as leaves
+                continue
+            flat = leaf.flatten(2)
+            nonzero = (flat.abs().amax(-1) > 0).cpu()
+            check(bool(torch.isfinite(flat).all()),
+                  f"train {arch}: expert weight {i}/{name} has a non-finite gradient")
+            check(bool(nonzero[took].all()),
+                  f"train {arch}: {int((took & ~nonzero).sum())} (layer, expert) slices of "
+                  f"{name} took tokens but got a zero gradient")
+    print(f"[train] {arch}: every expert slice of wi / wg / wo got a finite gradient, non-zero "
+          f"for all {int(took.sum())} of {took.numel()} (layer, expert) pairs that took tokens "
+          f"(tokens per expert {int(loads.min())}-{int(loads.max())})", flush=True)
+
+
+def phase_train_cli(torch, card, arch=PHI3_ARCH, steps=PHI3_TRAIN_STEPS, learn_check=True,
+                    batch=TRAIN_BATCH, seq=TRAIN_SEQ):
+    """The user's command ``python -m repro_torch.launch.train --arch ARCH
+    --full-config --batch B --seq S`` for ``steps`` steps, run in this
+    process (``launch.train.main``) so its launches are counted.  phi3-mini:
+    every attention call at head dim 96 (the CUDA-core flash forward, the
+    tensor-core backward); xlstm-350m: no attention, the norms the only
+    kernel.  Checks exit 0, finite losses, with ``learn_check`` the last
+    below the first, and the flash launches worked out from the layer
+    kinds."""
     import contextlib
     import io
 
@@ -3104,9 +3410,9 @@ def phase_train_cli(torch, card):
     from repro_torch.kernels import ops
     from repro_torch.launch import train as train_cli
 
-    cfg = get_config(PHI3_ARCH)
-    argv = ["--arch", PHI3_ARCH, "--full-config", "--batch", str(TRAIN_BATCH), "--seq",
-            str(TRAIN_SEQ), "--steps", str(PHI3_TRAIN_STEPS), "--log-every", "1"]
+    cfg = get_config(arch)
+    argv = ["--arch", arch, "--full-config", "--batch", str(batch), "--seq", str(seq),
+            "--steps", str(steps), "--log-every", "1"]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     out = io.StringIO()
@@ -3122,21 +3428,93 @@ def phase_train_cli(torch, card):
         print(f"[train-cli] {line}", flush=True)
     losses = [float(x) for x in re.findall(r"step\s+\d+\s+loss (\S+)", out.getvalue())]
     check(rc == 0, f"train command {argv}: exit {rc}")
-    check(len(losses) == PHI3_TRAIN_STEPS and all(np.isfinite(losses)),
+    check(len(losses) == steps and all(np.isfinite(losses)),
           f"train command: losses {losses}")
-    check(losses[-1] < losses[0], f"train command: loss {losses} does not fall")
-    want = {k: v * PHI3_TRAIN_STEPS for k, v in _train_launches(cfg).items()}
+    if learn_check:
+        check(losses[-1] < losses[0], f"train command: loss {losses} does not fall")
+    want = {k: v * steps for k, v in _train_launches(cfg).items()}
     for name in ("flash_attention_fwd", "flash_attention_bwd"):
-        check(counts[name] == want[name] > 0,
+        check(counts[name] == want[name],
               f"train command: {counts[name]} {name} launches, expected {want[name]}")
+    check(counts["rms_norm_fwd"] > 0, "train command: the norm kernel was never launched")
+    stamps = [float(x) for x in re.findall(r"step\s+\d+\s+loss .*?(\S+)s$", out.getvalue(),
+                                           re.M)]
+    step_s = float(np.median(np.diff(stamps))) if len(stamps) > 2 else None
     result = dict(argv=argv, losses=losses, seconds=seconds, peak_gib=peak,
-                  launches=counts)
+                  launches=counts, step_s=step_s)
     print(f"[train-cli] python -m repro_torch.launch.train {' '.join(argv)}: exit 0, "
-          f"{seconds:.1f}s with the state's build, loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+          f"{seconds:.1f}s with the state's build"
+          + (f", {step_s:.2f} s a step after the first" if step_s is not None else "")
+          + f", loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
           f"peak memory {peak:.1f} GiB, launches {counts}; card {card}", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
     return counts, result
+
+
+def xlstm_block_grads(torch, card, B=2, S=PROMPT):
+    """xlstm-350m's gradient, block by block, card against CPU in float64.
+
+    Its f32 forward is chaotic at full depth (the zoo phase), so the whole
+    model's gradient cannot be held card against CPU.  Instead each of the
+    24 blocks' cell (mLSTM or sLSTM) is teacher-forced: its input is the
+    CPU float64 forward's input at that block, normed in f32
+    (:func:`_f32_grid_norm`; ``B`` x ``S`` seeded tokens, the seed-0
+    weights; the norm has no float64 kernel, and its backward is the same
+    plain version on both devices), and its vjp for a
+    fixed seeded cotangent is taken on the card and on the CPU, both in
+    float64.  The input's and every cell parameter's gradient agree within
+    1e-6 of the leaf's largest entry; the sLSTM input-gate bias ``bi``,
+    whose gradient is zero in exact arithmetic (a bias shared by c and n
+    cancels in c / n), is held to 1e-6 of the cell's largest gradient entry
+    instead."""
+    import dataclasses
+
+    from repro_torch.configs.archs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import named_leaves, tree_map
+
+    cfg = dataclasses.replace(get_config(XLSTM_ARCH), dtype="float64")
+    host = tree_map(lambda p: p.detach().double(),
+                    T.init_params(get_config(XLSTM_ARCH), torch.Generator().manual_seed(0), "cpu"))
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=torch.Generator().manual_seed(7))
+    n = cfg.n_periods
+    per_kind = [T._unstack(leaves, n) for leaves in host["periods"]]
+    blocks = ([(kind, per_kind[i][li]) for li in range(n) for i, kind in enumerate(cfg.pattern)]
+              + list(zip(cfg.epilogue, host["epilogue"])))
+    ctx = T.SeqContext(positions=None, sin=None, cos=None)
+    gen = torch.Generator().manual_seed(8)
+    worst, n_leaves, t0 = 0.0, 0, time.perf_counter()
+    with torch.no_grad():
+        x = T._embed_inputs(cfg, host, {"tokens": tokens})[0]
+    for j, (kind, p) in enumerate(blocks):
+        with torch.no_grad():
+            h = _f32_grid_norm(T, cfg, p["ln1"], x)
+        cot = torch.randn(x.shape, generator=gen, dtype=torch.float64)
+        grads = {}
+        for device in ("cuda", "cpu"):
+            leaves = tree_map(lambda t: t.to(device).requires_grad_(True), p["cell"])
+            hin = h.to(device).requires_grad_(True)
+            out = T._xlstm_cell(cfg, kind, leaves, hin, ctx, None)
+            named = [("h", hin)] + list(named_leaves(leaves))
+            got = torch.autograd.grad(out, [t for _, t in named], cot.to(device))
+            grads[device] = [(name, g.cpu()) for (name, _), g in zip(named, got)]
+            if device == "cpu":
+                x = x + out.detach()
+        big = max(float(g.abs().max()) for _, g in grads["cpu"])
+        for (name, a), (_, b) in zip(grads["cuda"], grads["cpu"]):
+            check(bool(torch.isfinite(a).all()), f"xlstm block {j} ({kind}) d{name} not finite")
+            scale = float(b.abs().max()) if not (kind == "slstm" and name == "bi") else big
+            err = float((a - b).abs().max())
+            check(err <= 1e-6 * scale, f"xlstm block {j} ({kind}) d{name}: card vs CPU in "
+                  f"float64 max|err| {err:.3g}, beyond 1e-6 of {scale:.3g}")
+            worst = max(worst, err / max(scale, 1e-300))
+            n_leaves += 1
+    print(f"[train] {XLSTM_ARCH}: {len(blocks)} cells' vjps teacher-forced in float64 (batch "
+          f"{B} x {S}): {n_leaves} gradients (input and every parameter), card vs CPU within "
+          f"{worst:.3g} of their largest entry (bound 1e-6), {time.perf_counter() - t0:.1f}s; "
+          f"card {card}", flush=True)
+    return dict(blocks=len(blocks), gradients=n_leaves, worst=worst)
 
 
 # ---------------------------------------------------------------------------
@@ -3258,25 +3636,53 @@ def _live_cuda_bytes(torch):
     return sum(seen.values()), len(seen)
 
 
-def _release(torch, label):
+CUBLAS_WORKSPACE_BYTES = 32 * 2**20  # PyTorch's default per (handle, stream) on sm_90
+# A quarter of the 5.06 GiB that a fresh stream per generate call left
+# allocated after the serving drains, when every generate call made a stream.
+RELEASE_BOUND_GIB = 5.06 / 4
+
+
+def _release(torch, label, clear_workspaces=True):
     """Collect, empty the cache and say what stays allocated: the bytes of
-    live CUDA tensors, and what clearing PyTorch's cuBLAS workspaces (one
-    per cuBLAS handle and stream, from the caching allocator) gives back."""
+    live CUDA tensors, the (cuBLAS handle, stream) pairs the serving
+    backends' ``generate`` calls used (one per stream of the device's set,
+    each served by one thread; the set grows to the most calls in flight at
+    once) and their workspaces' bytes, and, unless
+    ``clear_workspaces`` is False, what clearing PyTorch's cuBLAS
+    workspaces (one per pair, from the caching allocator) gives back.
+    Fails if a stream carries more than one pair.  Returns the bytes held
+    before the clear, the number of streams in the set and the bytes that
+    grow with it: a workspace and the decode kernels' ticket buffer (also
+    kept per stream) for each stream."""
+    from repro_torch.kernels import decode_attention
+    from repro_torch.serving.backend import device_streams
+
     gc.collect()
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated()
     live, n_live = _live_cuda_bytes(torch)
+    streams = device_streams(torch.device("cuda"))
+    bound = streams.size * CUBLAS_WORKSPACE_BYTES
     clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
     after = None
-    if clear is not None:
+    if clear is not None and clear_workspaces:
         clear()
         torch.cuda.empty_cache()
         after = torch.cuda.memory_allocated()
     print(f"[{label}] released: {held / 2**30:.2f} GiB still allocated, of which "
-          f"{live / 2**30:.2f} GiB in {n_live} live CUDA tensor storages; "
+          f"{live / 2**30:.2f} GiB in {n_live} live CUDA tensor storages "
+          f"(~{(held - live) / CUBLAS_WORKSPACE_BYTES:.1f} workspaces of 32 MiB); generate used "
+          f"{len(streams.pairs)} (cuBLAS handle, stream) pairs on its {streams.size} streams, "
+          f"at most {bound / 2**30:.2f} GiB of workspaces; "
           + (f"{after / 2**30:.2f} GiB after clearing the cuBLAS workspaces"
-             if after is not None else "no torch._C._cuda_clearCublasWorkspaces here"),
+             if after is not None else "workspaces kept"),
           flush=True)
+    check(len(streams.pairs) <= streams.size,
+          f"{label}: {len(streams.pairs)} (cuBLAS handle, stream) pairs on {streams.size} streams")
+    ours = {s.cuda_stream for s in streams.streams}
+    tickets = sum(-(-t.untyped_storage().nbytes() // 512) * 512  # the allocator's rounding
+                  for (_, st), t in decode_attention._TICKETS.items() if st in ours)
+    return held, streams.size, streams.size * CUBLAS_WORKSPACE_BYTES + tickets
 
 
 def main(argv=None) -> int:
@@ -3297,6 +3703,9 @@ def main(argv=None) -> int:
     import torch
 
     t_start = time.perf_counter()
+
+    def mark(phase):  # where the run's time goes, phase by phase
+        print(f"[time] {phase} starts at {time.perf_counter() - t_start:.1f}s", flush=True)
     _watchdog(WATCHDOG_S)
     card = phase_device(torch)
     phase_build(torch, args.ptxas)
@@ -3307,11 +3716,18 @@ def main(argv=None) -> int:
     full = dict(batch=BATCH, prompt=PROMPT, d_model=q14.d_model,
                 n_heads=q14.n_heads, n_kv_heads=q14.n_kv_heads, head_dim=q14.head_dim,
                 max_len=PROMPT + GEN + 8, gen=GEN)
+    mark("phase_kernels")
     entries = phase_kernels(torch, full)
+    mark("phase_model")
     phase_model(torch)
+    mark("phase_serve")
     dense_counts, serve_results, engine = phase_serve(torch, args.tier_l_layers, card)
+    mark("phase_cluster")
     cluster_counts, serve_results["cluster"] = phase_cluster(torch, engine, card)
+    mark("phase_continuous")
     paged_counts, serve_results["continuous"], cbackend = phase_continuous(torch, engine, card)
+    mark("phase_int8")
+    int8_counts, serve_results["int8"] = phase_int8(torch, engine, card)
     profile = (phase_profile(torch, [(label, backend, "tier-l", B)
                                      for label, backend in (("dense", engine.backend),
                                                             ("continuous", cbackend))
@@ -3331,34 +3747,64 @@ def main(argv=None) -> int:
           f"{time.perf_counter() - t_copy:.1f}s", flush=True)
     plain_tokens = np.asarray(serve_results["cluster"]["probe_tokens"])
     del engine, cbackend  # release tier-l's weights: the workers place their own copies
-    _release(torch, "serve")
+    # The cuBLAS workspaces stay until the hybrid phase's release, so these
+    # lines show whether the serving phases' drains grow them.
+    held = [_release(torch, "serve", clear_workspaces=False)]
+    mark("phase_process")
     process_counts, serve_results["process"] = phase_process(torch, host_variants, plain_tokens,
                                                              card)
     del host_variants
-    _release(torch, "process")
+    held.append(_release(torch, "process", clear_workspaces=False))
+    mark("phase_serve_cli")
     cli_counts, serve_results["serve command"] = phase_serve_cli(torch, card)
-    _release(torch, "serve command")
+    held.append(_release(torch, "serve command", clear_workspaces=False))
+    mark("phase_hybrid")
     hybrid_counts, serve_results["hybrid"], hengine = phase_hybrid(torch, card)
     if args.profile:
         profile.update(phase_profile(torch, [("hybrid", hengine.backend, HYBRID_TIER, BATCH)],
                                      card))
     del hengine  # release tier-rg's weights before the zoo and training
-    _release(torch, "hybrid")
+    held.append(_release(torch, "hybrid"))
+    # The stream set grows by a stream, with its workspace and ticket buffer,
+    # whenever more calls are in flight at once than ever before; nothing
+    # else may grow.
+    rest = [b - per_stream for b, _, per_stream in held]
+    serve_results["released_gib"] = [b / 2**30 for b, _, _ in held]
+    serve_results["release_streams"] = [n for _, n, _ in held]
+    print(f"[release] GiB held after each drain, before any clear: "
+          f"{serve_results['released_gib']}, on {serve_results['release_streams']} streams; "
+          f"bytes less each stream's workspace and tickets: {rest}", flush=True)
+    check(max(rest) == rest[0] and max(b for b, _, _ in held) <= RELEASE_BOUND_GIB * 2**30,
+          f"device memory held after the drains grew by more than the new streams' "
+          f"workspaces or passed {RELEASE_BOUND_GIB} GiB: {serve_results['released_gib']} "
+          f"on {serve_results['release_streams']} streams")
     measured = {tier: (cfg, *results["profiles"][tier], note) for tier, cfg, results, note in (
         ("tier-l", get_config("qwen3-14b", n_layers=args.tier_l_layers), serve_results,
          "" if args.tier_l_layers == q14.n_layers else
          f" (depth {args.tier_l_layers} of {q14.n_layers})"),
         (HYBRID_TIER, get_config(HYBRID_ARCH), serve_results["hybrid"], ""))}
+    mark("phase_zoo")
     zoo_counts, serve_results["zoo"] = phase_zoo(torch, card, measured)
     phase_counts = {"dense": dense_counts, "cluster": cluster_counts,
-                    "continuous": paged_counts, "process": process_counts,
+                    "continuous": paged_counts, "int8": int8_counts, "process": process_counts,
                     "serve command": cli_counts, "hybrid": hybrid_counts, "zoo": zoo_counts}
     train = {}
     # recurrentgemma-2b last: its train-loss check compares batch noise and
     # can fail (ROADMAP.md Queue C), so every other check runs before it.
     gemma, hybrid = TRAIN_ARCHS
+    mark("phase_train")
     phase_counts[f"train {gemma}"], train[gemma] = phase_train(torch, gemma, card, args.profile)
+    mark("phi3 command")
     phase_counts["train command phi3"], train["phi3 command"] = phase_train_cli(torch, card)
+    mark(f"{MOE_ARCH} train")
+    phase_counts[f"train {MOE_ARCH}"], train[MOE_ARCH] = phase_train(
+        torch, MOE_ARCH, card, args.profile, layers=MOE_TRAIN_LAYERS, learn_check=MOE_LEARNS)
+    mark("xlstm command")
+    phase_counts["train command xlstm"], train["xlstm command"] = phase_train_cli(
+        torch, card, XLSTM_ARCH, XLSTM_TRAIN_STEPS, learn_check=False, batch=XLSTM_TRAIN_BATCH,
+        seq=XLSTM_TRAIN_SEQ)
+    train["xlstm block grads"] = xlstm_block_grads(torch, card)
+    mark(f"{hybrid} train")
     phase_counts[f"train {hybrid}"], train[hybrid] = phase_train(torch, hybrid, card,
                                                                  args.profile)
     counts = {k: sum(c.get(k, 0) for c in phase_counts.values()) for k in dense_counts}

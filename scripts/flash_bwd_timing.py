@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
 """Times the port's flash-attention backward on one card, at the train shapes.
 
-    python3 scripts/flash_bwd_timing.py [--src DIR] [--label NAME] [--plans] [--witness]
-                                        [--sensitivity]
+    python3 scripts/flash_bwd_timing.py [--src DIR] [--label NAME] [--plans] [--sensitivity]
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is timed (by
 default this checkout's), so two trees can be compared on one card in one
@@ -13,11 +12,9 @@ times with CUDA events (``chip_smoke.time_ms``) the whole
 device ms of each kernel it launches (``torch.profiler``), the backward of
 ``F.scaled_dot_product_attention`` alone (eager).  ``--plans`` also times
 the wgmma route under every heads-per-group split.  The inputs are drawn
-from a fixed seed, so two trees see the same ones.  ``--witness`` then
-trains both models as ``chip_smoke.py``'s train phase does
-(``chip_smoke.train_setup``), once with the kernel and once with the plain
-backward (``ref.flash_attention_bwd_ref``, f32) in its place, and prints
-each run's train losses and held-out loss before and after.
+from a fixed seed, so two trees see the same ones.  (The train runs with
+the plain backward in the kernel's place are
+``scripts/train_witness.py --swap flash_attention_bwd``.)
 ``--sensitivity`` takes one ``loss_fn`` gradient of each model at its
 train state and first batch with the kernels, then with each kernel's
 plain version in its place alone (the norm, the flash forward, the flash
@@ -46,8 +43,6 @@ def main(argv=None) -> int:
     ap.add_argument("--label", default="")
     ap.add_argument("--plans", action="store_true",
                     help="also time every heads-per-group split of the wgmma route")
-    ap.add_argument("--witness", action="store_true",
-                    help="also train both models with the kernel and with the plain backward")
     ap.add_argument("--sensitivity", action="store_true",
                     help="also each model's gradient with one op at a time plain")
     args = ap.parse_args(argv)
@@ -93,8 +88,6 @@ def main(argv=None) -> int:
         if args.plans and hasattr(bk, "bwd_plan"):
             row["plans_ms"] = _plan_ms(torch, bk, time_ms, call, NQ)
         print(json.dumps(row), flush=True)
-    if args.witness:
-        _witness(torch, bk, card, args.label)
     if args.sensitivity:
         _sensitivity(torch, card, args.label)
     return 0
@@ -157,34 +150,6 @@ def _sensitivity(torch, card, label):
         print(json.dumps(row), flush=True)
         del params, base
         torch.cuda.empty_cache()
-
-
-def _witness(torch, bk, card, label):
-    """chip_smoke's train runs with the kernel, then with the plain backward."""
-    import chip_smoke as cs
-    from repro_torch.configs.archs import get_config
-    from repro_torch.kernels import ref
-
-    kernel = bk.flash_attention_bwd
-    for arch in cs.TRAIN_ARCHS:
-        cfg = get_config(arch)
-        for name, bwd in (("kernel", kernel), ("plain", ref.flash_attention_bwd_ref)):
-            bk.flash_attention_bwd = bwd
-            try:
-                step_fn, pipe, state, held_out_loss = cs.train_setup(torch, cfg)
-                before, losses = held_out_loss(state), []
-                for step in range(cs.TRAIN_STEPS):
-                    batch = {k: torch.from_numpy(v).to("cuda")
-                             for k, v in pipe.batch_at(step).items()}
-                    state, metrics = step_fn(state, batch)
-                    losses.append(float(metrics["loss"]))
-                print(json.dumps(dict(label=label, card=card, arch=arch, backward=name,
-                                      train_losses=losses, held_out=[before, held_out_loss(state)])),
-                      flush=True)
-            finally:
-                bk.flash_attention_bwd = kernel
-            del state
-            torch.cuda.empty_cache()
 
 
 def _kernel_ms(torch, call, n=3):

@@ -37,28 +37,35 @@ __all__ = [
 _NEG_INF = -1e30  # finite masked-score sentinel (a fully masked row -> mean of v)
 
 
+def _f32_at_least(t):
+    """``t`` in f32, or in float64 if it is float64."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def rms_norm_ref(x, w, *, eps: float = 1e-6, offset: bool = False):
-    """RMSNorm over the last dim in f32; ``offset`` scales by ``(1 + w)``."""
-    xf = x.float()
+    """RMSNorm over the last dim in f32 (float64 for a float64 ``x``);
+    ``offset`` scales by ``(1 + w)``."""
+    xf = _f32_at_least(x)
     var = xf.square().mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
-    wf = w.float()
+    wf = _f32_at_least(w)
     return (y * ((1.0 + wf) if offset else wf)).to(x.dtype)
 
 
 def rms_norm_bwd_ref(x, w, dy, *, eps: float = 1e-6, offset: bool = False):
     """Gradients ``(dx, dw)`` of :func:`rms_norm_ref` for the cotangent ``dy``.
 
-    Recomputes ``r = rsqrt(mean(x^2) + eps)`` in f32 and returns
+    Recomputes ``r = rsqrt(mean(x^2) + eps)`` in f32 (float64 for float64
+    operands) and returns
     ``dx = r * (g - x * r^2 * mean(g * x))`` with ``g = dy * w'`` (``w' = w``
     or ``1 + w``) in x's dtype, and ``dw = sum(dy * x * r)`` over every
     leading dim in w's dtype.  This is what ``jax.grad`` of the JAX
     package's ``jnp`` norm computes; the JAX package has no Pallas backward
     for RMSNorm.
     """
-    xf, gy = x.float(), dy.float()
+    xf, gy = _f32_at_least(x), _f32_at_least(dy)
     r = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
-    wf = w.float()
+    wf = _f32_at_least(w)
     g = gy * ((1.0 + wf) if offset else wf)
     dx = r * (g - xf * r.square() * (g * xf).mean(dim=-1, keepdim=True))
     dw = (gy * xf * r).reshape(-1, x.shape[-1]).sum(dim=0)

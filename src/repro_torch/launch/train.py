@@ -11,14 +11,24 @@ asked for):
   * optional int8 gradient compression with error feedback.
 
 Reduced configs by default; ``--full-config`` trains the architecture as
-published (full-width gemma-2b and recurrentgemma-2b fit one 80 GB card
-with AdamW at batch 2 x 2048).  MoE and xLSTM configs are refused
-(``NotImplementedError``): their training is a later slice.  The hybrid recurrentgemma-2b reduced to one
-period plus its (recurrent, recurrent) epilogue is ``--layers 5``.
+published (full-width gemma-2b, recurrentgemma-2b and phi3-mini-3.8b fit
+one 80 GB card with AdamW at batch 2 x 2048; xlstm-350m fits too, but its
+gradient overflows to NaN there, so it trains at 8 x 128) and ignores
+``--layers``, as the JAX driver does.  A step whose loss or gradient norm
+is not finite ends the run with exit code 1, before the update is
+checkpointed.  On the card, a config whose
+weights, gradients and f32 moments alone exceed its memory is refused with
+that reckoning before anything is allocated (llama4-scout), and one that
+runs out of memory exits 1 with it (olmoe-1b-7b: 6.92 B parameters, ~83 GB
+of the 85 GB before any activation).  Every served stack trains, MoE
+stacks with their load-balancing loss (``aux`` on the step lines).  The
+hybrid recurrentgemma-2b reduced to one period plus its (recurrent,
+recurrent) epilogue is ``--layers 5``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b --full-config
   PYTHONPATH=src python -m repro_torch.launch.train --arch recurrentgemma-2b --full-config --batch 2 --seq 2048
+  PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-350m --full-config --batch 8 --seq 128
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --arch llama3-8b --steps 100
 """
 from __future__ import annotations
@@ -33,7 +43,6 @@ import torch
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.archs import get_config, reduced
 from repro_torch.device import resolve_device
-from repro_torch.models.transformer import check_trainable
 from repro_torch.training import (
     DataConfig,
     OptimizerConfig,
@@ -42,6 +51,12 @@ from repro_torch.training import (
     make_pipeline,
     make_train_step,
 )
+
+
+def state_bytes(cfg) -> int:
+    """Bytes of a train state before any activation: weights and gradients
+    in the model dtype plus AdamW's f32 ``mu`` and ``nu``."""
+    return cfg.param_count() * (2 * torch.finfo(getattr(torch, cfg.dtype)).bits // 8 + 8)
 
 
 def main(argv=None):
@@ -75,9 +90,24 @@ def main(argv=None):
         if args.layers:
             over["n_layers"] = args.layers
         cfg = reduced(args.arch, **over)
-    check_trainable(cfg)
     print(f"arch={cfg.name} params~{cfg.param_count()/1e6:.1f}M device={device}")
+    if device.type == "cuda":
+        have = torch.cuda.get_device_properties(device).total_memory
+        reckoning = (f"{cfg.name}'s weights, gradients and f32 moments take "
+                     f"{state_bytes(cfg) / 1e9:.1f} GB of the card's {have / 1e9:.1f} GB before "
+                     "any activation (--full-config trains every layer)")
+        if state_bytes(cfg) > have:
+            print(f"does not fit this card: {reckoning}", flush=True)
+            return 1
+        try:
+            return _train(args, cfg, device)
+        except torch.cuda.OutOfMemoryError:
+            print(f"out of memory: {reckoning}", flush=True)
+            return 1
+    return _train(args, cfg, device)
 
+
+def _train(args, cfg, device):
     opt_cfg = OptimizerConfig(
         learning_rate=args.lr, warmup_steps=min(100, args.steps // 10 + 1),
         total_steps=args.steps,
@@ -106,11 +136,18 @@ def main(argv=None):
         batch = {k: torch.from_numpy(v).to(device) for k, v in pipe.batch_at(step).items()}
         state, metrics = step_fn(state, batch)
         losses.append(float(metrics["loss"]))
+        gnorm = float(metrics["grad_norm"])
+        if not (np.isfinite(losses[-1]) and np.isfinite(gnorm)):
+            print(f"step {step:5d}  not finite: loss {losses[-1]}  gnorm {gnorm}", flush=True)
+            if mgr:
+                mgr.wait()
+            return 1
         if step % args.log_every == 0 or step == args.steps - 1:
             dt = time.time() - t0
+            aux = f"aux {float(metrics['aux']):.4f}  " if "moe" in cfg.layer_kinds() else ""
             print(
-                f"step {step:5d}  loss {losses[-1]:.4f}  "
-                f"gnorm {float(metrics['grad_norm']):.3f}  "
+                f"step {step:5d}  loss {losses[-1]:.4f}  {aux}"
+                f"gnorm {gnorm:.3f}  "
                 f"lr {float(metrics['lr']):.2e}  {dt:.1f}s",
                 flush=True,
             )

@@ -42,10 +42,19 @@ Every block kind over token inputs is ported: attention (``attn``,
 ``local``), MoE (``moe``: attention plus :mod:`~repro_torch.models.moe`),
 RG-LRU (``recurrent``) and xLSTM (``mlstm`` with its (C, n) state, ``slstm``
 with its (c, n, h, m) state, both f32 and updated in place like the
-RG-LRU's).  The audio/vision frontends, prefix-LM and the int8 KV cache
-raise ``NotImplementedError``, and so does training a stack with MoE or
-xLSTM blocks (:func:`check_trainable`).  A MoE block's load-balancing loss
-only matters to training, so serving drops it.
+RG-LRU's).  The audio/vision frontends and prefix-LM raise
+``NotImplementedError``.  Every stack that is served also trains: a MoE
+block's load-balancing loss is summed over the stack in the reference's
+order (the blocks of a period, then the periods, then the epilogue) and
+:func:`loss_fn` adds ``0.01 *`` that sum to the cross-entropy.  Serving
+does not sum it (a call with a cache), so a decode step costs what it did.
+
+``cfg.kv_cache_quant`` keeps the ring caches in int8 with an f32 scale per
+(entry, kv head) (:func:`_kv_quant`: max-abs / 127, round half to even):
+every prefill and decode write is quantised, and a decode step dequantises
+the whole ring (plain PyTorch, as the reference has no kernel for it)
+before the ring-decode kernel.  The paged tier excludes it, as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -70,7 +79,6 @@ from repro_torch.models.config import ModelConfig
 
 __all__ = [
     "check_supported",
-    "check_trainable",
     "model_spec",
     "init_params",
     "params_from_numpy",
@@ -107,8 +115,6 @@ def check_supported(cfg: ModelConfig, device=None) -> None:
         raise NotImplementedError(f"{cfg.name}: block kinds {bad} are not ported yet")
     if cfg.frontend != "none" or cfg.prefix_lm:
         raise NotImplementedError(f"{cfg.name}: frontends / prefix-LM are not ported yet")
-    if cfg.kv_cache_quant:
-        raise NotImplementedError(f"{cfg.name}: the int8 KV cache is not ported yet")
     if (device is not None and torch.device(device).type == "cuda"
             and any(k in _ATTN_KINDS for k in kinds) and cfg.head_dim not in HEAD_DIMS):
         raise NotImplementedError(
@@ -131,17 +137,6 @@ def _attn_spec(cfg: ModelConfig):
         spec["q_norm"] = (hd,)
         spec["k_norm"] = (hd,)
     return spec
-
-
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a stack whose training is not
-    ported: MoE (its load-balancing loss) and xLSTM blocks are served, and
-    train in a later slice."""
-    bad = sorted(set(cfg.layer_kinds()) & {"moe", "mlstm", "slstm"})
-    if bad:
-        raise NotImplementedError(
-            f"{cfg.name}: training stacks with {bad} blocks is not ported yet (a later "
-            "training slice); serving them is")
 
 
 def block_spec(cfg: ModelConfig, kind: str):
@@ -313,6 +308,22 @@ def _norm(cfg, w, x):
     return layers.rms_norm(x, w, eps=cfg.norm_eps, offset=cfg.norm_offset)
 
 
+def _kv_quant(x):
+    """(..., HD) -> int8 values and an f32 scale per (entry, head): the
+    max-abs over HD / 127 (at least 1e-8), values rounded half to even and
+    clipped to +-127.  The division by 127 is a product with f32(1 / 127),
+    as XLA compiles the reference's (the two differ by an ulp on some
+    inputs), so the codes are the jitted JAX package's bit for bit."""
+    xf = x.float()
+    scale = torch.clamp_min(xf.abs().amax(-1) * (1.0 / 127.0), 1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def _kv_dequant(q, scale, dtype):
+    return (q.float() * scale[..., None]).to(dtype)
+
+
 def _attention(cfg, p, x, ctx: SeqContext, kind: str, cache):
     B, S, _ = x.shape
     hd, nq, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
@@ -347,11 +358,15 @@ def _attention(cfg, p, x, ctx: SeqContext, kind: str, cache):
         # Rows advance in lockstep: one shared ring slot, pos[0] % S, taken
         # on the device (no host sync) and written in place.
         slot = (pos[:1] % cache["k"].shape[1]).long()
-        cache["k"].index_copy_(1, slot, k)
-        cache["v"].index_copy_(1, slot, v)
+        writes = _ring_writes(cfg, k, v)
+        for key, t in writes.items():
+            cache[key].index_copy_(1, slot, t)
         cache["slot_pos"].index_copy_(1, slot, pos[:, None].to(cache["slot_pos"].dtype))
-        out = decode_attention(q, cache["k"], cache["v"], cache["slot_pos"], pos,
-                               window=window)
+        kc, vc = cache["k"], cache["v"]
+        if cfg.kv_cache_quant:  # the whole ring, dequantised for the kernel
+            kc = _kv_dequant(kc, cache["k_scale"], k.dtype)
+            vc = _kv_dequant(vc, cache["v_scale"], v.dtype)
+        out = decode_attention(q, kc, vc, cache["slot_pos"], pos, window=window)
     else:
         out = flash_attention(q, k, v, causal=cfg.causal, window=window)
         if cache is not None:
@@ -362,16 +377,23 @@ def _attention(cfg, p, x, ctx: SeqContext, kind: str, cache):
             start = S - keep
             slot0 = start % sc
             first = min(keep, sc - slot0)
-            pos_tail = ctx.positions[:, start:].to(cache["slot_pos"].dtype)
-            cache["k"][:, slot0:slot0 + first] = k[:, start:start + first]
-            cache["v"][:, slot0:slot0 + first] = v[:, start:start + first]
-            cache["slot_pos"][:, slot0:slot0 + first] = pos_tail[:, :first]
-            if keep > first:  # wrapped remainder
-                rest = keep - first
-                cache["k"][:, :rest] = k[:, start + first:]
-                cache["v"][:, :rest] = v[:, start + first:]
-                cache["slot_pos"][:, :rest] = pos_tail[:, first:]
+            writes = _ring_writes(cfg, k, v)
+            writes["slot_pos"] = ctx.positions.to(cache["slot_pos"].dtype)
+            for key, t in writes.items():
+                cache[key][:, slot0:slot0 + first] = t[:, start:start + first]
+                if keep > first:  # wrapped remainder
+                    cache[key][:, :keep - first] = t[:, start + first:]
     return out.reshape(B, S, nq * hd) @ p["wo"]
+
+
+def _ring_writes(cfg, k, v):
+    """What a ring cache stores of new keys and values, by cache leaf:
+    ``k`` / ``v`` as they are, or int8 with their ``k_scale`` /
+    ``v_scale`` under ``cfg.kv_cache_quant``."""
+    if not cfg.kv_cache_quant:
+        return {"k": k, "v": v}
+    (kq, ks), (vq, vs) = _kv_quant(k), _kv_quant(v)
+    return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
 
 
 def _recurrent(cfg, p, x, ctx: SeqContext, cache):
@@ -411,19 +433,23 @@ def _xlstm_cell(cfg, kind, p, x, ctx: SeqContext, cache):
 
 
 def apply_block(cfg, kind: str, p, x, ctx: SeqContext, cache):
+    """Returns ``(x, cache, aux)``: the block's output, its cache (updated
+    in place) and its load-balancing loss, an f32 scalar for a MoE block and
+    None (zero) for the others."""
     if kind not in _KINDS:
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     h = _norm(cfg, p["ln1"], x)
     if kind in ("mlstm", "slstm"):
-        return x + _xlstm_cell(cfg, kind, p["cell"], h, ctx, cache)
+        return x + _xlstm_cell(cfg, kind, p["cell"], h, ctx, cache), cache, None
     if kind == "recurrent":
         x = x + _recurrent(cfg, p["rec"], h, ctx, cache)
     else:
         x = x + _attention(cfg, p["attn"], h, ctx, kind, cache)
     h2 = _norm(cfg, p["ln2"], x)
     if kind == "moe":
-        return x + moe.moe_apply(cfg, p["moe"], h2)[0]  # the aux loss is training's
-    return x + layers.mlp_apply(p["mlp"], h2, cfg.mlp_type)
+        y, aux = moe.moe_apply(cfg, p["moe"], h2)
+        return x + y, cache, aux
+    return x + layers.mlp_apply(p["mlp"], h2, cfg.mlp_type), cache, None
 
 
 # ---------------------------------------------------------------------------
@@ -437,11 +463,16 @@ def _block_cache(cfg, kind, batch, max_len, dtype, device, lead=()):
         return init(cfg, batch, device, lead, dtype=torch.promote_types(dtype, torch.float32))
     sc = max_len if kind != "local" else min(cfg.window, max_len)
     shape = (*lead, batch, sc, cfg.n_kv_heads, cfg.head_dim)
-    return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
+    kv_dtype = torch.int8 if cfg.kv_cache_quant else dtype
+    cache = {
+        "k": torch.zeros(shape, dtype=kv_dtype, device=device),
+        "v": torch.zeros(shape, dtype=kv_dtype, device=device),
         "slot_pos": torch.full((*lead, batch, sc), -1, dtype=torch.int32, device=device),
     }
+    if cfg.kv_cache_quant:
+        for key in ("k_scale", "v_scale"):
+            cache[key] = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+    return cache
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
@@ -483,49 +514,71 @@ def _unstack(tree, n: int):
     return list(tree.unbind(0))
 
 
+def _add_aux(total, aux):
+    """``total + aux`` for block losses summed from an f32 zero, with None
+    standing for that zero: ``0 + a`` is ``a`` exactly, so the sum is the
+    reference's, and a stack without MoE blocks adds nothing."""
+    if aux is None:
+        return total
+    return aux if total is None else total + aux
+
+
 def _period(cfg, layer_params, x, ctx: SeqContext, layer_caches):
-    """One period of the stack: one block per pattern kind."""
+    """One period of the stack: one block per pattern kind.  Returns
+    ``(x, aux)``, the period's blocks' losses summed in order."""
+    aux = None
     for i, kind in enumerate(cfg.pattern):
         c = layer_caches[i] if layer_caches is not None else None
-        x = apply_block(cfg, kind, layer_params[i], x, ctx, c)
-    return x
+        x, _, a = apply_block(cfg, kind, layer_params[i], x, ctx, c)
+        aux = _add_aux(aux, a)
+    return x, aux
 
 
 def _run_stack(cfg, params, x, ctx: SeqContext, cache=None):
     """The periods (in order) and the epilogue; caches are updated in place.
     With ``cfg.remat`` and autograd recording (training), each period is
     checkpointed: only its input is kept, and the backward pass runs it
-    again."""
+    again.  Returns ``(x, aux)``: the load-balancing losses summed over the
+    periods' sums, then the epilogue's blocks, or None when no block has one
+    or when ``cache`` is given (serving does not need it)."""
     remat = cfg.remat and cache is None and not ctx.decode and torch.is_grad_enabled()
+    collect = cache is None
     n = cfg.n_periods
     kinds = [_unstack(p, n) for p in params["periods"]]  # [kind][period]
+    aux = None
     for li in range(n):
         lp = tuple(k[li] for k in kinds)
         if remat:
-            x = checkpoint(_period, cfg, lp, x, ctx, None,
-                           use_reentrant=False, preserve_rng_state=False)
+            x, a = checkpoint(_period, cfg, lp, x, ctx, None,
+                              use_reentrant=False, preserve_rng_state=False)
         else:
             lc = (tuple(_index(c, li) for c in cache["periods"]) if cache is not None
                   else None)
-            x = _period(cfg, lp, x, ctx, lc)
+            x, a = _period(cfg, lp, x, ctx, lc)
+        if collect:
+            aux = _add_aux(aux, a)
     for i, kind in enumerate(cfg.epilogue):
         c = cache["epilogue"][i] if cache is not None else None
-        x = apply_block(cfg, kind, params["epilogue"][i], x, ctx, c)
-    return x
+        x, _, a = apply_block(cfg, kind, params["epilogue"][i], x, ctx, c)
+        if collect:
+            aux = _add_aux(aux, a)
+    return x, aux
 
 
 def forward_hidden(cfg, params, batch_inputs, cache=None, decode=False, positions=None,
                    page_tables=None, page_size: int = 0):
-    """Final-normed hidden states (B, S, D); ``cache`` is updated in place.
-    With ``page_tables`` (decode only) ``cache`` is a paged pool."""
+    """``(x, cache, aux)``: final-normed hidden states (B, S, D), ``cache``
+    (updated in place; with ``page_tables``, decode only, a paged pool) and
+    the stack's load-balancing loss (an f32 scalar, or None: see
+    :func:`_run_stack`)."""
     x, pos = _embed_inputs(cfg, params, batch_inputs)
     if positions is not None:
         pos = positions
     sin, cos = layers.rope(pos, cfg.head_dim, cfg.rope_theta)
     ctx = SeqContext(positions=pos, sin=sin, cos=cos, decode=decode,
                      page_tables=page_tables, page_size=page_size)
-    x = _run_stack(cfg, params, x, ctx, cache=cache)
-    return _norm(cfg, params["final_norm"], x)
+    x, aux = _run_stack(cfg, params, x, ctx, cache=cache)
+    return _norm(cfg, params["final_norm"], x), cache, aux
 
 
 def _head_weight(cfg, params):
@@ -534,7 +587,9 @@ def _head_weight(cfg, params):
 
 
 def _logits(x, w):
-    return (x @ w.to(x.dtype)).float()
+    """f32 logits (float64 for a float64 ``x``)."""
+    y = x @ w.to(x.dtype)
+    return y.to(torch.promote_types(y.dtype, torch.float32))
 
 
 def _unembed(cfg, params, x):
@@ -554,13 +609,12 @@ def loss_fn(cfg, params, batch):
     """Chunked softmax-xent.  ``batch``: ``tokens`` (B, S) and ``labels``
     (B, S_out); labels < 0 are ignored (prefix / padding).  Returns
     ``(loss, metrics)`` with ``loss = xent + 0.01 * aux`` and the metrics
-    ``xent``, ``aux`` (0: only MoE blocks add one, and :func:`check_trainable`
-    refuses them) and ``tokens`` (valid labels), all f32, as the JAX
-    package's ``loss_fn``.  Each ``cfg.loss_chunk`` slice of the sequence is
+    ``xent``, ``aux`` (the stack's MoE load-balancing loss; 0 without MoE
+    blocks) and ``tokens`` (valid labels), all f32, as the JAX package's
+    ``loss_fn``.  Each ``cfg.loss_chunk`` slice of the sequence is
     checkpointed when autograd records, so the backward pass holds one
     chunk's logits at a time."""
-    check_trainable(cfg)
-    x = forward_hidden(cfg, params, batch)
+    x, _, aux = forward_hidden(cfg, params, batch)
     labels = batch["labels"].long()
     B, S = labels.shape
     x = x[:, -S:]
@@ -580,7 +634,8 @@ def loss_fn(cfg, params, batch):
         tot = tot + t
         cnt = cnt + c
     xent = tot / cnt.clamp_min(1.0)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     loss = xent + 0.01 * aux
     return loss, {"xent": xent, "aux": aux, "tokens": cnt}
 
@@ -589,14 +644,14 @@ def prefill(cfg, params, batch_inputs, max_len: int):
     """Run the prompt, returning (cache, last-position logits (B, V) f32)."""
     tokens = batch_inputs["tokens"]
     cache = init_cache(cfg, tokens.shape[0], max_len, device=tokens.device)
-    x = forward_hidden(cfg, params, batch_inputs, cache=cache)
+    x, _, _ = forward_hidden(cfg, params, batch_inputs, cache=cache)
     return cache, _unembed(cfg, params, x[:, -1:])[:, 0]
 
 
 def decode_step(cfg, params, cache, token, pos):
     """One decode step.  token: (B,) int; pos: (B,) int32 positions.
     Returns (logits (B, V) f32, cache) — the same cache, updated in place."""
-    x = forward_hidden(
+    x, _, _ = forward_hidden(
         cfg, params, {"tokens": token[:, None]}, cache=cache, decode=True,
         positions=pos[:, None],
     )
@@ -626,7 +681,7 @@ def prefill_ragged(cfg, params, batch_inputs, lengths, max_len: int):
     tokens = batch_inputs["tokens"]
     B, S = tokens.shape
     cache = init_cache(cfg, B, max_len, device=tokens.device)
-    x = forward_hidden(cfg, params, batch_inputs, cache=cache)
+    x, _, _ = forward_hidden(cfg, params, batch_inputs, cache=cache)
     idx = (lengths.long() - 1).clamp(0, S - 1)
     x_last = x[torch.arange(B, device=x.device), idx][:, None]  # (B, 1, D)
     return cache, _unembed(cfg, params, x_last)[:, 0]
@@ -724,7 +779,7 @@ def paged_decode_step(cfg, params, paged_cache, page_tables, token, pos, page_si
     pos=0 and an all-trash table.  Returns (logits (B, V) f32, paged_cache)
     with the pool updated in place.
     """
-    x = forward_hidden(
+    x, _, _ = forward_hidden(
         cfg, params, {"tokens": token[:, None]}, cache=paged_cache, decode=True,
         positions=pos[:, None], page_tables=page_tables, page_size=page_size,
     )

@@ -15,6 +15,13 @@
   Products of f32 activations with 16-bit weights cast the weight to f32,
   as JAX promotes ``f32 @ bf16``.
 
+Training runs through autograd; no state is detached (the JAX package has
+no ``stop_gradient``: the sLSTM stabiliser ``m`` keeps its gradient).  The
+floors are ``torch.maximum``, whose gradient splits a tie evenly as
+``jnp.maximum``'s does (``clamp_min`` gives all of it to the input), and
+the mLSTM's decay matrix is masked before its ``exp``, so the masked
+entries' gradient is 0 where the reference's ``0 * inf`` can be NaN.
+
 Gates and states compute in f32 (:func:`_wide`: f32, or f64 for a float64
 model, which the card-vs-CPU checks use as their reference).
 """
@@ -40,6 +47,17 @@ _GATES = ("i", "f", "z", "o")
 def _wide(t):
     """``t`` in at least f32 (bf16 and f32 -> f32, f64 stays)."""
     return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def _floor(t, lo: float):
+    """``max(t, lo)``; under autograd through ``torch.maximum``, whose
+    gradient splits a tie evenly, as ``jnp.maximum``'s does.  Both forms
+    give the same value; without autograd ``clamp_min`` is kept because it
+    needs no device tensor for ``lo``, so serving launches no fill kernel
+    per sLSTM step."""
+    if not torch.is_grad_enabled():
+        return torch.clamp_min(t, lo)
+    return torch.maximum(t, torch.full((), lo, dtype=t.dtype, device=t.device))
 
 
 # ---------------------------------------------------------------------------
@@ -101,7 +119,7 @@ def _mlstm_chunk(q, k, v, log_f, gate_i, carry):
 
     h = h_intra + h_inter
     n = n_intra + n_inter
-    denom = torch.clamp_min(torch.abs(torch.einsum("blhd,blhd->blh", qf, n)), 1.0)
+    denom = _floor(torch.abs(torch.einsum("blhd,blhd->blh", qf, n)), 1.0)
     out = h / denom[..., None]
 
     # State update to the end of the chunk.
@@ -156,7 +174,7 @@ def mlstm_decode_step(cfg, params, x, cache):
     C = f[..., None] * cache["C"] + i[..., None] * torch.einsum("bhd,bhe->bhde", kf, vf)
     n = f * cache["n"] + i * kf
     h = torch.einsum("bhd,bhde->bhe", qf, C)
-    denom = torch.clamp_min(torch.abs(torch.einsum("bhd,bhd->bh", qf, n)), 1.0)
+    denom = _floor(torch.abs(torch.einsum("bhd,bhd->bh", qf, n)), 1.0)
     h = (h / denom[..., None]).reshape(B, 1, di)
     return (h.to(x.dtype) * z) @ params["wo"], {"C": C, "n": n}
 
@@ -205,7 +223,7 @@ def _slstm_scan(params, nh, xf, state):
         f_p = torch.exp(log_f + m - m_new)
         c = f_p * c + i_p * zt
         n = f_p * n + i_p
-        h = ot * c / torch.clamp_min(n, 1e-6)
+        h = ot * c / _floor(n, 1e-6)
         m = m_new
         hs.append(h)
     return torch.stack(hs, dim=1), {"c": c, "n": n, "h": h, "m": m}

@@ -24,8 +24,8 @@ requests joining the persistent decode batch at step boundaries.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
+import queue
 import threading
 import time
 from typing import Dict, Optional, Set, Tuple
@@ -52,8 +52,94 @@ __all__ = [
     "JitBackend",
     "OnDeviceBackend",
     "ContinuousBatchingBackend",
+    "StreamSet",
+    "device_streams",
     "build_hedge_variant",
 ]
+
+class StreamSet:
+    """Streams made on demand, each served by one long-lived worker thread.
+
+    :meth:`run` hands ``fn(stream)`` to an idle worker and waits for it;
+    when every worker is busy it first makes a new stream and its worker,
+    so no call ever waits for a stream, two concurrent calls never share
+    one, and every call on a stream runs on the same thread, hence under
+    the same cuBLAS handle.  The set grows to the most calls in flight at
+    once (one per tier chunk, the hedge and the degrade batch of each tick,
+    over every tick still in flight) and never shrinks.  PyTorch keeps a
+    cuBLAS workspace (~32 MiB on an H100) per (handle, stream) for the life
+    of the process: a fresh stream per call, on each new thread's handle,
+    grew that cache without bound; here it holds one workspace per stream.
+    ``pairs`` collects the (handle, stream) pairs the calls report."""
+
+    def __init__(self, make):
+        self._make = make
+        self.streams = []
+        self.pairs: Set[Tuple[int, int]] = set()
+        self._idle = []  # the job queues of idle workers
+        self._lock = threading.Lock()
+
+    @property
+    def size(self) -> int:
+        return len(self.streams)
+
+    def idle(self) -> int:
+        with self._lock:
+            return len(self._idle)
+
+    def _new_worker(self):  # under the lock
+        stream = self._make()
+        jobs = queue.SimpleQueue()
+        self.streams.append(stream)
+        threading.Thread(target=self._serve, args=(stream, jobs),
+                         name=f"stream-{len(self.streams) - 1}", daemon=True).start()
+        return jobs
+
+    def _serve(self, stream, jobs):
+        while True:
+            fn, out, done = jobs.get()
+            try:
+                result = (True, fn(stream))
+            except BaseException as e:  # raised again in the caller's thread
+                result = (False, e)
+            # The call's closure (its backend, hence its weights) and its
+            # result must not live on in this thread until the next call.
+            fn = None
+            out.append(result)
+            result = out = None
+            with self._lock:
+                self._idle.append(jobs)  # idle again before the caller returns
+            done.set()
+
+    def run(self, fn):
+        """``fn(stream)`` on a worker's stream; its result, or its error
+        raised here."""
+        with self._lock:
+            jobs = self._idle.pop() if self._idle else self._new_worker()
+        out, done = [], threading.Event()
+        jobs.put((fn, out, done))
+        done.wait()
+        ok, value = out.pop()
+        if ok:
+            return value
+        raise value
+
+
+_STREAM_SETS: Dict[int, StreamSet] = {}
+_STREAM_SETS_LOCK = threading.Lock()
+
+
+def device_streams(device) -> StreamSet:
+    """The CUDA device's :class:`StreamSet`, shared by every backend on it."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    with _STREAM_SETS_LOCK:
+        streams = _STREAM_SETS.get(index)
+        if streams is None:
+            streams = _STREAM_SETS[index] = StreamSet(
+                lambda: torch.cuda.Stream(device=index))
+        return streams
 
 
 @dataclasses.dataclass
@@ -345,9 +431,11 @@ class JitBackend(ExecutionBackend):
     eagerly, and the hot spots of the model are the port's hand-written
     kernels (on CUDA).  ``device`` defaults to ``"cuda"``; the CPU runs the
     plain versions only when asked for.  Each :meth:`generate` call runs on
-    its own CUDA stream, so batches dispatched from different worker
-    threads overlap on the card, and stops its clock only after that stream
-    has finished (the measured wall time is execution, not launch).
+    an idle stream of the device's :class:`StreamSet`, by itself, so
+    batches dispatched from different worker threads overlap on the card.
+    Its clock starts when the call is made, hand-off to the stream's
+    worker included, and stops only after that stream has finished (the
+    measured wall time is execution, not launch).
 
     ``max_len`` defaults to :data:`~repro_torch.configs.mdinference_zoo.SERVING_GEOMETRY`
     — the zoo recipe is the single source of truth for cache geometry across
@@ -370,13 +458,24 @@ class JitBackend(ExecutionBackend):
         if n_steps <= 0:
             return np.zeros((B, 0), dtype=np.int32), 0.0
         dev = self.device
-        stream = None
-        if dev.type == "cuda":
-            stream = torch.cuda.Stream(device=dev)
-            stream.wait_stream(torch.cuda.current_stream(dev))  # params are ready
-        ctx = torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
-        with torch.inference_mode(), ctx:
-            t0 = time.perf_counter()
+        t0 = time.perf_counter()
+        if dev.type != "cuda":
+            return self._generate(v, tokens, n_steps, None, t0)
+        streams = device_streams(dev)
+        ready = torch.cuda.current_stream(dev)  # the params were made there
+
+        def on_stream(stream):
+            stream.wait_stream(ready)
+            with torch.cuda.stream(stream):
+                streams.pairs.add((torch.cuda.current_blas_handle(), stream.cuda_stream))
+                return self._generate(v, tokens, n_steps, stream, t0)
+
+        return streams.run(on_stream)
+
+    def _generate(self, v, tokens, n_steps, stream, t0):
+        B, S = tokens.shape
+        dev = self.device
+        with torch.inference_mode():
             prompt = torch.as_tensor(tokens, dtype=torch.int64).to(dev)
             cache, logits = T.prefill(v.cfg, v.params, {"tokens": prompt}, max_len=self.max_len)
             # Every step's positions up front; tokens stay on the device.

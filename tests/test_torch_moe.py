@@ -11,8 +11,10 @@ on the CPU in f32.
   decode steps; ``JitBackend`` tokens equal; olmoe's continuous tier
   token-equal to the JAX ``ContinuousBatchingBackend`` (its pad tokens and
   inactive decode rows take expert capacity on both sides).
-* ``check_supported`` accepts the MoE and xLSTM kinds and still refuses
-  frontends, prefix-LM and the int8 KV cache; training them is refused.
+* ``check_supported`` accepts the MoE and xLSTM kinds and the int8 KV
+  cache (which the paged tier still excludes) and still refuses frontends
+  and prefix-LM; both kinds train (their gradients against the JAX
+  package: tests/test_torch_train_zoo.py).
 """
 import dataclasses
 
@@ -211,24 +213,29 @@ def test_check_supported_accepts_the_new_kinds_and_refuses_the_rest():
     for arch, reason in (("hubert-xlarge", "frontends"), ("paligemma-3b", "frontends")):
         with pytest.raises(NotImplementedError, match=reason):
             T.check_supported(archs.ARCHS[arch])
-    with pytest.raises(NotImplementedError, match="int8 KV cache"):
-        T.check_supported(archs.reduced("olmoe-1b-7b", kv_cache_quant=True))
+    # The int8 ring cache is served; the paged tier still excludes it.
+    quant = archs.reduced("olmoe-1b-7b", kv_cache_quant=True)
+    T.check_supported(quant, "cuda")
+    assert not T.supports_paged_decode(quant)
     # A MoE stack's attention still needs a kernel head dim on the card.
     with pytest.raises(NotImplementedError, match="head dim 24 has no CUDA"):
         T.check_supported(archs.reduced("olmoe-1b-7b", head_dim=24), "cuda")
 
 
 @pytest.mark.parametrize("arch", MOE_ARCHS + ("xlstm-350m",))
-def test_training_the_new_kinds_is_refused(arch):
+def test_the_new_kinds_train(arch):
+    """MoE and xLSTM stacks train: a finite loss, a positive load-balancing
+    loss exactly where there are MoE blocks, and the train command runs."""
     cfg = archs.reduced(arch)
     params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     batch = {"tokens": torch.zeros((2, 16), dtype=torch.long),
              "labels": torch.zeros((2, 16), dtype=torch.long)}
-    with pytest.raises(NotImplementedError, match="later training slice"):
-        T.loss_fn(cfg, params, batch)
-    with pytest.raises(NotImplementedError, match="later training slice"):
-        train_launch.main(["--device", "cpu", "--arch", arch, "--d-model", "64",
-                           "--steps", "1", "--batch", "2", "--seq", "16"])
+    loss, metrics = T.loss_fn(cfg, params, batch)
+    assert torch.isfinite(loss)
+    assert (float(metrics["aux"]) > 0) == ("moe" in cfg.layer_kinds())
+    assert float(loss) == float(metrics["xent"] + 0.01 * metrics["aux"])
+    assert train_launch.main(["--device", "cpu", "--arch", arch, "--d-model", "64",
+                              "--steps", "1", "--batch", "2", "--seq", "16"]) == 0
 
 
 # ---------------------------------------------------------------------------
