@@ -220,6 +220,26 @@ Phases (each passes or raises; any failure exits non-zero with no result):
    learning check), followed by its gradient block by block: each of the
    24 blocks' vjp, teacher-forced from the CPU float64 forward, card
    against CPU in float64 within 1e-6 (its f32 forward is chaotic).
+9b. frontends, before recurrentgemma-2b trains: paligemma-3b at its full
+   published width (18 layers, bf16, seeded weights): ``prefill`` of 4
+   rows of 256 seeded image patches before a 128-token prompt (prefix-LM
+   over the patches), 16 greedy decode steps over the ring cache, run
+   twice, tokens bitwise equal, one flash launch per layer per prefill and
+   one ring-decode launch per layer per step; its prefill logits held to
+   the plain versions on the same card tensors against an f32 run, and
+   each of its flash calls, on the model's own q, k, v and prefix, to
+   float64 (within 1.5x the plain bf16 version's error).  hubert-xlarge
+   (48 layers, bidirectional, D = 80): a forward over 2 x 2048 seeded
+   frames, logits finite, held the same two ways.  Then the train commands
+   ``--arch paligemma-3b`` and ``--arch hubert-xlarge`` (``--full-config
+   --batch 2 --seq 2048``) for 3 steps each, as the phi3 command (both
+   witnesses learn, so the last loss must be below the first), and each
+   model's bf16 gradient at full width, 2 layers, leaf by leaf against
+   the plain backward (``frontend.proj`` included; hubert's token
+   embedding, which no input reaches, zero).  The kernels phase holds the
+   prefix-LM forward and backward on every route to their plain versions
+   (``_prefix_sweep``) and times paligemma's prefill and train shapes and
+   hubert's bidirectional D = 80 shape, forward and backward.
 
 Every run measures every column of the kernels line: each serve phase (the
 zoo's serve paths included) and each train run set the launch counters to
@@ -240,6 +260,7 @@ forces it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import re
@@ -309,6 +330,18 @@ MOE_TRAIN_LAYERS = 8
 MOE_LEARNS = False
 XLSTM_TRAIN_STEPS = 3
 XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ = 8, 128
+# The frontends (the audio and vision frontends and prefix-LM attention):
+# paligemma-3b served at full width (its 256 image patches and a PROMPT-token
+# prompt at batch BATCH, then GEN greedy decode steps over the ring cache)
+# and a forward of hubert-xlarge over TRAIN_BATCH x TRAIN_SEQ frames; then
+# both train commands at TRAIN_BATCH x TRAIN_SEQ (paligemma's text with its
+# 256 patches before it) for FRONTEND_TRAIN_STEPS steps, each with the
+# learning check: both plain witness runs learn (scripts/train_witness.py:
+# held-out falls of 2.99 and 0.166 in 12 steps against train-loss wanders
+# of 0.358 and 0.013, 8.3x and 12.7x; PERF.md, PR 23).
+PALI_ARCH = "paligemma-3b"
+HUBERT_ARCH = "hubert-xlarge"
+FRONTEND_TRAIN_STEPS = 3
 SIM_REQUESTS = 10_000
 SIM_SLA_MS = 250.0
 # A run still going after this long fails (stacks printed, workers killed)
@@ -624,6 +657,7 @@ def phase_kernels(torch, full):
     n += _paged_sweep(torch, gen)
     n += _paged_split_sweep(torch, gen)
     n += _bwd_sweep(torch, gen)
+    n += _prefix_sweep(torch, gen)
     n += _rglru_sweep(torch, gen)
     n += _hybrid_shapes(torch, gen)
     print(f"[kernels] {n} kernel-vs-plain comparisons within tolerance", flush=True)
@@ -643,6 +677,7 @@ def phase_kernels(torch, full):
     # olmoe's one query head per kv head (G = 1) on the ring and paged
     # decode, and its prefill (16 kv heads).
     olmoe = get_config(MOE_ARCH)
+    pali, hubert = get_config(PALI_ARCH), get_config(HUBERT_ARCH)
     olmoe_paged = _full_width_paged(torch, dict(full, n_heads=olmoe.n_heads,
                                                 n_kv_heads=olmoe.n_kv_heads,
                                                 head_dim=olmoe.head_dim), gen)
@@ -661,10 +696,24 @@ def phase_kernels(torch, full):
         _decode_row(torch, gen, full["batch"], hybrid.n_kv_heads,
                     hybrid.n_heads // hybrid.n_kv_heads, hybrid.head_dim,
                     min(hybrid.window, full["max_len"]), full["prompt"] + 1, "tier-rg"),
+        # The frontends: paligemma's prefill (256 patches and the prompt) and
+        # its train shape (256 patches and TRAIN_SEQ tokens), prefix 256;
+        # hubert's bidirectional encoder at D = 80 (the CUDA-core kernel).
+        _flash_row(torch, gen, full["batch"], pali.n_heads, pali.n_kv_heads,
+                   pali.num_prefix_tokens + full["prompt"], pali.head_dim, 0, False,
+                   "paligemma prefill", prefix=pali.num_prefix_tokens),
+        _flash_row(torch, gen, TRAIN_BATCH, pali.n_heads, pali.n_kv_heads,
+                   pali.num_prefix_tokens + TRAIN_SEQ, pali.head_dim, 0, True,
+                   "paligemma training", prefix=pali.num_prefix_tokens),
+        _flash_row(torch, gen, TRAIN_BATCH, hubert.n_heads, hubert.n_kv_heads, TRAIN_SEQ,
+                   hubert.head_dim, 0, True, "hubert training", causal=False),
     ]
     for e in more:
         _print_entry(e)
     bwd = [_full_width_bwd(torch, gen, arch) for arch in TRAIN_ARCHS + (MOE_ARCH,)]
+    bwd += [_full_width_bwd(torch, gen, PALI_ARCH, S=pali.num_prefix_tokens + TRAIN_SEQ,
+                            prefix=pali.num_prefix_tokens),
+            _full_width_bwd(torch, gen, HUBERT_ARCH)]
     for e in bwd:
         _print_entry(e)
     print("[kernels] rglru_scan_fwd / rglru_scan_bwd have no library yardstick: no single "
@@ -1069,7 +1118,7 @@ def _paged_split_sweep(torch, gen) -> int:
 
 
 def _bwd_f64(torch, q, k, v, out, dout, lse, causal, window, round_to=None, scale=None,
-             split_p=True):
+             split_p=True, prefix_len=None):
     """The flash backward's math (``ref.flash_attention_bwd_ref``) in float64
     on the card, returning float64 dq, dk, dv.  With ``round_to``, the
     operands as the kernels round them: ds rounded to that dtype, and p as
@@ -1087,7 +1136,8 @@ def _bwd_f64(torch, q, k, v, out, dout, lse, causal, window, round_to=None, scal
     kd, vd = k.to(f64), v.to(f64)
     delta = (dout.to(f64) * out.to(f64)).sum(-1).reshape(B, NKV, G, S, 1)
     s = torch.einsum("bkgqd,bksd->bkgqs", qd, kd) * scale
-    ok = ref._scores_mask(S, S, causal=causal, window=window, device=q.device)
+    ok = ref._scores_mask(S, S, causal=causal, window=window, device=q.device,
+                          prefix_len=prefix_len)
     s = torch.where(ok, s, torch.full_like(s, ref._NEG_INF))
     p = torch.exp(s - lse.to(f64).reshape(B, NKV, G, S, 1))
     del s
@@ -1126,15 +1176,16 @@ REL_GATE = 1.5
 REL_FLOOR = 4e-5
 
 
-def _rel_gate(torch, tag, q, k, v, out, dout, lse, got, causal, window):
+def _rel_gate(torch, tag, q, k, v, out, dout, lse, got, causal, window, prefix_len=None):
     """Holds the kernel's ``got`` (dq, dk, dv) to the gate above; returns
     {part: (kernel error, plain error, worst tile's kernel / plain)}."""
     from repro_torch.kernels.flash_attention_bwd import bwd_route
 
-    exact = _bwd_f64(torch, q, k, v, out, dout, lse, causal, window)
+    exact = _bwd_f64(torch, q, k, v, out, dout, lse, causal, window, prefix_len=prefix_len)
     split = bwd_route(q.dtype, q.shape[-1]) == "wgmma"
     plain = [t.to(q.dtype) for t in _bwd_f64(torch, q, k, v, out, dout, lse, causal, window,
-                                                round_to=q.dtype, split_p=split)]
+                                                round_to=q.dtype, split_p=split,
+                                                prefix_len=prefix_len)]
     readings = {}
     for part, g, p, w in zip(("dq", "dk", "dv"), got, plain, exact):
         (ke, kt), (pe, pt) = _rel_err(torch, g, w), _rel_err(torch, p, w)
@@ -1233,6 +1284,62 @@ def _bwd_sweep(torch, gen) -> int:
     return n
 
 
+def _prefix_sweep(torch, gen) -> int:
+    """Prefix-LM attention (the JAX model's ``(causal & window) | (kpos <
+    prefix_len[b])``) on every route the frontends reach, forward and
+    backward, each against its plain version: f32 (the CUDA-core kernels),
+    bf16 and f16 (wgmma at D = 64 / 128 / 256, the CUDA-core forward and
+    the WMMA backward at D = 80 / 96).  Per-row prefix lengths that differ
+    within a batch, 0, 1, lengths that end inside a 64-key tile and one
+    that is all of S, paligemma's G = 8 and D = 256, a window beside a
+    prefix.  The forward (out and LSE) against ``flash_attention_ref``, the
+    gradients against the model of the kernels' tile walk
+    (``flash_attention_bwd_tiled_ref``, with the wgmma route's head groups),
+    at ``_tol``; the wgmma route's gradients also bitwise equal over two
+    launches.  (hubert's bidirectional attention at D = 80 is in the flash
+    and backward sweeps.)"""
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import flash_attention_bwd as bk
+    from repro_torch.kernels import ref
+
+    # (prefix per row, NQ, NKV, S, D, window)
+    cases = [
+        ((0, 1, 70, 256), 8, 1, 384, 256, 0), ((256, 100), 8, 1, 300, 256, 0),
+        ((1, 0), 4, 2, 130, 128, 0), ((63, 65, 64), 4, 1, 200, 64, 0),
+        ((37, 300), 4, 4, 300, 80, 0), ((129, 5), 2, 1, 257, 96, 0),
+        ((70, 3), 4, 1, 300, 64, 37), ((200,), 2, 1, 200, 32, 0),
+    ]
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for prefix, NQ, NKV, S, D, window in cases:
+            B = len(prefix)
+            q = _randn(torch, (B, S, NQ, D), dtype, gen).transpose(1, 2)
+            k = _randn(torch, (B, S, NKV, D), dtype, gen).transpose(1, 2)
+            v = _randn(torch, (B, S, NKV, D), dtype, gen).transpose(1, 2)
+            dout = _randn(torch, (B, S, NQ, D), dtype, gen).transpose(1, 2)
+            pre = torch.tensor(prefix, dtype=torch.int32, device="cuda")
+            kw = dict(window=window, prefix_len=pre)
+            route = bk.bwd_route(dtype, D)
+            tag = (f"prefix {prefix} flash{(B, NQ, NKV, S, D)} window={window} {dtype} "
+                   f"({fk.flash_route(dtype, D)} / {route})")
+            out, lse = fk.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+            want, want_lse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+            _compare(torch, tag, out, want, dtype)
+            _compare(torch, tag + " lse", lse, want_lse, torch.float32)
+            got = bk.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+            hpg = bk.bwd_plan(B, NQ, NKV, S, D, _sm_count(torch))[1] if route == "wgmma" else None
+            want = ref.flash_attention_bwd_tiled_ref(q, k, v, out, dout, lse,
+                                                     heads_per_group=hpg, **kw)
+            for part, g, w in zip(("dq", "dk", "dv"), got, want):
+                _compare(torch, f"{tag} {part}", g, w, dtype)
+            if route == "wgmma":
+                again = bk.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+                check(all(torch.equal(g, g2) for g, g2 in zip(got, again)),
+                      f"{tag}: two launches differ")
+            n += 1
+    return n
+
+
 def _hybrid_shapes(torch, gen) -> int:
     """The norm and flash forward kernels against their plain versions at
     the shapes the hybrid serve prefill and the recurrentgemma train step
@@ -1282,13 +1389,17 @@ def _hybrid_shapes(torch, gen) -> int:
     return n
 
 
-def _full_width_bwd(torch, gen, arch):
+def _full_width_bwd(torch, gen, arch, S=TRAIN_SEQ, prefix=0):
     """The flash backward kernel at a train phase's shape, bf16: gemma-2b q
     (2, 8, 2048, 256) causal and recurrentgemma-2b q (2, 10, 2048, 256)
-    with its window of 2048, one kv head each, and olmoe-1b-7b's q (2, 16,
-    2048, 128) with a kv head per q head (G = 1).  Also checks that two
-    launches are bitwise equal and prints the kernel's eager time beside
-    SDPA's eager backward, like with like."""
+    with its window of 2048, one kv head each, olmoe-1b-7b's q (2, 16,
+    2048, 128) with a kv head per q head (G = 1), paligemma-3b's q (2, 8,
+    2304, 256) causal with its 256-key prefix and hubert-xlarge's q (2, 16,
+    2048, 80) bidirectional (the WMMA route).  Also checks that two
+    launches are bitwise equal, holds the gradients to the relative-error
+    gate and, with a prefix or bidirectional, to the model of the kernel's
+    tile walk (``ref.flash_attention_bwd_tiled_ref``), and prints the
+    kernel's eager time beside SDPA's eager backward, like with like."""
     from repro_torch.configs.archs import get_config
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import flash_attention_bwd as bk
@@ -1296,58 +1407,65 @@ def _full_width_bwd(torch, gen, arch):
 
     cfg = get_config(arch)
     bf16 = torch.bfloat16
-    B, S, NQ, NKV, D = TRAIN_BATCH, TRAIN_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    window = cfg.window or 0
+    B, NQ, NKV, D = TRAIN_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    window, causal = cfg.window or 0, cfg.causal
     q = _randn(torch, (B, S, NQ, D), bf16, gen).transpose(1, 2)
     k = _randn(torch, (B, S, NKV, D), bf16, gen).transpose(1, 2)
     v = _randn(torch, (B, S, NKV, D), bf16, gen).transpose(1, 2)
     dout = _randn(torch, (B, S, NQ, D), bf16, gen).transpose(1, 2)
-    out, lse = fk.flash_attention_fwd(q, k, v, window=window, return_lse=True)
+    pre = torch.full((B,), prefix, dtype=torch.int32, device="cuda") if prefix else None
+    kw = dict(causal=causal, window=window, prefix_len=pre)
+    out, lse = fk.flash_attention_fwd(q, k, v, return_lse=True, **kw)
 
     def kernel():
-        return bk.flash_attention_bwd(q, k, v, out, dout, lse, window=window)
+        return bk.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
 
     def plain():
-        return ref.flash_attention_bwd_ref(q, k, v, out, dout, lse, window=window)
+        return ref.flash_attention_bwd_ref(q, k, v, out, dout, lse, **kw)
 
     first, second = kernel(), kernel()
     err = max(_compare(torch, f"flash bwd full width {arch} {part}", g, w, bf16)
               for part, g, w in zip(("dq", "dk", "dv"), first, plain()))
     check(all(torch.equal(a, b) for a, b in zip(first, second)),
           f"flash bwd full width {arch}: two launches differ")
+    route = bk.bwd_route(bf16, D)
+    plan = bk.bwd_plan(B, NQ, NKV, S, D, _sm_count(torch)) if route == "wgmma" else None
+    if prefix or not causal:
+        tiled = ref.flash_attention_bwd_tiled_ref(
+            q, k, v, out, dout, lse, heads_per_group=plan[1] if plan else None, **kw)
+        for part, g, w in zip(("dq", "dk", "dv"), first, tiled):
+            _compare(torch, f"flash bwd full width {arch} {part} vs the tiled model", g, w, bf16)
+        del tiled
     rel = _rel_gate(torch, f"flash bwd full width {arch}", q, k, v, out, dout, lse, first,
-                    True, window)
+                    causal, window, prefix_len=pre)
     print(f"[kernels] flash_attention_bwd {arch}: relative error against float64 (kernel / "
           f"plain bf16 version / worst 64-row tile's ratio): "
           + ", ".join(f"{p} {a:.5f} / {b:.5f} / {c:.3f}" for p, (a, b, c) in rel.items()),
           flush=True)
     # The library yardstick: the backward of SDPA alone (its forward runs
-    # once, outside the timing), through torch.autograd.grad.  A window of
-    # S is causal attention.
-    check(window in (0, S), f"{arch}: SDPA has no window of {window} < S")
+    # once, outside the timing), through torch.autograd.grad; a window of S
+    # is causal attention, a prefix a boolean mask.
     qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
-    o = _sdpa(torch, qq, kk, vv, is_causal=True)
+    o = _attention_library(torch, qq, kk, vv, causal, window, pre)()
 
     def library():
         return torch.autograd.grad(o, (qq, kk, vv), dout, retain_graph=True)
 
     # q, k, v, out, dout and the f32 LSE read once; dq, dk, dv written once.
     nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
-    # The function needs five S x S x D products over the causal (q, k)
-    # pairs in the window: s = q.k^T, dp = dout.v^T, dv = p^T.dout,
-    # dq = ds.k, dk = ds^T.q.  (This kernel's dq pass recomputes s and dp
-    # and it adds p's rounding remainder to dv, eight in all: that is its
-    # own cost, not the bound's.)
-    pairs = sum(min(i + 1, window or S) for i in range(S))
-    flops = 5 * 2 * D * B * NQ * pairs
+    # The function needs five S x S x D products over the visible (q, k)
+    # pairs: s = q.k^T, dp = dout.v^T, dv = p^T.dout, dq = ds.k,
+    # dk = ds^T.q.  (This kernel's dq pass recomputes s and dp and it adds
+    # p's rounding remainder to dv, eight in all: that is its own cost, not
+    # the bound's.)
+    flops = 5 * 2 * D * NQ * _visible_pairs(torch, B, S, causal, window, pre)
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_BF16_FLOPS * 1e3
-    plan = bk.bwd_plan(B, NQ, NKV, S, D, _sm_count(torch))
+    mask = _mask_label(causal, window, prefix)
     e = dict(
         name="flash_attention_bwd", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         replaces="src/repro/kernels/flash_attention_bwd.py:161", max_abs_err=err,
-        shape=f"q {tuple(q.shape)} kv heads {NKV} bf16 causal"
-              + (f" window {window}" if window else "") + f" ({arch} training)",
+        shape=f"q {tuple(q.shape)} kv heads {NKV} bf16 {mask} ({arch} training, {route})",
         ms=time_ms(torch, kernel, launches=5),
         eager_ms=time_ms(torch, kernel, launches=5, graph=False),
         plain_ms=time_ms(torch, plain, launches=5),
@@ -1355,7 +1473,7 @@ def _full_width_bwd(torch, gen, arch):
         library="SDPA backward (eager)",
         bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
     )
-    print(f"[kernels] flash_attention_bwd {arch}: route {bk.bwd_route(bf16, D)}, plan (rows, "
+    print(f"[kernels] flash_attention_bwd {arch}: route {route}, plan (rows, "
           f"heads per group, groups) {plan}, two launches bitwise equal; eager {e['eager_ms']:.4f}"
           f" ms vs SDPA backward eager {e['library_ms']:.4f} ms ({e['eager_ms'] / e['library_ms']:.2f}"
           f"x); device (graph) {e['ms']:.4f} ms, {e['ms'] / e['bound_ms']:.2f}x its bound",
@@ -1466,10 +1584,39 @@ def _full_width(torch, full, B, gen):
     return entries
 
 
-def _flash_row(torch, gen, B, NQ, NKV, S, D, window, lse, label):
-    """The flash forward at q (B, NQ, S, D), causal, bf16, model-layout views:
-    kernel vs plain vs SDPA vs bound (with the f32 LSE the train path keeps
-    when ``lse``)."""
+def _visible_pairs(torch, B, S, causal, window, prefix_len):
+    """The (query, key) pairs the mask lets through, summed over the batch."""
+    from repro_torch.kernels import ref
+
+    ok = ref._scores_mask(S, S, causal=causal, window=window, device="cuda",
+                          prefix_len=prefix_len)
+    return int(ok.sum()) * (1 if prefix_len is not None else B)
+
+
+def _mask_label(causal, window, prefix):
+    return (("causal" if causal else "bidirectional") + (f" window {window}" if window else "")
+            + (f" prefix {prefix}" if prefix else ""))
+
+
+def _attention_library(torch, q, k, v, causal, window, prefix_len):
+    """One PyTorch call computing the same attention: SDPA, causal,
+    bidirectional or with the prefix-LM mask as a boolean ``attn_mask``."""
+    from repro_torch.kernels import ref
+
+    S = q.shape[2]
+    if prefix_len is not None:
+        mask = ref._scores_mask(S, S, causal=causal, window=window, device="cuda",
+                                prefix_len=prefix_len)[:, 0]  # (B, 1, S, S)
+        return lambda q=q, k=k, v=v: _sdpa(torch, q, k, v, attn_mask=mask)
+    check(window in (0, S) or not causal, f"SDPA has no window of {window} < S")
+    return lambda q=q, k=k, v=v: _sdpa(torch, q, k, v, is_causal=causal)
+
+
+def _flash_row(torch, gen, B, NQ, NKV, S, D, window, lse, label, causal=True, prefix=0):
+    """The flash forward at q (B, NQ, S, D), bf16, model-layout views, causal
+    or bidirectional, with a prefix-LM prefix of ``prefix`` keys on every
+    row when it is not 0: kernel vs plain vs SDPA vs bound (with the f32 LSE
+    the train path keeps when ``lse``)."""
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import ref
 
@@ -1477,7 +1624,8 @@ def _flash_row(torch, gen, B, NQ, NKV, S, D, window, lse, label):
     q = _randn(torch, (B, S, NQ, D), bf16, gen).transpose(1, 2)
     k = _randn(torch, (B, S, NKV, D), bf16, gen).transpose(1, 2)
     v = _randn(torch, (B, S, NKV, D), bf16, gen).transpose(1, 2)
-    kw = dict(causal=True, window=window, return_lse=lse)
+    pre = torch.full((B,), prefix, dtype=torch.int32, device="cuda") if prefix else None
+    kw = dict(causal=causal, window=window, return_lse=lse, prefix_len=pre)
 
     def kernel():
         return fk.flash_attention_fwd(q, k, v, **kw)
@@ -1486,29 +1634,27 @@ def _flash_row(torch, gen, B, NQ, NKV, S, D, window, lse, label):
         return ref.flash_attention_ref(q, k, v, **kw)
 
     got, want = kernel(), plain()
-    tag = f"flash q {tuple(q.shape)} window {window} ({label})"
+    mask = _mask_label(causal, window, prefix)
+    tag = f"flash q {tuple(q.shape)} {mask} ({label})"
     if lse:
         err = _compare(torch, tag, got[0], want[0], bf16)
         _compare(torch, tag + " lse", got[1], want[1], torch.float32)
     else:
         err = _compare(torch, tag, got, want, bf16)
-    # q, k, v read once; out (and the LSE) written once.  The causal (q, k)
-    # pairs inside the window, two products of 2 * D FLOPs each.
+    # q, k, v read once; out (and the LSE) written once.  The visible
+    # (q, k) pairs, two products of 2 * D FLOPs each.
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + (4 * B * NQ * S if lse else 0)
-    span = window if window else S
-    flops = 4 * B * NQ * D * sum(min(i + 1, span) for i in range(S))
+    flops = 4 * NQ * D * _visible_pairs(torch, B, S, causal, window, pre)
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_BF16_FLOPS * 1e3
     reps = 5 if S > 512 else 20  # launches per timed replay
     return dict(
         name="flash_attention_fwd", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:119", max_abs_err=err,
-        shape=f"q {tuple(q.shape)} kv heads {NKV} bf16 causal"
-              f"{f' window {window}' if window else ''}{' +lse' if lse else ''} ({label})",
+        shape=f"q {tuple(q.shape)} kv heads {NKV} bf16 {mask}{' +lse' if lse else ''} ({label})",
         ms=time_ms(torch, kernel, reps), eager_ms=time_ms(torch, kernel, reps, graph=False),
         plain_ms=time_ms(torch, plain, reps),
-        # window >= S here, so plain causal SDPA computes the same function.
-        library_ms=time_ms(torch, lambda: _sdpa(torch, q, k, v, is_causal=True), reps),
+        library_ms=time_ms(torch, _attention_library(torch, q, k, v, causal, window, pre), reps),
         bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
     )
 
@@ -1596,19 +1742,24 @@ def phase_model(torch):
 
 
 def _model_bf16_grads(torch, cfg):
-    """``loss_fn``'s bf16 gradient through the flash backward's wgmma route,
-    leaf by leaf, on the card: gemma-2b at its full width (d 2048, 8 q
-    heads / 1 kv head x 256, bf16) and olmoe-1b-7b at its (d 2048, 16 q /
-    16 kv heads x 128, 64 experts top-8), 2 layers each, batch 2 x 2048
-    tokens (the train phase's attention shapes).  Three runs differ only in
+    """``loss_fn``'s bf16 gradient through the flash backward's tensor-core
+    routes, leaf by leaf, on the card: gemma-2b at its full width (d 2048,
+    8 q heads / 1 kv head x 256, bf16) and olmoe-1b-7b at its (d 2048, 16 q
+    / 16 kv heads x 128, 64 experts top-8), 2 layers each, batch 2 x 2048
+    tokens (the train phase's attention shapes); the frontends' train
+    commands add paligemma-3b (its 256 patches before the 2048 tokens,
+    prefix-LM) and hubert-xlarge (2048 frames, bidirectional, D = 80: the
+    WMMA route), each batch the train pipeline's first.  Three runs differ only in
     the attention backward, the forward being the same kernels (a swapped
     forward could flip a near-tied top-k choice and move whole expert
     leaves): the kernel; the plain version (``ref.flash_attention_bwd_ref``,
     f32, p and ds not rounded); and the plain version of the kernel's
-    arithmetic (``_bwd_f64`` with p and ds rounded to bf16).  Each leaf of
+    arithmetic (``_bwd_f64`` with p and ds rounded to bf16, p as the
+    route rounds it).  Each leaf of
     the kernel's run stays within REL_GATE times the rounded plain run's
     relative Frobenius distance from the f32 plain run, plus REL_FLOOR;
-    every leaf finite and non-zero.  For the MoE stack the kernel's run is
+    every leaf finite and non-zero (but hubert's token embedding, which no
+    input reaches, in the JAX tree as here: zero).  For the MoE stack the kernel's run is
     made twice and must be bitwise the same (the combine's index backward
     accumulates, dropped assignments adding exact zeros).  The model
     phase's other gradient checks are f32 (the CUDA-core route)."""
@@ -1618,15 +1769,25 @@ def _model_bf16_grads(torch, cfg):
     from repro_torch.tree import named_leaves, tree_map
 
     B, S = TRAIN_BATCH, TRAIN_SEQ
-    check(bk.bwd_route(torch.bfloat16, cfg.head_dim) == "wgmma" and cfg.dtype == "bfloat16",
-          f"model bf16 grads: {cfg.name} does not take the wgmma route")
+    route = bk.bwd_route(torch.bfloat16, cfg.head_dim)
+    check(route in ("wgmma", "wmma") and cfg.dtype == "bfloat16",
+          f"model bf16 grads: {cfg.name} does not take a tensor-core route")
     params = T.init_params(cfg, torch.Generator().manual_seed(0), "cuda")
-    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=torch.Generator().manual_seed(4))
-    batch = {"tokens": toks[:, :-1].cuda(), "labels": toks[:, 1:].cuda()}
+    if cfg.frontend == "none":
+        toks = torch.randint(0, cfg.vocab_size, (B, S + 1),
+                             generator=torch.Generator().manual_seed(4))
+        batch = {"tokens": toks[:, :-1].cuda(), "labels": toks[:, 1:].cuda()}
+    else:  # frames or patches: the train pipeline's batch
+        from repro_torch.training import DataConfig, make_pipeline
 
-    def rounded(q, k, v, out, dout, lse, *, causal=True, window=0, scale=None):
-        return tuple(t.to(q.dtype) for t in _bwd_f64(torch, q, k, v, out, dout, lse, causal,
-                                                     window, round_to=q.dtype, scale=scale))
+        pipe = make_pipeline(DataConfig(batch_size=B, seq_len=S, seed=4), cfg)
+        batch = {k: torch.from_numpy(v).cuda() for k, v in pipe.batch_at(0).items()}
+    unused = T.unreached_leaves(cfg)
+
+    def rounded(q, k, v, out, dout, lse, *, causal=True, window=0, scale=None, prefix_len=None):
+        return tuple(t.to(q.dtype) for t in _bwd_f64(
+            torch, q, k, v, out, dout, lse, causal, window, round_to=q.dtype, scale=scale,
+            split_p=route == "wgmma", prefix_len=prefix_len))
 
     kernel = bk.flash_attention_bwd
     moe = "moe" in cfg.layer_kinds()
@@ -1640,7 +1801,8 @@ def _model_bf16_grads(torch, cfg):
             named = [(path, leaf) for path, leaf in named_leaves(leaves) if leaf.requires_grad]
             loss, _ = T.loss_fn(cfg, leaves, batch)
             runs[label] = (float(loss.detach()),
-                           torch.autograd.grad(loss, [leaf for _, leaf in named]))
+                           torch.autograd.grad(loss, [leaf for _, leaf in named],
+                                               allow_unused=True, materialize_grads=True))
     finally:
         bk.flash_attention_bwd = kernel
     check(runs["kernel"][0] == runs["plain"][0], "model bf16 grads: the forwards differ")
@@ -1650,6 +1812,9 @@ def _model_bf16_grads(torch, cfg):
         del runs["again"]
     worst_k = worst_r = worst_ratio = 0.0
     for (path, _), g, p, r in zip(named, runs["kernel"][1], runs["plain"][1], runs["rounded"][1]):
+        if path in unused:
+            check(not g.any(), f"model bf16 grads: {path} reached by no input, but non-zero")
+            continue
         check(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0,
               f"model bf16 grads: gradient {path} zero or not finite through the kernel")
         norm = max(float(p.double().norm()), 1e-300)
@@ -1659,8 +1824,9 @@ def _model_bf16_grads(torch, cfg):
               f"backward's run, beyond {REL_GATE}x the rounded plain version's {dr:.4g}")
         worst_k, worst_r = max(worst_k, dk), max(worst_r, dr)
         worst_ratio = max(worst_ratio, dk / max(dr, REL_FLOOR))
-    print(f"[model] {cfg.name} width, 2 layers, bf16, batch {B} x {S}: loss_fn + grads with the "
-          f"wgmma backward vs the plain f32 backward, {len(named)} leaves, all non-zero"
+    print(f"[model] {cfg.name} width, {cfg.n_layers} layers, bf16, batch {B} x {S}: loss_fn + "
+          f"grads with the {route} backward vs the plain f32 backward, {len(named)} leaves, "
+          f"all non-zero{f' but {sorted(unused)} (no input reaches it)' if unused else ''}"
           f"{', bitwise equal over two runs' if moe else ''}: "
           f"worst relative distance {worst_k:.4g} (the plain version of the kernel's "
           f"arithmetic: {worst_r:.4g}; worst leaf's ratio {worst_ratio:.3f}, gate {REL_GATE})",
@@ -3171,8 +3337,252 @@ def _zoo_simulator(torch, card):
 
 
 # ---------------------------------------------------------------------------
-# Phase 9: train full-width gemma-2b and recurrentgemma-2b.
+# The frontends: paligemma-3b served, hubert-xlarge's forward, both trained.
 # ---------------------------------------------------------------------------
+def plain_kernel_sites():
+    """``(module, attribute, plain version)`` of every kernel wrapper the
+    model calls through ``kernels.ops``: setting the attribute to the plain
+    version runs the model on the same card tensors without the kernels.
+    ``scripts/train_witness.py`` swaps through this table too."""
+    from repro_torch.kernels import flash_attention_bwd as bk
+    from repro_torch.kernels import ops, ref
+
+    return [
+        (ops._rmsnorm, "rms_norm_fwd",
+         lambda x, w, eps, offset: ref.rms_norm_ref(x, w, eps=eps, offset=offset)),
+        (ops._flash, "flash_attention_fwd", ref.flash_attention_ref),
+        (bk, "flash_attention_bwd", ref.flash_attention_bwd_ref),
+        (ops._decode, "decode_attention_fwd", ref.decode_attention_ref),
+        (ops._rglru, "rglru_scan_fwd", ref.rglru_scan_ref),
+        (ops._rglru, "rglru_scan_bwd", ref.rglru_scan_bwd_ref),
+    ]
+
+
+@contextlib.contextmanager
+def plain_kernels(sites=None):
+    """Within the block, each kernel of ``sites`` (default: every one of
+    ``plain_kernel_sites()``) is its plain version; restored on exit."""
+    sites = plain_kernel_sites() if sites is None else sites
+    kernels = [getattr(mod, attr) for mod, attr, _ in sites]
+    try:
+        for mod, attr, plain in sites:
+            setattr(mod, attr, plain)
+        yield
+    finally:
+        for (mod, attr, _), kernel in zip(sites, kernels):
+            setattr(mod, attr, kernel)
+
+
+def _logits_gate(torch, label, cfg, params, run):
+    """The kernels' bf16 logits ``run(cfg, params)`` against the plain
+    versions on the same card tensors: the kernel run's relative Frobenius
+    distance from the plain run in f32 (weights widened to f32) within
+    REL_GATE times the plain bf16 run's, plus REL_FLOOR; and the share of
+    rows whose argmax agrees with the f32 run.  Returns the readings."""
+    import dataclasses
+
+    from repro_torch.tree import tree_map
+
+    got = run(cfg, params).float()
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = tree_map(lambda t: t.float() if t.is_floating_point() else t, params)
+    with plain_kernels():
+        plain = run(cfg, params).float()
+        exact = run(c32, p32)
+    del p32
+    check(bool(torch.isfinite(got).all()), f"{label}: non-finite logits through the kernels")
+    norm = float(exact.double().norm())
+    dk, dp = (float((x.double() - exact.double()).norm()) / norm for x in (got, plain))
+    agree = float((got.argmax(-1) == exact.argmax(-1)).float().mean())
+    check(dk <= REL_GATE * dp + REL_FLOOR,
+          f"{label}: the kernels' logits {dk:.4g} (relative) from the f32 plain run, beyond "
+          f"{REL_GATE}x the bf16 plain run's {dp:.4g}")
+    return dict(kernel_rel=dk, plain_rel=dp, argmax_agree=agree)
+
+
+def _recorded_attention(torch, label, fn):
+    """``fn()`` with every flash forward call recorded; then each call's
+    kernel output held, on the same card tensors (the model's own q, k, v
+    of every layer), to the plain version and to float64: its relative
+    Frobenius error against float64 (``ref.flash_attention_ref`` on the
+    inputs widened) within REL_GATE times the plain bf16 version's, plus
+    REL_FLOOR, as ``_rel_gate`` holds the backward.  Unlike the logits, this
+    does not wash out in the stack's chaos: a call that drops the prefix
+    or the band is off by the whole of it.  Returns (fn's result,
+    readings)."""
+    from repro_torch.kernels import ops, ref
+
+    kernel, calls = ops._flash.flash_attention_fwd, []
+
+    def recording(q, k, v, **kw):
+        out = kernel(q, k, v, **kw)
+        calls.append((q, k, v, kw, out[0] if kw.get("return_lse") else out))
+        return out
+
+    ops._flash.flash_attention_fwd = recording
+    try:
+        result = fn()
+    finally:
+        ops._flash.flash_attention_fwd = kernel
+    worst = dict(calls=len(calls), kernel_rel=0.0, plain_rel=0.0, ratio=0.0)
+    with torch.inference_mode():
+        for i, (q, k, v, kw, got) in enumerate(calls):
+            kw = dict(kw, return_lse=False)
+            exact = ref.flash_attention_ref(q.double(), k.double(), v.double(), **kw)
+            ke = _rel_err(torch, got, exact)[0]
+            pe = _rel_err(torch, ref.flash_attention_ref(q, k, v, **kw), exact)[0]
+            check(ke <= REL_GATE * pe + REL_FLOOR,
+                  f"{label}: flash call {i} ({tuple(q.shape)}, prefix "
+                  f"{kw.get('prefix_len') is not None}) relative error {ke:.4g} against float64, "
+                  f"beyond {REL_GATE}x the plain bf16 version's {pe:.4g}")
+            worst.update(kernel_rel=max(worst["kernel_rel"], ke),
+                         plain_rel=max(worst["plain_rel"], pe),
+                         ratio=max(worst["ratio"], ke / max(pe, REL_FLOOR)))
+            del exact
+    check(worst["calls"] > 0, f"{label}: no flash call was made")
+    return result, worst
+
+
+def phase_frontends(torch, card):
+    """The audio and vision frontends at full width on the card.
+
+    paligemma-3b (18 layers, d 2048, 8 q heads / 1 kv head x 256, vocab
+    257,216), bf16, seeded weights: ``prefill`` of BATCH rows of 256 seeded
+    patches (1152-d) before a PROMPT-token prompt, prefix-LM over the
+    patches, then GEN greedy decode steps over the ring cache, run twice:
+    tokens bitwise equal, one flash launch per layer per prefill and one
+    ring-decode launch per layer per step; the prefill logits held to the
+    plain versions on the same card tensors (``_logits_gate``), and each
+    of its flash calls, on the model's own q, k, v and prefix, to float64
+    (``_recorded_attention``).  hubert-xlarge (48 layers, d 1280, 16 heads
+    x 80, bidirectional), bf16: a forward over TRAIN_BATCH x TRAIN_SEQ
+    seeded frames (512-d), logits finite with the vocab's 504 classes,
+    held the same two ways, one flash launch per layer.  Returns (launch
+    counts, results)."""
+    from repro_torch.configs.archs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+
+    results = {}
+    counts = {}
+    cfg = get_config(PALI_ARCH)
+    P = cfg.num_prefix_tokens
+    gen = torch.Generator().manual_seed(7)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+    inputs = {"patches": torch.randn((BATCH, P, cfg.frontend_dim), generator=gen).cuda(),
+              "tokens": torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen).cuda()}
+    max_len = P + PROMPT + GEN
+
+    def generate():
+        with torch.inference_mode():
+            cache, logits = T.prefill(cfg, params, inputs, max_len)
+            tok, toks = logits.argmax(-1), []
+            for i in range(GEN):
+                toks.append(tok)
+                pos = torch.full((BATCH,), P + PROMPT + i, dtype=torch.int32, device="cuda")
+                logits, cache = T.decode_step(cfg, params, cache, tok, pos)
+                tok = logits.argmax(-1)
+            torch.cuda.synchronize()
+            return torch.stack(toks).cpu()
+
+    ops.reset_launch_counts()  # the frontends' serving path starts here
+    t0 = time.perf_counter()
+    first = generate()
+    t1 = time.perf_counter()
+    second = generate()
+    t2 = time.perf_counter()
+    got = ops.launch_counts()  # and ends here
+    _add_counts(counts, got)
+    check(torch.equal(first, second), f"{PALI_ARCH}: greedy tokens differ between two runs")
+    want = dict(flash_attention_fwd=2 * cfg.n_layers, decode_attention_fwd=2 * GEN * cfg.n_layers)
+    check({k: got[k] for k in want} == want and got["rms_norm_fwd"] > 0,
+          f"{PALI_ARCH}: launches {got}, expected {want} and norms")
+
+    def prefill_logits(c, p):
+        with torch.inference_mode():
+            return T.prefill(c, p, inputs, max_len)[1]
+
+    _, calls = _recorded_attention(torch, f"{PALI_ARCH} prefill",
+                                   lambda: prefill_logits(cfg, params))
+    gate = _logits_gate(torch, f"{PALI_ARCH} prefill", cfg, params, prefill_logits)
+    results[PALI_ARCH] = dict(tokens_bitwise_equal=True, first_s=t1 - t0, second_s=t2 - t1,
+                              launches=got, prefill_logits=gate, attention_calls=calls)
+    print(f"[frontends] {PALI_ARCH} full width, bf16: prefill of {BATCH} x ({P} patches + "
+          f"{PROMPT} tokens) + {GEN} greedy steps, twice: tokens bitwise equal, "
+          f"{(t2 - t1) * 1e3:.1f} ms the second run ({(t1 - t0) * 1e3:.1f} ms the first); "
+          f"launches {got}; prefill logits vs the plain versions on the card: relative "
+          f"distance from f32 {gate['kernel_rel']:.4g} (plain bf16 {gate['plain_rel']:.4g}), "
+          f"argmax agreeing with f32 on {gate['argmax_agree']:.3f} of rows (bf16 and f32 "
+          f"runs part in the stack, the plain versions' too); each of the prefill's "
+          f"{calls['calls']} flash calls on the model's own q, k, v and prefix against "
+          f"float64: worst {calls['kernel_rel']:.4g} (plain bf16 {calls['plain_rel']:.4g}, "
+          f"worst ratio {calls['ratio']:.3f}); card {card}", flush=True)
+    del params, inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = get_config(HUBERT_ARCH)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+    frames = torch.randn((TRAIN_BATCH, TRAIN_SEQ, cfg.frontend_dim), generator=gen).cuda()
+
+    def forward(c, p):
+        with torch.inference_mode():
+            x, _, _ = T.forward_hidden(c, p, {"frames": frames})
+            return T._unembed(c, p, x)
+
+    ops.reset_launch_counts()  # hubert's forward starts here
+    t0 = time.perf_counter()
+    logits = forward(cfg, params)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    got = ops.launch_counts()  # and ends here
+    _add_counts(counts, got)
+    check(tuple(logits.shape) == (TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"{HUBERT_ARCH}: logits {tuple(logits.shape)} not finite or not "
+          f"({TRAIN_BATCH}, {TRAIN_SEQ}, {cfg.vocab_size})")
+    check(got["flash_attention_fwd"] == cfg.n_layers and got["rms_norm_fwd"] > 0,
+          f"{HUBERT_ARCH}: launches {got}, expected {cfg.n_layers} flash and norms")
+    _, calls = _recorded_attention(torch, f"{HUBERT_ARCH} forward", lambda: forward(cfg, params))
+    gate = _logits_gate(torch, f"{HUBERT_ARCH} forward", cfg, params, forward)
+    results[HUBERT_ARCH] = dict(forward_s=t1 - t0, launches=got, logits=gate,
+                                attention_calls=calls)
+    print(f"[frontends] {HUBERT_ARCH} full width, bf16: forward over {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} frames in {(t1 - t0) * 1e3:.1f} ms (the first call), logits finite "
+          f"{tuple(logits.shape)}; launches {got}; vs the plain versions on the card: relative "
+          f"distance from f32 {gate['kernel_rel']:.4g} (plain bf16 {gate['plain_rel']:.4g}), "
+          f"argmax agreeing with f32 on {gate['argmax_agree']:.3f} of frames; each of its "
+          f"{calls['calls']} flash calls against float64: worst {calls['kernel_rel']:.4g} "
+          f"(plain bf16 {calls['plain_rel']:.4g}, worst ratio {calls['ratio']:.3f}); "
+          f"card {card}", flush=True)
+    del params, frames, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name in ("rms_norm_fwd", "flash_attention_fwd", "decode_attention_fwd"):
+        check(counts[name] > 0, f"frontends: kernel {name} was never launched on its path")
+    return counts, results
+
+
+def phase_frontend_train(torch, card):
+    """The two train commands, ``python -m repro_torch.launch.train --arch
+    A --full-config --batch TRAIN_BATCH --seq TRAIN_SEQ`` for paligemma-3b
+    (2.51 B parameters, ~30 GB of state; its 256 patches before the text)
+    and hubert-xlarge (0.95 B, ~11 GB), FRONTEND_TRAIN_STEPS steps each
+    (``phase_train_cli``: exit 0, finite losses, the last below the first,
+    the flash launches of the layer kinds), then each model's bf16
+    ``loss_fn`` gradient at its full
+    width, 2 layers, against the plain backward (``_model_bf16_grads``:
+    every leaf non-zero, ``frontend.proj`` included)."""
+    from repro_torch.configs.archs import get_config
+
+    counts, results = {}, {}
+    for arch in (PALI_ARCH, HUBERT_ARCH):
+        c, results[arch] = phase_train_cli(torch, card, arch, FRONTEND_TRAIN_STEPS)
+        _add_counts(counts, c)
+        _model_bf16_grads(torch, get_config(arch, n_layers=2))
+    return counts, results
+
+
 def _train_launches(cfg):
     """Launches per train step worked out from the layer kinds, with remat
     on the periods only: the periods' blocks run their forward twice
@@ -3239,6 +3649,10 @@ def _expert_loads(torch, cfg, params, batch):
     return torch.stack(loads)
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 9: train full-width gemma-2b and recurrentgemma-2b.
+# ---------------------------------------------------------------------------
 def phase_train(torch, arch, card, profile: bool, layers=None, learn_check=True):
     """12 steps of ``make_train_step`` on full-width ``arch`` (the code path
     of ``python -m repro_torch.launch.train --arch ARCH --full-config``,
@@ -3804,6 +4218,11 @@ def main(argv=None) -> int:
         torch, card, XLSTM_ARCH, XLSTM_TRAIN_STEPS, learn_check=False, batch=XLSTM_TRAIN_BATCH,
         seq=XLSTM_TRAIN_SEQ)
     train["xlstm block grads"] = xlstm_block_grads(torch, card)
+    mark("phase_frontends")
+    phase_counts["frontends"], serve_results["frontends"] = phase_frontends(torch, card)
+    mark("frontend train commands")
+    phase_counts["train commands frontends"], train["frontends"] = phase_frontend_train(
+        torch, card)
     mark(f"{hybrid} train")
     phase_counts[f"train {hybrid}"], train[hybrid] = phase_train(torch, hybrid, card,
                                                                  args.profile)

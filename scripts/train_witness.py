@@ -9,11 +9,12 @@ For each ``--arch`` (default: gemma-2b, recurrentgemma-2b and olmoe-1b-7b
 cut to 8 layers, at full width) it builds the train state with
 ``chip_smoke.train_setup`` (seed 0, batch 2 x 2048, the phase's optimizer),
 scores a fixed held-out batch, runs the phase's 12 steps and scores it
-again; then, unless ``--no-plain``, the same with every kernel of the train
-path (the norm, the flash forward and backward, the RG-LRU scan and its
-backward) swapped for its plain PyTorch version in ``kernels.ref``: the
-witness.  ``--swap`` swaps only the kernels it names (``rms_norm_fwd``,
-``flash_attention_fwd``, ``flash_attention_bwd``, ``rglru_scan_fwd``,
+again; then, unless ``--no-plain``, the same with every kernel of
+``chip_smoke.plain_kernel_sites()`` (the norm, the flash forward and
+backward, the ring decode, the RG-LRU scan and its backward) swapped for its
+plain PyTorch version in ``kernels.ref``: the witness.  ``--swap`` swaps
+only the kernels it names (``rms_norm_fwd``, ``flash_attention_fwd``,
+``flash_attention_bwd``, ``decode_attention_fwd``, ``rglru_scan_fwd``,
 ``rglru_scan_bwd``); ``--swap flash_attention_bwd`` is the backward-only
 witness of a flash-backward change.  One JSON line per run, with the card's name and power limit: the
 train losses, the MoE load-balancing losses, the held-out loss before and
@@ -59,33 +60,21 @@ def main(argv=None) -> int:
         return 1
     import chip_smoke as cs
     from repro_torch.configs.archs import get_config
-    from repro_torch.kernels import flash_attention_bwd as bk
-    from repro_torch.kernels import ops, ref
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip().splitlines()[0]
-    sites = [  # (module, attribute, its plain version)
-        (ops._rmsnorm, "rms_norm_fwd",
-         lambda x, w, eps, offset: ref.rms_norm_ref(x, w, eps=eps, offset=offset)),
-        (ops._flash, "flash_attention_fwd", ref.flash_attention_ref),
-        (bk, "flash_attention_bwd", ref.flash_attention_bwd_ref),
-        (ops._rglru, "rglru_scan_fwd", ref.rglru_scan_ref),
-        (ops._rglru, "rglru_scan_bwd", ref.rglru_scan_bwd_ref),
-    ]
+    sites = cs.plain_kernel_sites()
     if args.swap:
         unknown = set(args.swap) - {attr for _, attr, _ in sites}
         if unknown:
             print(f"train_witness: no kernel named {sorted(unknown)}", file=sys.stderr)
             return 2
         sites = [site for site in sites if site[1] in args.swap]
-    kernels = [getattr(mod, attr) for mod, attr, _ in sites]
     for spec in args.arch or DEFAULT_ARCHS:
         arch, _, layers = spec.partition(":")
         cfg = get_config(arch, n_layers=int(layers)) if layers else get_config(arch)
         for run in ("kernels",) + (() if args.no_plain else ("plain",)):
-            for (mod, attr, plain), kernel in zip(sites, kernels):
-                setattr(mod, attr, plain if run == "plain" else kernel)
-            try:
+            with cs.plain_kernels(sites if run == "plain" else []):
                 step_fn, pipe, state, held_out_loss = cs.train_setup(torch, cfg)
                 before, losses, auxes = held_out_loss(state), [], []
                 for step in range(cs.TRAIN_STEPS):
@@ -95,9 +84,6 @@ def main(argv=None) -> int:
                     losses.append(float(metrics["loss"]))
                     auxes.append(float(metrics["aux"]) if "aux" in metrics else 0.0)
                 after = held_out_loss(state)
-            finally:
-                for (mod, attr, _), kernel in zip(sites, kernels):
-                    setattr(mod, attr, kernel)
             print(json.dumps(dict(
                 src=str(src), card=card, arch=arch, layers=cfg.n_layers,
                 run=run, swapped=[attr for _, attr, _ in sites] if run == "plain" else [],

@@ -51,6 +51,18 @@
 //   left of the window) are skipped by that warpgroup; the block's key
 //   range uses the kt_begin / kt_end logic of the CUDA-core kernel.
 //
+// Prefix-LM (paligemma's image prefix): an optional (B,) int32 device array
+// of prefix lengths.  Query qpos of row b sees key kpos when the band allows
+// it or kpos < prefix[b] (common.cuh ``visible``), the JAX model's mask; the
+// Pallas kernel has no prefix argument, the JAX model applies it in its
+// jnp attention.  A query tile's key range then reaches at least
+// ceil(prefix / tile) (``key_tiles``): under causal, tiles wholly below the
+// diagonal but inside the prefix are visible; a tile that holds prefix keys
+// is masked element by element (it may straddle the prefix end), and the
+// tensor-core kernel's per-warpgroup skip keeps every tile that starts
+// inside the prefix.  The prefix may be any length: tiles are 64 (32) keys,
+// not the JAX model's 1024-key chunk.
+//
 // Semantics, both kernels, as the Pallas kernel's: the finite sentinel
 // -1e30 for masked scores (a row with no valid key is the mean of v), l
 // clamped at 1e-30, the output in q's dtype and an optional f32
@@ -85,7 +97,8 @@ template <typename T, int D, int BK>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
-                 float* __restrict__ lse, int NQ, int G, int S, Strides3 qs,
+                 float* __restrict__ lse, const int* __restrict__ prefix, int NQ, int G,
+                 int S, Strides3 qs,
                  Strides3 ks, Strides3 vs, Strides3 os, int causal, int window,
                  float scale) {
   constexpr int CPT = BK / kLanesPerRow;  // score columns per thread
@@ -104,6 +117,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int row = tid / kLanesPerRow;
   const int lane = tid % kLanesPerRow;
   const int qpos = q0 + row;
+  const int pl = prefix_of(prefix, b, S);
 
   const T* qb = q + b * qs.b + h * qs.h;
   const T* kb = k + b * ks.b + kvh * ks.h;
@@ -119,14 +133,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int j = 0; j < DPT; ++j) acc[j] = 0.f;
   float m = kNegInf, l = 0.f;
 
-  // Key tiles this query tile needs (whole tiles outside the band skipped).
-  int kt_begin = 0;
-  int kt_end = (S + BK - 1) / BK;
-  if (causal) kt_end = min(kt_end, (min(q0 + kBQ, S) - 1) / BK + 1);
-  if (window > 0) {
-    const int lo = q0 - window + 1;  // the smallest key the first row sees
-    if (lo > 0) kt_begin = lo / BK;
-  }
+  // Key tiles this query tile needs (whole tiles outside the band and the
+  // prefix skipped).
+  int kt_begin, kt_end;
+  key_tiles(q0, min(q0 + kBQ, S) - 1, S, BK, causal, window, pl, &kt_begin, &kt_end);
 
   const float* qr = q_s + row * (D + 1);
   float* pr = p_s + row * (BK + 1);
@@ -155,10 +165,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < CPT; ++j) {
       const int kpos = k0 + lane + kLanesPerRow * j;
-      bool ok = true;
-      if (causal) ok = ok && qpos >= kpos;
-      if (window > 0) ok = ok && (qpos - kpos) < window;
-      float s = ok ? sc[j] * scale : kNegInf;
+      float s = visible(qpos, kpos, causal, window, pl) ? sc[j] * scale : kNegInf;
       if (kpos >= S) s = -INFINITY;  // past the sequence: weight exactly 0
       sc[j] = s;
       tile_max = fmaxf(tile_max, s);
@@ -203,9 +210,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse,
-                   int B, int NQ, int NKV, int S, Strides3 qs, Strides3 ks,
-                   Strides3 vs, Strides3 os, int causal, int window, float scale,
-                   cudaStream_t stream) {
+                   const int* prefix, int B, int NQ, int NKV, int S, Strides3 qs,
+                   Strides3 ks, Strides3 vs, Strides3 os, int causal, int window,
+                   float scale, cudaStream_t stream) {
   constexpr int BK = D >= 256 ? 32 : 64;
   constexpr int smem = smem_floats<D, BK>() * (int)sizeof(float);
   static_assert(smem <= 232448, "shared memory over the 227 KB a block may use");
@@ -216,7 +223,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, float
   dim3 grid((S + kBQ - 1) / kBQ, NQ, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), lse, NQ, NQ / NKV, S, qs, ks, vs, os, causal, window, scale);
+      static_cast<T*>(out), lse, prefix, NQ, NQ / NKV, S, qs, ks, vs, os, causal, window,
+      scale);
   return cudaGetLastError();
 }
 
@@ -261,8 +269,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                        const __grid_constant__ CUtensorMap kmap,
                        const __grid_constant__ CUtensorMap vmap, T* __restrict__ out,
-                       float* __restrict__ lse, int NQ, int G, int S, Strides3 os, int causal,
-                       int window, float scale_log2) {
+                       float* __restrict__ lse, const int* __restrict__ prefix, int NQ, int G,
+                       int S, Strides3 os, int causal, int window, float scale_log2) {
   using L = Layout<D>;
   constexpr int NST = L::kStages;
   extern __shared__ uint8_t smem_raw[];
@@ -282,15 +290,12 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   const int kvh = h / G;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  const int pl = prefix_of(prefix, b, S);
 
-  // Key tiles this query tile needs (whole tiles outside the band skipped).
-  int kt_begin = 0;
-  int kt_end = (S + kBK - 1) / kBK;
-  if (causal) kt_end = min(kt_end, (min(q0 + kBQ, S) - 1) / kBK + 1);
-  if (window > 0) {
-    const int lo = q0 - window + 1;  // the smallest key the first row sees
-    if (lo > 0) kt_begin = lo / kBK;
-  }
+  // Key tiles this query tile needs (whole tiles outside the band and the
+  // prefix skipped).
+  int kt_begin, kt_end;
+  key_tiles(q0, min(q0 + kBQ, S) - 1, S, kBK, causal, window, pl, &kt_begin, &kt_end);
 
   if (threadIdx.x == 0) {
     for (int st = 0; st < NST; ++st) {
@@ -361,9 +366,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * kBK;
     mbar_wait(full(st), phase);
-    // Whole tiles this warpgroup's rows cannot see contribute exactly 0.
-    const bool active = wg_lo < S && !(causal && k0 > wg_hi) &&
-                        !(window > 0 && k0 + kBK - 1 < wg_lo - window + 1);
+    // Whole tiles this warpgroup's rows cannot see contribute exactly 0; a
+    // tile that starts inside the prefix is seen by every row.
+    const bool active = wg_lo < S && (k0 < pl || (!(causal && k0 > wg_hi) &&
+                                                  !(window > 0 && k0 + kBK - 1 < wg_lo - window + 1)));
     if (active) {
       const uint32_t k_s = base + L::kK + st * L::kTileBytes;
       const uint32_t v_s = base + L::kV + st * L::kTileBytes;
@@ -384,7 +390,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       wgmma_wait<0>();
       fence_regs(s);
 
-      // Scale into log2 units; mask only on tiles that straddle the band or S.
+      // Scale into log2 units; mask only on tiles that straddle the band or
+      // S.  A tile wholly inside the band sees every pair, so its prefix
+      // keys change nothing there.
       const bool edge = k0 + kBK > S || (causal && k0 + kBK - 1 > wg_lo) ||
                         (window > 0 && k0 < wg_hi - window + 1);
 #pragma unroll
@@ -393,9 +401,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         if (edge) {
           const int row = r0 + 8 * ((i >> 1) & 1);
           const int col = k0 + 8 * (i / 4) + 2 * t + (i & 1);
-          bool ok = true;
-          if (causal) ok = ok && row >= col;
-          if (window > 0) ok = ok && (row - col) < window;
+          const bool ok = visible(row, col, causal, window, pl);
           x = col >= S ? -INFINITY : (ok ? x : kNegInfL2);  // past S: weight exactly 0
         }
         s[i] = x;
@@ -496,9 +502,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse,
-                   int B, int NQ, int NKV, int S, Strides3 qs, Strides3 ks,
-                   Strides3 vs, Strides3 os, int causal, int window, float scale,
-                   cudaStream_t stream) {
+                   const int* prefix, int B, int NQ, int NKV, int S, Strides3 qs,
+                   Strides3 ks, Strides3 vs, Strides3 os, int causal, int window,
+                   float scale, cudaStream_t stream) {
   const CUtensorMapDataType dt = std::is_same<T, __half>::value
                                      ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
@@ -513,8 +519,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, float
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((S + kBQ - 1) / kBQ, NQ, B);
-  kernel<<<grid, kThreads, smem, stream>>>(qmap, kmap, vmap, static_cast<T*>(out), lse, NQ,
-                                           NQ / NKV, S, os, causal, window, scale * kLog2e);
+  kernel<<<grid, kThreads, smem, stream>>>(qmap, kmap, vmap, static_cast<T*>(out), lse, prefix,
+                                           NQ, NQ / NKV, S, os, causal, window, scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -525,12 +531,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, float
 // 80, 96: the 128-byte swizzle boxes are 64 features wide).
 template <typename T>
 cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v, void* out,
-                       float* lse, int B, int NQ, int NKV, int S, Strides3 qs,
+                       float* lse, const int* prefix, int B, int NQ, int NKV, int S, Strides3 qs,
                        Strides3 ks, Strides3 vs, Strides3 os, int causal, int window,
                        float scale, cudaStream_t stream) {
   constexpr bool k16 = !std::is_same<T, float>::value;
 #define REPRO_FLASH_ARGS \
-  q, k, v, out, lse, B, NQ, NKV, S, qs, ks, vs, os, causal, window, scale, stream
+  q, k, v, out, lse, prefix, B, NQ, NKV, S, qs, ks, vs, os, causal, window, scale, stream
   switch (D) {
     case 16: return cc::launch<T, 16>(REPRO_FLASH_ARGS);
     case 32: return cc::launch<T, 32>(REPRO_FLASH_ARGS);
@@ -557,9 +563,11 @@ using repro_torch::Strides3;
 
 // q: (B, NQ, S, D), k/v: (B, NKV, S, D), out: (B, NQ, S, D) addressed through
 // the given element strides (feature dim contiguous); lse: (B, NQ, S) f32,
-// contiguous, or null.  Returns cudaGetLastError() after the launch.
+// contiguous, or null; prefix: (B,) int32 prefix-LM lengths, or null (no
+// prefix).  Returns cudaGetLastError() after the launch.
 extern "C" int flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* out, void* lse, int dtype,
+    const void* q, const void* k, const void* v, void* out, void* lse, const void* prefix,
+    int dtype,
     int B, int NQ, int NKV, int S, int D,
     long long q_sb, long long q_sh, long long q_ss,
     long long k_sb, long long k_sh, long long k_ss,
@@ -572,17 +580,18 @@ extern "C" int flash_attention_fwd(
   const Strides3 qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss}, vs{v_sb, v_sh, v_ss},
       os{o_sb, o_sh, o_ss};
   float* lse_f = static_cast<float*>(lse);
+  const int* pre = static_cast<const int*>(prefix);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (dtype) {
     case kF32:
-      err = dispatch_d<float>(D, q, k, v, out, lse_f, B, NQ, NKV, S, qs, ks, vs, os, causal, window, scale, st);
+      err = dispatch_d<float>(D, q, k, v, out, lse_f, pre, B, NQ, NKV, S, qs, ks, vs, os, causal, window, scale, st);
       break;
     case kBF16:
-      err = dispatch_d<__nv_bfloat16>(D, q, k, v, out, lse_f, B, NQ, NKV, S, qs, ks, vs, os, causal, window, scale, st);
+      err = dispatch_d<__nv_bfloat16>(D, q, k, v, out, lse_f, pre, B, NQ, NKV, S, qs, ks, vs, os, causal, window, scale, st);
       break;
     case kF16:
-      err = dispatch_d<__half>(D, q, k, v, out, lse_f, B, NQ, NKV, S, qs, ks, vs, os, causal, window, scale, st);
+      err = dispatch_d<__half>(D, q, k, v, out, lse_f, pre, B, NQ, NKV, S, qs, ks, vs, os, causal, window, scale, st);
       break;
     default:
       err = cudaErrorInvalidValue;

@@ -61,6 +61,13 @@
 // floor of 0.1391 ms.
 // Whole tiles outside the causal / window band are skipped exactly as in the
 // forward; masks are applied only on tiles that straddle the band or S.
+// Prefix-LM (an optional (B,) int32 array of prefix lengths, as in the
+// forward; common.cuh ``visible``): a query tile's keys reach at least the
+// end of its row's prefix (``key_tiles``), a key tile that starts inside the
+// prefix is seen by every query tile from 0 (``query_tiles``), and every
+// tile that holds prefix keys is masked element by element.  The wgmma
+// route's plan and fold order are unchanged: tiles are walked in the same
+// order, the prefix only widens the range.
 //
 // Occupancy.  One block of three warpgroups (384 threads) per SM: the
 // producer drops to 24 registers (setmaxnreg), the two consumer warpgroups
@@ -108,18 +115,12 @@ struct BwdArgs {
   void* dq;
   void* dk;
   void* dv;
+  const int* prefix; // (B,) prefix-LM lengths, or null
   int NQ, G, S;
   Strides3 qs, ks, vs, os, dos, dqs, dks, dvs;
   int causal, window;
   float scale;
 };
-
-__device__ __forceinline__ bool visible(int qpos, int kpos, int causal, int window) {
-  bool ok = true;
-  if (causal) ok = ok && qpos >= kpos;
-  if (window > 0) ok = ok && (qpos - kpos) < window;
-  return ok;
-}
 
 // ---------------------------------------------------------------------------
 // CUDA-core path (f32 operands).
@@ -156,6 +157,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(BwdArgs a) {
   const int lane = tid % kDqLanes;
   const int qpos = q0 + row;
   const bool row_in = qpos < S;
+  const int pl = prefix_of(a.prefix, b, S);
 
   const T* qb = static_cast<const T*>(a.q) + b * a.qs.b + h * a.qs.h;
   const T* ob = static_cast<const T*>(a.out) + b * a.os.b + h * a.os.h;
@@ -195,14 +197,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(BwdArgs a) {
 #pragma unroll
   for (int j = 0; j < DPT; ++j) acc[j] = 0.f;
 
-  // Key tiles this query tile sees (whole tiles outside the band skipped).
-  int kt_begin = 0;
-  int kt_end = (S + BK - 1) / BK;
-  if (a.causal) kt_end = min(kt_end, (min(q0 + kDqBQ, S) - 1) / BK + 1);
-  if (a.window > 0) {
-    const int lo = q0 - a.window + 1;  // the smallest key the first row sees
-    if (lo > 0) kt_begin = lo / BK;
-  }
+  // Key tiles this query tile sees (whole tiles outside the band and the
+  // prefix skipped).
+  int kt_begin, kt_end;
+  key_tiles(q0, min(q0 + kDqBQ, S) - 1, S, BK, a.causal, a.window, pl, &kt_begin, &kt_end);
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * BK;
@@ -232,7 +230,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(BwdArgs a) {
     for (int j = 0; j < CPT; ++j) {
       const int c = lane + kDqLanes * j;
       const int kpos = k0 + c;
-      const float s = visible(qpos, kpos, a.causal, a.window) ? sc[j] * a.scale : kNegInf;
+      const float s = visible(qpos, kpos, a.causal, a.window, pl) ? sc[j] * a.scale : kNegInf;
       const float p = (row_in && kpos < S) ? expf(s - lse) : 0.f;
       dsr[c] = p * (dp[j] - delta) * a.scale;
     }
@@ -291,6 +289,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(BwdArgs a) {
   const int row = tid / LANES;
   const int lane = tid % LANES;
   const int kpos = k0 + row;
+  const int pl = prefix_of(a.prefix, b, S);
 
   const T* kb = static_cast<const T*>(a.k) + b * a.ks.b + kvh * a.ks.h;
   const T* vb = static_cast<const T*>(a.v) + b * a.vs.b + kvh * a.vs.h;
@@ -305,14 +304,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(BwdArgs a) {
 #pragma unroll
   for (int j = 0; j < DPT; ++j) dk[j] = dv[j] = 0.f;
 
-  // Query tiles that see this key tile (whole tiles outside the band skipped).
-  const int n_qt = (S + BQ - 1) / BQ;
-  const int qt_begin = a.causal ? k0 / BQ : 0;
-  int qt_end = n_qt;
-  if (a.window > 0) {
-    const int hi = min(k0 + BK, S) - 1 + a.window - 1;  // the largest query the last key reaches
-    qt_end = min(n_qt, hi / BQ + 1);
-  }
+  // Query tiles that see this key tile (whole tiles outside the band
+  // skipped; a tile of prefix keys is seen by every query tile).
+  int qt_begin, qt_end;
+  query_tiles(k0, min(k0 + BK, S) - 1, S, BQ, a.causal, a.window, pl, &qt_begin, &qt_end);
 
   const float* kr = k_s + row * (D + 1);
   const float* vr = v_s + row * (D + 1);
@@ -357,7 +352,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(BwdArgs a) {
       for (int j = 0; j < CPT; ++j) {
         const int r = lane + LANES * j;
         const int qpos = q0 + r;
-        const float s = visible(qpos, kpos, a.causal, a.window) ? sc[j] * a.scale : kNegInf;
+        const float s = visible(qpos, kpos, a.causal, a.window, pl) ? sc[j] * a.scale : kNegInf;
         const float p = qpos < S ? expf(s - lse_s[r]) : 0.f;
         pr[r] = p;
         dsr[r] = p * (dp[j] - dl_s[r]) * a.scale;
@@ -546,6 +541,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_tc_kernel(TcArgs t) {
   const int b = blockIdx.z;
   const int kvh = h / a.G;
   const int tid = threadIdx.x;
+  const int pl = prefix_of(a.prefix, b, S);
 
   const T* qb = static_cast<const T*>(a.q) + b * a.qs.b + h * a.qs.h;
   const T* ob = static_cast<const T*>(a.out) + b * a.os.b + h * a.os.h;
@@ -578,13 +574,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_tc_kernel(TcArgs t) {
 #pragma unroll
   for (int i = 0; i < Tile::FPW; ++i) wmma::fill_fragment(acc[i], 0.f);
 
-  int kt_begin = 0;
-  int kt_end = (S + kTcB - 1) / kTcB;
-  if (a.causal) kt_end = min(kt_end, (min(q0 + kTcB, S) - 1) / kTcB + 1);
-  if (a.window > 0) {
-    const int lo = q0 - a.window + 1;
-    if (lo > 0) kt_begin = lo / kTcB;
-  }
+  int kt_begin, kt_end;
+  key_tiles(q0, min(q0 + kTcB, S) - 1, S, kTcB, a.causal, a.window, pl, &kt_begin, &kt_end);
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * kTcB;
@@ -596,8 +587,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_tc_kernel(TcArgs t) {
     __syncthreads();
     for (int i = tid; i < kTcB * kTcB; i += kThreads) {
       const int r = i / kTcB, c = i % kTcB, qpos = q0 + r, kpos = k0 + c;
-      const float s = visible(qpos, kpos, a.causal, a.window) ? s_s[r * kSL + c] * a.scale
-                                                              : kNegInf;
+      const float s = visible(qpos, kpos, a.causal, a.window, pl) ? s_s[r * kSL + c] * a.scale
+                                                                  : kNegInf;
       const float p = (qpos < S && kpos < S) ? expf(s - lse_s[r]) : 0.f;
       ds_s[r * kPL + c] = from_f32<T>(p * (dp_s[r * kSL + c] - dl_s[r]) * a.scale);
     }
@@ -646,6 +637,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_tc_kernel(TcArgs t) {
   const T* qb = static_cast<const T*>(a.q) + b * a.qs.b + h * a.qs.h;
   const T* dob = static_cast<const T*>(a.dout) + b * a.dos.b + h * a.dos.h;
   const long long lbase = ((long long)b * a.NQ + h) * S;
+  const int pl = prefix_of(a.prefix, b, S);
   load_tile<T, D, L>(k_s, kb, a.ks.s, k0, S, t.vec);
   load_tile<T, D, L>(v_s, vb, a.vs.s, k0, S, t.vec);
 
@@ -656,13 +648,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_tc_kernel(TcArgs t) {
     wmma::fill_fragment(dv[i], 0.f);
   }
 
-  const int n_qt = (S + kTcB - 1) / kTcB;
-  const int qt_begin = a.causal ? k0 / kTcB : 0;
-  int qt_end = n_qt;
-  if (a.window > 0) {
-    const int hi = min(k0 + kTcB, S) - 1 + a.window - 1;
-    qt_end = min(n_qt, hi / kTcB + 1);
-  }
+  int qt_begin, qt_end;
+  query_tiles(k0, min(k0 + kTcB, S) - 1, S, kTcB, a.causal, a.window, pl, &qt_begin, &qt_end);
 
   for (int qt = qt_begin; qt < qt_end; ++qt) {
     const int q0 = qt * kTcB;
@@ -679,8 +666,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_tc_kernel(TcArgs t) {
     __syncthreads();
     for (int i = tid; i < kTcB * kTcB; i += kThreads) {
       const int c = i / kTcB, r = i % kTcB, kpos = k0 + c, qpos = q0 + r;
-      const float s = visible(qpos, kpos, a.causal, a.window) ? st_s[c * kSL + r] * a.scale
-                                                              : kNegInf;
+      const float s = visible(qpos, kpos, a.causal, a.window, pl) ? st_s[c * kSL + r] * a.scale
+                                                                  : kNegInf;
       const float p = (qpos < S && kpos < S) ? expf(s - lse_s[r]) : 0.f;
       pt_s[c * kPL + r] = from_f32<T>(p);
       dst_s[c * kPL + r] = from_f32<T>(p * (dpt_s[c * kSL + r] - dl_s[r]) * a.scale);
@@ -901,6 +888,7 @@ struct Params {
   float* part1;
   const float* lse2;    // (B, NQ, S_pad): lse * log2(e), 0 past S
   const float* delta;   // (B, NQ, S_pad): rowsum(dout * out), 0 past S
+  const int* prefix;    // (B,) prefix-LM lengths, or null
   Strides3 o0s, o1s;
   int B, NQ, NKV, G, S, S_pad, causal, window, hpg, n_groups;
   float scale, scale_log2;
@@ -949,20 +937,15 @@ __device__ __forceinline__ void bwd_block(const CUtensorMap* a1map, const CUtens
     b = rest / p.NQ;
   }
   const int row_last = min(row0b + L::kRows, S) - 1;
+  const int pl = prefix_of(p.prefix, b, S);
 
-  // Streamed tiles the fixed rows see (whole tiles outside the band skipped).
-  int t_begin = 0;
-  int t_end = (S + kTile - 1) / kTile;
-  if constexpr (DKV) {  // q tiles that see keys row0b .. row_last
-    if (p.causal) t_begin = row0b / kTile;
-    if (p.window > 0) t_end = min(t_end, (row_last + p.window - 1) / kTile + 1);
-  } else {  // key tiles that q rows row0b .. row_last see
-    if (p.causal) t_end = min(t_end, row_last / kTile + 1);
-    if (p.window > 0) {
-      const int lo = row0b - p.window + 1;
-      if (lo > 0) t_begin = lo / kTile;
-    }
-  }
+  // Streamed tiles the fixed rows see (whole tiles outside the band and the
+  // prefix skipped).
+  int t_begin, t_end;
+  if constexpr (DKV)  // q tiles that see keys row0b .. row_last
+    query_tiles(row0b, row_last, S, kTile, p.causal, p.window, pl, &t_begin, &t_end);
+  else  // key tiles that q rows row0b .. row_last see
+    key_tiles(row0b, row_last, S, kTile, p.causal, p.window, pl, &t_begin, &t_end);
   const int n_t = max(0, t_end - t_begin);
   const int n_items = n_heads * n_t;  // dk / dv: heads outer, q tiles inner
 
@@ -1059,15 +1042,18 @@ __device__ __forceinline__ void bwd_block(const CUtensorMap* a1map, const CUtens
     const int q_lo = DKV ? c0 : wrow0, q_hi = q_lo + 63;
     const int k_lo = DKV ? wrow0 : c0, k_hi = k_lo + 63;
     // Whole tiles with no visible pair contribute exactly 0 (the same for
-    // both warpgroups in split mode, so both skip the swap together).
-    const bool active = q_lo < S && k_lo < S && !(p.causal && k_lo > q_hi) &&
-                        !(p.window > 0 && q_lo - k_hi >= p.window);
+    // both warpgroups in split mode, so both skip the swap together); a
+    // tile that starts inside the prefix is seen by every query.
+    const bool active = q_lo < S && k_lo < S &&
+                        (k_lo < pl || (!(p.causal && k_lo > q_hi) &&
+                                       !(p.window > 0 && q_lo - k_hi >= p.window)));
     if (active) {
       const uint32_t b1 = base + L::kB + st * 2 * L::kTileBytes;
       const uint32_t b2 = b1 + L::kTileBytes;
       const float* const vl = reinterpret_cast<const float*>(gbase + L::kVec + st * (2 * kTile * 4));
       const float* const vd = vl + kTile;
-      // Mask only on tiles that straddle the band or S.
+      // Mask only on tiles that straddle the band or S (a tile wholly inside
+      // the band sees every pair, its prefix keys included).
       const bool edge = q_hi >= S || k_hi >= S || (p.causal && k_hi > q_lo) ||
                         (p.window > 0 && q_hi - k_lo >= p.window);
 
@@ -1124,9 +1110,7 @@ __device__ __forceinline__ void bwd_block(const CUtensorMap* a1map, const CUtens
             const float x = sc[i] * p.scale_log2;
             float pr;
             if (edge) {
-              bool ok = true;
-              if (p.causal) ok = ok && q >= key;
-              if (p.window > 0) ok = ok && (q - key) < p.window;
+              const bool ok = visible(q, key, p.causal, p.window, pl);
               pr = (q >= S || key >= S) ? 0.f : exp2f((ok ? x : kNegInfL2) - l);
             } else {
               pr = exp2f(x - l);
@@ -1373,6 +1357,7 @@ struct Operands {
   const void *q, *k, *v, *out, *dout;
   const float* lse;
   float *lse2, *delta, *part0, *part1;
+  const int* prefix;
   void *dq, *dk, *dv;
   Strides3 qs, ks, vs, os, dos, dqs, dks, dvs;
   int B, NQ, NKV, S, S_pad, rows, hpg, causal, window;
@@ -1425,6 +1410,7 @@ cudaError_t launch(const Operands& o, cudaStream_t stream) {
   Params p{};
   p.lse2 = o.lse2;
   p.delta = o.delta;
+  p.prefix = o.prefix;
   p.B = o.B; p.NQ = o.NQ; p.NKV = o.NKV; p.G = G; p.S = o.S; p.S_pad = o.S_pad;
   p.causal = o.causal; p.window = o.window; p.hpg = o.hpg; p.n_groups = n_groups;
   p.scale = o.scale;
@@ -1481,7 +1467,8 @@ using repro_torch::TcArgs;
 // cudaGetLastError() after the launch.
 extern "C" int flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* out, const void* dout,
-    const void* lse, void* delta, void* dq, int dtype, int B, int NQ, int NKV, int S, int D,
+    const void* lse, void* delta, void* dq, const void* prefix, int dtype, int B, int NQ,
+    int NKV, int S, int D,
     long long q_sb, long long q_sh, long long q_ss,
     long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss,
@@ -1495,6 +1482,7 @@ extern "C" int flash_attention_bwd_dq(
   a.lse = static_cast<const float*>(lse);
   a.delta = static_cast<float*>(delta);
   a.dq = dq;
+  a.prefix = static_cast<const int*>(prefix);
   a.NQ = NQ; a.G = NQ / NKV; a.S = S;
   a.qs = Strides3{q_sb, q_sh, q_ss};
   a.ks = Strides3{k_sb, k_sh, k_ss};
@@ -1513,8 +1501,8 @@ extern "C" int flash_attention_bwd_dq(
 // (else ignored; may be null).
 extern "C" int flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout, const void* lse,
-    const void* delta, void* dk, void* dv, void* dk_part, void* dv_part, int dtype, int B,
-    int NQ, int NKV, int S, int D,
+    const void* delta, void* dk, void* dv, void* dk_part, void* dv_part, const void* prefix,
+    int dtype, int B, int NQ, int NKV, int S, int D,
     long long q_sb, long long q_sh, long long q_ss,
     long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss,
@@ -1528,6 +1516,7 @@ extern "C" int flash_attention_bwd_dkv(
   a.lse = static_cast<const float*>(lse);
   a.delta = const_cast<float*>(static_cast<const float*>(delta));
   a.dk = dk; a.dv = dv;
+  a.prefix = static_cast<const int*>(prefix);
   a.NQ = NQ; a.G = NQ / NKV; a.S = S;
   a.qs = Strides3{q_sb, q_sh, q_ss};
   a.ks = Strides3{k_sb, k_sh, k_ss};
@@ -1555,7 +1544,8 @@ extern "C" int flash_attention_bwd_dkv(
 extern "C" int flash_attention_bwd_tc(
     const void* q, const void* k, const void* v, const void* out, const void* dout,
     const void* lse, void* lse2, void* delta, void* part_dk, void* part_dv, void* dq, void* dk,
-    void* dv, int dtype, int B, int NQ, int NKV, int S, int D, int S_pad, int rows,
+    void* dv, const void* prefix, int dtype, int B, int NQ, int NKV, int S, int D, int S_pad,
+    int rows,
     int heads_per_group,
     long long q_sb, long long q_sh, long long q_ss,
     long long k_sb, long long k_sh, long long k_ss,
@@ -1576,6 +1566,7 @@ extern "C" int flash_attention_bwd_tc(
   o.part0 = static_cast<float*>(part_dk);
   o.part1 = static_cast<float*>(part_dv);
   o.dq = dq; o.dk = dk; o.dv = dv;
+  o.prefix = static_cast<const int*>(prefix);
   o.qs = Strides3{q_sb, q_sh, q_ss};
   o.ks = Strides3{k_sb, k_sh, k_ss};
   o.vs = Strides3{v_sb, v_sh, v_ss};

@@ -14,7 +14,8 @@ tensor-core kernel (``wgmma`` fed by TMA), everything else (f32, and D =
 16, 32, 80, 96) to the CUDA-core kernel.  TMA needs 16-byte-aligned
 operands and byte strides that are multiples of 16; the wrapper raises for
 a tensor-core call that breaks that rule (nothing falls back to the other
-kernel).
+kernel).  An optional (B,) int32 ``prefix_len`` adds the prefix-LM term of
+the JAX model's mask (paligemma's image prefix) on both kernels.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ import torch
 from repro_torch.kernels.counters import LaunchCounter
 from repro_torch.kernels.cuda_build import check_launch, library
 
-__all__ = ["flash_attention_fwd", "flash_route", "launches", "HEAD_DIMS"]
+__all__ = ["flash_attention_fwd", "flash_route", "check_prefix", "launches", "HEAD_DIMS"]
 
 launches = LaunchCounter("flash_attention_fwd")
 HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)  # every attention kernel has these
@@ -61,17 +62,30 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = library("flash_attention")
-    lib.flash_attention_fwd.argtypes = [_P] * 5 + [_I] * 6 + [_L] * 12 + [_I, _I, _F, _P]
+    lib.flash_attention_fwd.argtypes = [_P] * 6 + [_I] * 6 + [_L] * 12 + [_I, _I, _F, _P]
     lib.flash_attention_fwd.restype = ctypes.c_int
     return lib
 
 
+def check_prefix(what: str, prefix_len, q) -> None:
+    """Raise unless ``prefix_len`` is a (B,) int32 tensor on q's device (or
+    None): the kernels read it as a device array of C ints."""
+    if prefix_len is None:
+        return
+    if (prefix_len.device != q.device or prefix_len.dtype != torch.int32
+            or tuple(prefix_len.shape) != (q.shape[0],) or not prefix_len.is_contiguous()):
+        raise ValueError(f"{what}: prefix_len must be a contiguous ({q.shape[0]},) int32 "
+                         f"tensor on {q.device}")
+
+
 def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
-                        scale=None, return_lse: bool = False):
+                        scale=None, return_lse: bool = False, prefix_len=None):
     """q: (B, NQ, S, D); k, v: (B, NKV, S, D) -> (B, NQ, S, D) in q's dtype
     (+ f32 LSE (B, NQ, S) when ``return_lse``).  Any S; D in
     :data:`HEAD_DIMS`; GQA kv head ``q_head // (NQ // NKV)``.  Each operand
-    needs a contiguous last dim; other strides are free."""
+    needs a contiguous last dim; other strides are free.  ``prefix_len``:
+    (B,) int32 prefix-LM lengths on the same device, or None; every query
+    of row b also sees keys ``< prefix_len[b]``."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"flash_attention_fwd: {name} must be on {q.device} (CUDA)")
@@ -92,6 +106,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"flash_attention_fwd: NQ={NQ} not a multiple of NKV={NKV}")
     if window < 0:
         raise ValueError("flash_attention_fwd: window must be >= 0")
+    check_prefix("flash_attention_fwd", prefix_len, q)
     if scale is None:
         scale = D**-0.5
     if flash_route(q.dtype, D) == "wgmma":
@@ -107,6 +122,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
             err = lib.flash_attention_fwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 lse.data_ptr() if lse is not None else None,
+                prefix_len.data_ptr() if prefix_len is not None else None,
                 DTYPE_CODES[q.dtype], B, NQ, NKV, S, D,
                 *(q.stride(i) for i in range(3)),
                 *(k.stride(i) for i in range(3)),

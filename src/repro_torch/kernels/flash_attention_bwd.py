@@ -36,7 +36,8 @@ from repro_torch.kernels.counters import LaunchCounter
 from repro_torch.kernels.cuda_build import check_launch, library
 from repro_torch.kernels.decode_attention import _sm_count
 from repro_torch.kernels.flash_attention import (DTYPE_CODES, HEAD_DIMS,
-                                                  TENSOR_CORE_HEAD_DIMS, check_16b)
+                                                  TENSOR_CORE_HEAD_DIMS, check_16b,
+                                                  check_prefix)
 
 __all__ = ["flash_attention_bwd", "bwd_route", "bwd_plan", "wgmma_rows", "launches"]
 
@@ -90,10 +91,10 @@ def bwd_plan(B: int, NQ: int, NKV: int, S: int, D: int, sm_count: int):
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = library("flash_attention_bwd")
-    for fn, n_ptrs in ((lib.flash_attention_bwd_dq, 8), (lib.flash_attention_bwd_dkv, 10)):
+    for fn, n_ptrs in ((lib.flash_attention_bwd_dq, 9), (lib.flash_attention_bwd_dkv, 11)):
         fn.argtypes = [_P] * n_ptrs + [_I] * 6 + [_L] * 18 + [_I, _I, _F, _P]
         fn.restype = ctypes.c_int
-    lib.flash_attention_bwd_tc.argtypes = [_P] * 13 + [_I] * 9 + [_L] * 24 + [_I, _I, _F, _P]
+    lib.flash_attention_bwd_tc.argtypes = [_P] * 14 + [_I] * 9 + [_L] * 24 + [_I, _I, _F, _P]
     lib.flash_attention_bwd_tc.restype = ctypes.c_int
     return lib
 
@@ -103,12 +104,13 @@ def _strides(*ts):
 
 
 def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True, window: int = 0,
-                        scale=None):
+                        scale=None, prefix_len=None):
     """q, out, dout: (B, NQ, S, D); k, v: (B, NKV, S, D); lse: (B, NQ, S) f32
     from the forward kernel.  Returns ``(dq, dk, dv)`` in the dtypes and
     shapes of q, k, v.  Any S; D in :data:`HEAD_DIMS`; GQA kv head
     ``q_head // (NQ // NKV)``.  Each operand needs a contiguous last dim;
-    other strides are free."""
+    other strides are free.  ``prefix_len``: the forward's (B,) int32
+    prefix-LM lengths, or None."""
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout)):
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"flash_attention_bwd: {name} must be on {q.device} (CUDA)")
@@ -135,6 +137,7 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True, window:
         raise ValueError(f"flash_attention_bwd: NQ={NQ} not a multiple of NKV={NKV}")
     if window < 0:
         raise ValueError("flash_attention_bwd: window must be >= 0")
+    check_prefix("flash_attention_bwd", prefix_len, q)
     if scale is None:
         scale = D**-0.5
     route = bwd_route(q.dtype, D)
@@ -148,6 +151,7 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True, window:
     if B * S:
         lib = _lib()
         tail = (int(bool(causal)), int(window), float(scale))
+        pre = prefix_len.data_ptr() if prefix_len is not None else None
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             if route == "wgmma":
@@ -161,18 +165,18 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True, window:
                     lse.data_ptr(), vec[0].data_ptr(), vec[1].data_ptr(),
                     *((part[0].data_ptr(), part[1].data_ptr()) if part is not None
                       else (None, None)),
-                    dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                    dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), pre,
                     DTYPE_CODES[q.dtype], B, NQ, NKV, S, D, S_pad, rows, hpg,
                     *_strides(q, k, v, out, dout, dq, dk, dv), *tail, stream,
                 )
                 check_launch(lib, err, "flash_attention_bwd (wgmma)")
             else:
-                _launch_two_pass(lib, q, k, v, out, dout, lse, dq, dk, dv, tail, stream)
+                _launch_two_pass(lib, q, k, v, out, dout, lse, dq, dk, dv, pre, tail, stream)
         launches.add()
     return dq, dk, dv
 
 
-def _launch_two_pass(lib, q, k, v, out, dout, lse, dq, dk, dv, tail, stream):
+def _launch_two_pass(lib, q, k, v, out, dout, lse, dq, dk, dv, pre, tail, stream):
     """The "wmma" and "cuda_core" routes: the dq launch, then the dk/dv one."""
     B, NQ, S, D = q.shape
     NKV = k.shape[1]
@@ -186,14 +190,14 @@ def _launch_two_pass(lib, q, k, v, out, dout, lse, dq, dk, dv, tail, stream):
     dims = (DTYPE_CODES[q.dtype], B, NQ, NKV, S, D)
     err = lib.flash_attention_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *dims,
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), pre, *dims,
         *_strides(q, k, v, out, dout, dq), *tail, stream,
     )
     check_launch(lib, err, "flash_attention_bwd (dq)")
     err = lib.flash_attention_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *(None if t is None else t.data_ptr() for t in part), *dims,
+        *(None if t is None else t.data_ptr() for t in part), pre, *dims,
         *_strides(q, k, v, dout, dk, dv), *tail, stream,
     )
     check_launch(lib, err, "flash_attention_bwd (dk/dv)")

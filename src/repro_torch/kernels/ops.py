@@ -81,28 +81,29 @@ class RMSNorm(torch.autograd.Function):
 class FlashAttention(torch.autograd.Function):
     """Prefill attention with a gradient (kernel layout).  Forward: the
     flash kernel with its f32 LSE on CUDA, the plain version on the CPU;
-    saves q, k, v, out and the LSE.  Backward: the hand-written backward
-    kernel on CUDA, :func:`ref.flash_attention_bwd_ref` on the CPU, both
-    recomputing from the LSE as the JAX model's ``custom_vjp`` does."""
+    saves q, k, v, out, the LSE and the prefix lengths (or None).
+    Backward: the hand-written backward kernel on CUDA,
+    :func:`ref.flash_attention_bwd_ref` on the CPU, both recomputing from
+    the LSE under the same mask, as the JAX model's ``custom_vjp`` does."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, scale):
+    def forward(ctx, q, k, v, causal, window, scale, prefix_len):
         out, lse = _flash_fwd(q, k, v, causal=causal, window=window, scale=scale,
-                              return_lse=True)
-        ctx.save_for_backward(q, k, v, out, lse)
+                              return_lse=True, prefix_len=prefix_len)
+        ctx.save_for_backward(q, k, v, out, lse, prefix_len)
         ctx.causal, ctx.window, ctx.scale = causal, window, scale
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
+        q, k, v, out, lse, prefix_len = ctx.saved_tensors
         if dout.stride(-1) != 1:
             dout = dout.contiguous()
         bwd = (ref.flash_attention_bwd_ref if q.device.type == "cpu"
                else _flash_bwd.flash_attention_bwd)
         dq, dk, dv = bwd(q, k, v, out, dout, lse, causal=ctx.causal, window=ctx.window,
-                         scale=ctx.scale)
-        return dq, dk, dv, None, None, None
+                         scale=ctx.scale, prefix_len=prefix_len)
+        return dq, dk, dv, None, None, None, None
 
 
 class RGLRUScan(torch.autograd.Function):
@@ -135,13 +136,15 @@ def _rms_norm_fwd(x, w, *, eps, offset):
     return _rmsnorm.rms_norm_fwd(x, w, eps=eps, offset=offset)
 
 
-def _flash_fwd(q, k, v, *, causal, window, scale, return_lse):
+def _flash_fwd(q, k, v, *, causal, window, scale, return_lse, prefix_len=None):
     if q.device.type == "cpu":
         return ref.flash_attention_ref(
-            q, k, v, causal=causal, window=window, scale=scale, return_lse=return_lse
+            q, k, v, causal=causal, window=window, scale=scale, return_lse=return_lse,
+            prefix_len=prefix_len,
         )
     return _flash.flash_attention_fwd(
-        q, k, v, causal=causal, window=window, scale=scale, return_lse=return_lse
+        q, k, v, causal=causal, window=window, scale=scale, return_lse=return_lse,
+        prefix_len=prefix_len,
     )
 
 
@@ -152,13 +155,15 @@ def rms_norm(x, w, *, eps: float = 1e-6, offset: bool = False):
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    scale=None, return_lse: bool = False):
-    """Kernel layout: q (B, NQ, S, D); k, v (B, NKV, S, D).  Differentiable
-    (through :class:`FlashAttention`) unless ``return_lse``."""
+                    scale=None, return_lse: bool = False, prefix_len=None):
+    """Kernel layout: q (B, NQ, S, D); k, v (B, NKV, S, D); ``prefix_len``
+    (B,) int32 prefix-LM lengths on q's device, or None.  Differentiable
+    (through :class:`FlashAttention`) unless ``return_lse``.  A CUDA call
+    with a prefix goes to the kernels like any other."""
     if not return_lse and _records(q, k, v):
-        return FlashAttention.apply(q, k, v, causal, window, scale)
+        return FlashAttention.apply(q, k, v, causal, window, scale, prefix_len)
     return _flash_fwd(q, k, v, causal=causal, window=window, scale=scale,
-                      return_lse=return_lse)
+                      return_lse=return_lse, prefix_len=prefix_len)
 
 
 def decode_attention(q, k_cache, v_cache, slot_pos, pos, *, window: int = 0,

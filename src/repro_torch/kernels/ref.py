@@ -72,7 +72,10 @@ def rms_norm_bwd_ref(x, w, dy, *, eps: float = 1e-6, offset: bool = False):
     return dx.to(x.dtype), dw.to(w.dtype)
 
 
-def _scores_mask(sq: int, skv: int, *, causal: bool, window: int, device):
+def _scores_mask(sq: int, skv: int, *, causal: bool, window: int, device, prefix_len=None):
+    """The visible (query, key) pairs: (sq, skv), or (B, 1, 1, sq, skv) with
+    ``prefix_len`` (B,), the JAX model's rule ``(causal & window) | (kpos <
+    prefix_len[b])``: every query sees its row's prefix keys."""
     qpos = torch.arange(sq, device=device)[:, None]
     kpos = torch.arange(skv, device=device)[None, :]
     ok = torch.ones(sq, skv, dtype=torch.bool, device=device)
@@ -80,16 +83,20 @@ def _scores_mask(sq: int, skv: int, *, causal: bool, window: int, device):
         ok &= qpos >= kpos
     if window:
         ok &= (qpos - kpos) < window
+    if prefix_len is not None:
+        pre = kpos < prefix_len.to(device=device, dtype=torch.long)[:, None, None]
+        ok = (ok | pre)[:, None, None]
     return ok
 
 
 def attention_bsnd(q, k, v, *, causal: bool = True, window: int = 0,
-                   scale: Optional[float] = None, return_lse: bool = False):
+                   scale: Optional[float] = None, return_lse: bool = False, prefix_len=None):
     """Naive attention in the model layout.
 
     q: (B, Sq, NQ, HD); k, v: (B, Skv, NKV, HD), NQ % NKV == 0 (GQA kv head
-    ``q_head // G``).  Returns (B, Sq, NQ, HD) in q's dtype, plus the f32
-    log-sum-exp (B, NQ, Sq) when ``return_lse``.
+    ``q_head // G``); ``prefix_len``: (B,) int or None, the prefix-LM
+    boundary (see :func:`_scores_mask`).  Returns (B, Sq, NQ, HD) in q's
+    dtype, plus the f32 log-sum-exp (B, NQ, Sq) when ``return_lse``.
     """
     B, Sq, NQ, HD = q.shape
     Skv, NKV = k.shape[1], k.shape[2]
@@ -97,8 +104,9 @@ def attention_bsnd(q, k, v, *, causal: bool = True, window: int = 0,
     if scale is None:
         scale = HD**-0.5
     qg = q.reshape(B, Sq, NKV, G, HD)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * scale
-    ok = _scores_mask(Sq, Skv, causal=causal, window=window, device=q.device)
+    s = torch.einsum("bqkgd,bskd->bkgqs", _f32_at_least(qg), _f32_at_least(k)) * scale
+    ok = _scores_mask(Sq, Skv, causal=causal, window=window, device=q.device,
+                      prefix_len=prefix_len)
     s = torch.where(ok, s, torch.full_like(s, _NEG_INF))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype), v)
@@ -122,7 +130,8 @@ def decode_bsnd(q, k_cache, v_cache, slot_pos, pos, *, window: int = 0,
     if scale is None:
         scale = HD**-0.5
     qg = q.reshape(B, 1, NKV, G, HD)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k_cache.float()) * scale
+    s = torch.einsum("bqkgd,bskd->bkgqs", _f32_at_least(qg),
+                     _f32_at_least(k_cache)) * scale
     pos = pos.to(slot_pos.dtype)[:, None]
     ok = (slot_pos >= 0) & (slot_pos <= pos)
     if window:
@@ -143,6 +152,11 @@ def paged_decode_bsnd(q, k_pool, v_pool, page_tables, pos, *, window: int = 0,
     absolute position ``i``: gather the dense (B, NB * page) view and mask
     it with ``slot_pos = arange``, as ``models/attention.py`` of the JAX
     package does.
+
+    Each row is its own batch-1 call: a batched ``einsum`` may sum a row's
+    scores in another order at another batch size (measured on an AVX-512
+    CPU: 1.9e-6 apart at B = 8 against B = 1), and a padded ladder batch
+    must give its real rows bitwise what they get alone.
     """
     P, page, NKV, HD = k_pool.shape
     B, NB = page_tables.shape
@@ -151,16 +165,22 @@ def paged_decode_bsnd(q, k_pool, v_pool, page_tables, pos, *, window: int = 0,
     flat = (page_tables.long()[:, :, None] * page + offs).reshape(B, S)
     k_dense = k_pool.reshape(P * page, NKV, HD)[flat]  # (B, S, NKV, HD)
     v_dense = v_pool.reshape(P * page, NKV, HD)[flat]
-    slot_pos = torch.arange(S, dtype=torch.int32, device=q.device).expand(B, S)
-    return decode_bsnd(q, k_dense, v_dense, slot_pos, pos, window=window, scale=scale)
+    slot_pos = torch.arange(S, dtype=torch.int32, device=q.device).expand(1, S)
+    return torch.cat([
+        decode_bsnd(q[b:b + 1], k_dense[b:b + 1], v_dense[b:b + 1], slot_pos, pos[b:b + 1],
+                    window=window, scale=scale)
+        for b in range(B)
+    ])
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
-                        scale: Optional[float] = None, return_lse: bool = False):
+                        scale: Optional[float] = None, return_lse: bool = False,
+                        prefix_len=None):
     """Kernel layout: q (B, NQ, S, D); k, v (B, NKV, S, D) -> (B, NQ, S, D)."""
     res = attention_bsnd(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         causal=causal, window=window, scale=scale, return_lse=return_lse,
+        prefix_len=prefix_len,
     )
     if return_lse:
         return res[0].transpose(1, 2), res[1]
@@ -280,7 +300,7 @@ def decode_attention_paged_split_ref(q, k_pool, v_pool, page_tables, pos, *, n_s
 
 
 def flash_attention_bwd_ref(q, k, v, out, dout, lse, *, causal: bool = True,
-                            window: int = 0, scale: Optional[float] = None):
+                            window: int = 0, scale: Optional[float] = None, prefix_len=None):
     """Backward of :func:`flash_attention_ref`, recomputed from the LSE.
 
     Kernel layout: q, out, dout (B, NQ, S, D); k, v (B, NKV, S, D); lse
@@ -301,7 +321,8 @@ def flash_attention_bwd_ref(q, k, v, out, dout, lse, *, causal: bool = True,
     kf, vf = k.float(), v.float()
     delta = (dout.float() * out.float()).sum(-1).reshape(B, NKV, G, S, 1)
     s = torch.einsum("bkgqd,bksd->bkgqs", qf, kf) * scale
-    ok = _scores_mask(S, S, causal=causal, window=window, device=q.device)
+    ok = _scores_mask(S, S, causal=causal, window=window, device=q.device,
+                      prefix_len=prefix_len)
     s = torch.where(ok, s, torch.full_like(s, _NEG_INF))
     p = torch.exp(s - lse.float().reshape(B, NKV, G, S, 1))
     dp = torch.einsum("bkgqd,bksd->bkgqs", dof, vf)
@@ -315,7 +336,7 @@ def flash_attention_bwd_ref(q, k, v, out, dout, lse, *, causal: bool = True,
 def flash_attention_bwd_tiled_ref(q, k, v, out, dout, lse, *, causal: bool = True,
                                   window: int = 0, scale: Optional[float] = None,
                                   block_q: int = 64, block_k: int = 64,
-                                  heads_per_group: Optional[int] = None):
+                                  heads_per_group: Optional[int] = None, prefix_len=None):
     """Test-only model of the wgmma backward's arithmetic
     (``csrc/flash_attention_bwd.cu``, namespace ``tcb``), in f32.
 
@@ -330,7 +351,11 @@ def flash_attention_bwd_tiled_ref(q, k, v, out, dout, lse, *, causal: bool = Tru
     = p * (dp - delta) * scale`` are f32; ds is rounded to q's dtype before
     its products, and p enters ``p^T . dout`` as two products, of p rounded
     to q's dtype and of its remainder ``p - rnd(p)`` rounded (no-ops in
-    f32).  Kernel layout, as
+    f32).  With ``prefix_len`` the bands reach every row's prefix: a q
+    tile's keys run to ``ceil(prefix / block_k)`` at least, and a key tile
+    that starts inside a prefix is seen from q tile 0 on, as in the
+    kernel; the largest prefix of the batch sets them, and a tile some rows
+    do not see adds exact zeros there.  Kernel layout, as
     :func:`flash_attention_bwd_ref`; returns ``(dq, dk, dv)`` in the dtypes
     of q, k and v.
     """
@@ -347,7 +372,11 @@ def flash_attention_bwd_tiled_ref(q, k, v, out, dout, lse, *, causal: bool = Tru
     qf, kf, vf, dof = (t.float() for t in (q, k, v, dout))
     delta = (dout.float() * out.float()).sum(-1)
     lsef = lse.float()
-    ok = _scores_mask(S, S, causal=causal, window=window, device=q.device)
+    ok = _scores_mask(S, S, causal=causal, window=window, device=q.device,
+                      prefix_len=prefix_len)
+    if prefix_len is not None:
+        ok = ok[:, 0]  # (B, 1, S, S): one mask per row, shared by its heads
+    pmax = 0 if prefix_len is None else int(prefix_len.max().clamp(0, S))
 
     def scores(h, q0, q1, k0, k1):
         """p, ds of q heads ``h`` (a tensor of indices), rows q0:q1, keys k0:k1."""
@@ -355,7 +384,7 @@ def flash_attention_bwd_tiled_ref(q, k, v, out, dout, lse, *, causal: bool = Tru
         qt, dot = qf[:, h, q0:q1], dof[:, h, q0:q1]
         kt, vt = kf[:, kvh, k0:k1], vf[:, kvh, k0:k1]
         s = torch.einsum("bhqd,bhkd->bhqk", qt, kt) * scale
-        s = torch.where(ok[q0:q1, k0:k1], s, torch.full_like(s, _NEG_INF))
+        s = torch.where(ok[..., q0:q1, k0:k1], s, torch.full_like(s, _NEG_INF))
         p = torch.exp(s - lsef[:, h, q0:q1, None])
         dp = torch.einsum("bhqd,bhkd->bhqk", dot, vt)
         return p, p * (dp - delta[:, h, q0:q1, None]) * scale
@@ -367,12 +396,12 @@ def flash_attention_bwd_tiled_ref(q, k, v, out, dout, lse, *, causal: bool = Tru
         q1 = min(q0 + block_q, S)
         begin, end = 0, n_kt
         if causal:
-            end = min(end, (q1 - 1) // block_k + 1)
-        if window and q0 - window + 1 > 0:
+            end = min(end, max((q1 - 1) // block_k + 1, -(-pmax // block_k)))
+        if window and q0 - window + 1 > 0 and not pmax:
             begin = (q0 - window + 1) // block_k
         for kt in range(begin, end):
             k0, k1 = kt * block_k, min(kt * block_k + block_k, S)
-            if not ok[q0:q1, k0:k1].any():
+            if not ok[..., q0:q1, k0:k1].any():
                 continue
             _, ds = scores(heads, q0, q1, k0, k1)
             dq[:, :, q0:q1] += torch.einsum("bhqk,bhkd->bhqd", rnd(ds), kf[:, heads // G, k0:k1])
@@ -382,9 +411,10 @@ def flash_attention_bwd_tiled_ref(q, k, v, out, dout, lse, *, causal: bool = Tru
     n_qt = -(-S // block_q)
     for k0 in range(0, S, block_k):
         k1 = min(k0 + block_k, S)
-        begin = k0 // block_q if causal else 0
+        in_prefix = k0 < pmax  # seen by every query of some row
+        begin = k0 // block_q if causal and not in_prefix else 0
         end = n_qt
-        if window:
+        if window and not in_prefix:
             end = min(end, (k1 - 1 + window - 1) // block_q + 1)
         parts = []
         for g0 in range(0, G, hpg):
@@ -394,7 +424,7 @@ def flash_attention_bwd_tiled_ref(q, k, v, out, dout, lse, *, causal: bool = Tru
                 h = torch.arange(NKV, device=q.device) * G + j
                 for qt in range(begin, end):
                     q0, q1 = qt * block_q, min(qt * block_q + block_q, S)
-                    if not ok[q0:q1, k0:k1].any():
+                    if not ok[..., q0:q1, k0:k1].any():
                         continue
                     p, ds = scores(h, q0, q1, k0, k1)
                     pv += torch.einsum("bhqk,bhqd->bhkd", rnd(p), dof[:, h, q0:q1])

@@ -21,7 +21,11 @@ weights, gradients and f32 moments alone exceed its memory is refused with
 that reckoning before anything is allocated (llama4-scout), and one that
 runs out of memory exits 1 with it (olmoe-1b-7b: 6.92 B parameters, ~83 GB
 of the 85 GB before any activation).  Every served stack trains, MoE
-stacks with their load-balancing loss (``aux`` on the step lines).  The
+stacks with their load-balancing loss (``aux`` on the step lines), and the
+two frontends: hubert-xlarge trains on seeded 512-d frames (a
+bidirectional encoder) and paligemma-3b on seeded 1152-d image patches
+before its text (prefix-LM over the patches), both at full width on one
+card (~11 GB and ~30 GB of state).  The
 hybrid recurrentgemma-2b reduced to one period plus its (recurrent,
 recurrent) epilogue is ``--layers 5``.
 
@@ -29,6 +33,8 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b --full-config
   PYTHONPATH=src python -m repro_torch.launch.train --arch recurrentgemma-2b --full-config --batch 2 --seq 2048
   PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-350m --full-config --batch 8 --seq 128
+  PYTHONPATH=src python -m repro_torch.launch.train --arch hubert-xlarge --full-config --batch 2 --seq 2048
+  PYTHONPATH=src python -m repro_torch.launch.train --arch paligemma-3b --full-config --batch 2 --seq 2048
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --arch llama3-8b --steps 100
 """
 from __future__ import annotations

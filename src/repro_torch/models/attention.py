@@ -9,8 +9,10 @@ call copies q, k, v, the cache or the pool.  :func:`flash_attention` is
 differentiable: when autograd records, it runs through
 ``ops.FlashAttention`` (forward kernel with its LSE, backward kernel
 recomputing from it), the counterpart of the JAX model's ``custom_vjp``.
+Its masks are the JAX model's: causal, sliding window, bidirectional
+(hubert) and prefix-LM (paligemma: every query also sees its row's first
+``prefix_len[b]`` keys), all inside the kernels.
 :func:`attention_reference` is the plain naive attention (the oracle).
-Prefix-LM masking is not ported yet.
 """
 from __future__ import annotations
 
@@ -23,20 +25,22 @@ __all__ = ["flash_attention", "attention_reference", "decode_attention",
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    scale: Optional[float] = None):
-    """q: (B, S, NQ, HD); k, v: (B, S, NKV, HD) -> (B, S, NQ, HD) in q's dtype.
-    Differentiable in q, k and v; the gradients come back in this layout."""
+                    scale: Optional[float] = None, prefix_len=None):
+    """q: (B, S, NQ, HD); k, v: (B, S, NKV, HD) -> (B, S, NQ, HD) in q's dtype;
+    ``prefix_len``: (B,) int32 prefix-LM lengths, or None.  Differentiable
+    in q, k and v; the gradients come back in this layout."""
     out = ops.flash_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        causal=causal, window=window, scale=scale,
+        causal=causal, window=window, scale=scale, prefix_len=prefix_len,
     )
     return out.transpose(1, 2)
 
 
 def attention_reference(q, k, v, *, causal: bool = True, window: int = 0,
-                        scale: Optional[float] = None):
+                        scale: Optional[float] = None, prefix_len=None):
     """Naive O(S^2) attention, same layout and masks as :func:`flash_attention`."""
-    return ref.attention_bsnd(q, k, v, causal=causal, window=window, scale=scale)
+    return ref.attention_bsnd(q, k, v, causal=causal, window=window, scale=scale,
+                              prefix_len=prefix_len)
 
 
 def decode_attention(q, k_cache, v_cache, slot_pos, pos, *, window: int = 0,

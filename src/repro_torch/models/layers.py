@@ -39,12 +39,13 @@ def rms_norm(x, weight, *, eps: float = 1e-6, offset: bool = False):
     return ops.rms_norm(x, weight, eps=eps, offset=offset)
 
 
-def rope(positions, head_dim: int, theta: float):
-    """Rotary tables: positions (..., S) -> (sin, cos) each (..., S, head_dim // 2) f32."""
+def rope(positions, head_dim: int, theta: float, dtype=torch.float32):
+    """Rotary tables: positions (..., S) -> (sin, cos) each (..., S, head_dim // 2)
+    in ``dtype`` (f32; float64 for a float64 model)."""
     half = head_dim // 2
-    exponent = -torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
-    freq = torch.pow(torch.tensor(theta, dtype=torch.float32, device=positions.device), exponent)
-    angle = positions.float()[..., None] * freq
+    exponent = -torch.arange(0, half, dtype=dtype, device=positions.device) / half
+    freq = torch.pow(torch.tensor(theta, dtype=dtype, device=positions.device), exponent)
+    angle = positions.to(dtype)[..., None] * freq
     return torch.sin(angle), torch.cos(angle)
 
 
@@ -54,7 +55,8 @@ def apply_rope(x, sin, cos):
     if sin.dim() == x.dim() - 1:  # (B, S, half) -> broadcast over heads
         sin = sin[..., None, :]
         cos = cos[..., None, :]
-    x1f, x2f = x[..., :half].float(), x[..., half:].float()
+    wide = torch.promote_types(x.dtype, torch.float32)
+    x1f, x2f = x[..., :half].to(wide), x[..., half:].to(wide)
     out = torch.cat([x1f * cos - x2f * sin, x2f * cos + x1f * sin], dim=-1)
     return out.to(x.dtype)
 

@@ -42,8 +42,12 @@ Every block kind over token inputs is ported: attention (``attn``,
 ``local``), MoE (``moe``: attention plus :mod:`~repro_torch.models.moe`),
 RG-LRU (``recurrent``) and xLSTM (``mlstm`` with its (C, n) state, ``slstm``
 with its (c, n, h, m) state, both f32 and updated in place like the
-RG-LRU's).  The audio/vision frontends and prefix-LM raise
-``NotImplementedError``.  Every stack that is served also trains: a MoE
+RG-LRU's), and both input frontends of the JAX package: ``audio`` (hubert:
+frame embeddings through ``frontend.proj``, a bidirectional encoder with
+no decode step) and ``vision`` (paligemma: patch embeddings through
+``frontend.proj``, scaled like the tokens and put before them, with
+prefix-LM attention over the patches, whose length rides in
+:class:`SeqContext` into the attention kernels).  Every stack that is served also trains: a MoE
 block's load-balancing loss is summed over the stack in the reference's
 order (the blocks of a period, then the periods, then the epilogue) and
 :func:`loss_fn` adds ``0.01 *`` that sum to the cross-entropy.  Serving
@@ -80,6 +84,7 @@ from repro_torch.models.config import ModelConfig
 __all__ = [
     "check_supported",
     "model_spec",
+    "unreached_leaves",
     "init_params",
     "params_from_numpy",
     "numpy_to_torch",
@@ -103,18 +108,28 @@ _KINDS = ("attn", "local", "moe", "recurrent", "mlstm", "slstm")
 _ATTN_KINDS = ("attn", "local", "moe")
 
 
-def check_supported(cfg: ModelConfig, device=None) -> None:
+_FRONTENDS = ("none", "audio", "vision")
+
+
+def check_supported(cfg: ModelConfig, device=None, decode: bool = False) -> None:
     """Raise ``NotImplementedError`` for a config outside the ported subset
     and, when ``device`` is a CUDA device, for a head dim that the attention
     kernels do not have (:data:`~repro_torch.kernels.flash_attention.HEAD_DIMS`),
     so such a model is refused before any weight is allocated and not at
-    its first attention call.  The CPU's plain versions take any head dim."""
+    its first attention call.  The CPU's plain versions take any head dim.
+    With ``decode`` (a decode cache, a decode step, a serving backend),
+    raise ``ValueError`` for an encoder-only config (hubert), which has no
+    decode step, as the JAX package's ``configs/shapes.skip_reason`` says."""
     kinds = tuple(cfg.pattern) + tuple(cfg.epilogue)
     bad = sorted({k for k in kinds if k not in _KINDS})
     if bad:
         raise NotImplementedError(f"{cfg.name}: block kinds {bad} are not ported yet")
-    if cfg.frontend != "none" or cfg.prefix_lm:
-        raise NotImplementedError(f"{cfg.name}: frontends / prefix-LM are not ported yet")
+    if cfg.frontend not in _FRONTENDS:
+        raise ValueError(f"{cfg.name}: unknown frontend {cfg.frontend!r} "
+                         f"(the configs know {_FRONTENDS})")
+    if decode and cfg.encoder_only:
+        raise ValueError(f"{cfg.name}: encoder-only architecture has no decode step "
+                         "(no decode cache, no generation); run forward_hidden / loss_fn")
     if (device is not None and torch.device(device).type == "cuda"
             and any(k in _ATTN_KINDS for k in kinds) and cfg.head_dim not in HEAD_DIMS):
         raise NotImplementedError(
@@ -166,9 +181,20 @@ def model_spec(cfg: ModelConfig):
     }
     if not cfg.tie_embeddings:
         spec["head"] = (d, cfg.vocab_size)
+    if cfg.frontend != "none":
+        spec["frontend"] = {"proj": (cfg.frontend_dim, d)}
     spec["periods"] = tuple(block_spec(cfg, k) for k in cfg.pattern)
     spec["epilogue"] = tuple(block_spec(cfg, k) for k in cfg.epilogue)
     return spec
+
+
+def unreached_leaves(cfg: ModelConfig) -> frozenset:
+    """Paths (``named_leaves``') of the parameters that no input of ``cfg``
+    reaches: an audio encoder's token embedding when its head is untied.
+    ``jax.grad`` gives them zero gradients."""
+    if cfg.frontend == "audio" and not cfg.tie_embeddings:
+        return frozenset({"embed/tokens"})
+    return frozenset()
 
 
 def _is_leaf_spec(node) -> bool:
@@ -302,6 +328,8 @@ class SeqContext:
     # shared physical KV pool.  None => the dense ring-buffer cache path.
     page_tables: Optional[torch.Tensor] = None  # (B, NB) int32 page ids
     page_size: int = 0
+    # Prefix-LM (paligemma's image prefix): (B,) int32 lengths, or None.
+    prefix_len: Optional[torch.Tensor] = None
 
 
 def _norm(cfg, w, x):
@@ -368,7 +396,8 @@ def _attention(cfg, p, x, ctx: SeqContext, kind: str, cache):
             vc = _kv_dequant(vc, cache["v_scale"], v.dtype)
         out = decode_attention(q, kc, vc, cache["slot_pos"], pos, window=window)
     else:
-        out = flash_attention(q, k, v, causal=cfg.causal, window=window)
+        out = flash_attention(q, k, v, causal=cfg.causal, window=window,
+                              prefix_len=ctx.prefix_len)
         if cache is not None:
             # Prefill cache write: prompt positions 0..S-1 land in one or two
             # static slices of the ring (the tail of the prompt if S > ring).
@@ -477,7 +506,7 @@ def _block_cache(cfg, kind, batch, max_len, dtype, device, lead=()):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
     dev = resolve_device(device)
-    check_supported(cfg, dev)
+    check_supported(cfg, dev, decode=True)
     dtype = getattr(torch, cfg.dtype)
     periods = tuple(
         _block_cache(cfg, k, batch, max_len, dtype, dev, lead=(cfg.n_periods,))
@@ -491,16 +520,37 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
 # Forward passes.
 # ---------------------------------------------------------------------------
 def _embed_inputs(cfg, params, batch_inputs):
-    """-> (x (B, S, D), positions (B, S) int32)."""
+    """-> (x (B, S, D), positions (B, S) int32, prefix_len (B,) int32 or None).
+
+    ``audio``: x is ``frames @ frontend.proj``.  ``vision`` with
+    ``patches`` (B, P, frontend_dim) in the batch (prefill, training; not
+    a decode step): the patches' embeddings, scaled like the tokens', go
+    before the tokens, and every row's first P positions are its prefix."""
     dtype = getattr(torch, cfg.dtype)
+    if cfg.frontend == "audio":
+        frames = batch_inputs["frames"]  # (B, S, frontend_dim)
+        x = frames.to(dtype) @ params["frontend"]["proj"]
+        B, S = x.shape[:2]
+        return x, torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S), None
     tokens = batch_inputs["tokens"]
     x = params["embed"]["tokens"][tokens].to(dtype)
-    if cfg.emb_scale:
-        # sqrt(d_model) rounded to the model dtype first, as in the JAX model.
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dtype, device=x.device)
+    # sqrt(d_model) rounded to the model dtype first, as in the JAX model.
+    emb_scale = (torch.tensor(math.sqrt(cfg.d_model), dtype=dtype, device=x.device)
+                 if cfg.emb_scale else None)
+    if emb_scale is not None:
+        x = x * emb_scale
+    prefix_len = None
+    if cfg.frontend == "vision" and "patches" in batch_inputs:
+        patches = batch_inputs["patches"]  # (B, P, frontend_dim)
+        pe = patches.to(dtype) @ params["frontend"]["proj"]
+        if emb_scale is not None:
+            pe = pe * emb_scale
+        x = torch.cat([pe, x], dim=1)
+        prefix_len = torch.full((x.shape[0],), patches.shape[1], dtype=torch.int32,
+                                device=x.device)
     B, S = x.shape[:2]
     pos = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
-    return x, pos
+    return x, pos, prefix_len
 
 
 def _unstack(tree, n: int):
@@ -571,12 +621,13 @@ def forward_hidden(cfg, params, batch_inputs, cache=None, decode=False, position
     (updated in place; with ``page_tables``, decode only, a paged pool) and
     the stack's load-balancing loss (an f32 scalar, or None: see
     :func:`_run_stack`)."""
-    x, pos = _embed_inputs(cfg, params, batch_inputs)
+    x, pos, prefix_len = _embed_inputs(cfg, params, batch_inputs)
     if positions is not None:
         pos = positions
-    sin, cos = layers.rope(pos, cfg.head_dim, cfg.rope_theta)
+    sin, cos = layers.rope(pos, cfg.head_dim, cfg.rope_theta,
+                           dtype=torch.promote_types(x.dtype, torch.float32))
     ctx = SeqContext(positions=pos, sin=sin, cos=cos, decode=decode,
-                     page_tables=page_tables, page_size=page_size)
+                     page_tables=page_tables, page_size=page_size, prefix_len=prefix_len)
     x, aux = _run_stack(cfg, params, x, ctx, cache=cache)
     return _norm(cfg, params["final_norm"], x), cache, aux
 
@@ -606,8 +657,11 @@ def _xent_chunk(x, w, labels):
 
 
 def loss_fn(cfg, params, batch):
-    """Chunked softmax-xent.  ``batch``: ``tokens`` (B, S) and ``labels``
-    (B, S_out); labels < 0 are ignored (prefix / padding).  Returns
+    """Chunked softmax-xent.  ``batch``: the inputs (``tokens`` (B, S);
+    ``frames`` for audio; ``patches`` beside the tokens for vision, whose
+    hidden states then run P positions longer) and ``labels`` (B, S_out),
+    aligned with the last S_out positions; labels < 0 are ignored (prefix /
+    padding).  Returns
     ``(loss, metrics)`` with ``loss = xent + 0.01 * aux`` and the metrics
     ``xent``, ``aux`` (the stack's MoE load-balancing loss; 0 without MoE
     blocks) and ``tokens`` (valid labels), all f32, as the JAX package's
@@ -641,8 +695,12 @@ def loss_fn(cfg, params, batch):
 
 
 def prefill(cfg, params, batch_inputs, max_len: int):
-    """Run the prompt, returning (cache, last-position logits (B, V) f32)."""
-    tokens = batch_inputs["tokens"]
+    """Run the prompt, returning (cache, last-position logits (B, V) f32).
+    The prompt is ``tokens``, with ``patches`` before them for a vision
+    model (the cache then holds P + S positions, and decode continues at
+    position P + S), or ``frames`` for audio (refused: an encoder-only
+    model has no decode cache)."""
+    tokens = batch_inputs.get("tokens", batch_inputs.get("frames"))
     cache = init_cache(cfg, tokens.shape[0], max_len, device=tokens.device)
     x, _, _ = forward_hidden(cfg, params, batch_inputs, cache=cache)
     return cache, _unembed(cfg, params, x[:, -1:])[:, 0]

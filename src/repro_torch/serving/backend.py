@@ -448,7 +448,7 @@ class JitBackend(ExecutionBackend):
         self.device = resolve_device(device)
 
     def register(self, v: Variant) -> None:
-        T.check_supported(v.cfg, self.device)
+        T.check_supported(v.cfg, self.device, decode=True)
         self.variants[v.name] = v
 
     def generate(self, name, tokens, n_steps, greedy=True):
@@ -762,7 +762,7 @@ class ContinuousBatchingBackend(ExecutionBackend):
 
     # -- registration / warmup ------------------------------------------------
     def register(self, v: Variant) -> None:
-        T.check_supported(v.cfg, self.device)
+        T.check_supported(v.cfg, self.device, decode=True)
         self.variants[v.name] = v
         self._engines[v.name] = _ContinuousEngine(v, self.geometry, self.device)
         if self._obs is not None:

@@ -26,7 +26,7 @@ from repro_torch.distributed import compression
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.training.optimizer import OptimizerConfig, adamw_update, init_opt_state
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import named_leaves, tree_map
 
 __all__ = ["TrainConfig", "init_train_state", "train_state_from_numpy", "make_train_step"]
 
@@ -88,9 +88,17 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
     metrics are ``loss``, ``grad_norm``, ``lr``, ``xent``, ``aux`` and
     ``tokens`` (f32 scalars)."""
 
+    unreached = transformer.unreached_leaves(cfg)
+
     def grads_of(params, batch):
         loss, metrics = transformer.loss_fn(cfg, params, batch)
-        grads = iter(torch.autograd.grad(loss, tree_leaves(params)))
+        # A leaf no input reaches gets a zero gradient, as jax.grad gives
+        # it; any other leaf cut off from the loss makes autograd raise.
+        leaves = list(named_leaves(params))
+        reached = iter(torch.autograd.grad(
+            loss, [p for name, p in leaves if name not in unreached]))
+        grads = iter([torch.zeros_like(p) if name in unreached else next(reached)
+                      for name, p in leaves])
         return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
                 tree_map(lambda _: next(grads), params))
 

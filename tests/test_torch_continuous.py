@@ -2,9 +2,10 @@
 
 * the block-paged slot ledger conserves slots and pages;
 * ``prefill_ragged``, ``graft_prefill``/``graft_prefill_batch`` and 8
-  ``paged_decode_step``s match their JAX twins on bridged weights in f32:
-  logits to atol 1e-5, cache rows and grafted pool entries at real
-  positions to atol 1e-5 + rtol 1e-5, greedy tokens exactly;
+  ``paged_decode_step``s match their JAX twins on bridged weights: greedy
+  tokens exactly in f32; the values through a float64 run of each package
+  from the same weights (fed the JAX f32 run's tokens), see
+  :func:`_assert_f64_twins`;
 * ``ContinuousBatchingBackend.generate`` is token-equal to the JAX
   continuous backend and to the port's own ``JitBackend`` (ladder sizes and
   padded partials), mid-flight joins are token-exact, early releases
@@ -14,12 +15,15 @@
 * every decode token reaches the future before it resolves (streaming),
   and ``serve.main --continuous --stream`` prints the tier's summary line.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+from jax_f64 import Jnp64  # noqa: E402
 
 import repro.serving.backend as jbackend  # noqa: E402
 from repro.configs import reduced as j_reduced  # noqa: E402
@@ -27,6 +31,8 @@ from repro.configs.mdinference_zoo import ServingGeometry as JGeometry  # noqa: 
 from repro.core.network import LognormalNetwork as JLognormal  # noqa: E402
 from repro.core.registry import ModelProfile as JProfile  # noqa: E402
 from repro.core.registry import ModelRegistry as JRegistry  # noqa: E402
+from repro.models import attention as jattention  # noqa: E402
+from repro.models import layers as jlayers  # noqa: E402
 from repro.models import transformer as JT  # noqa: E402
 from repro.serving.loadgen import PoissonArrivals as JPoisson  # noqa: E402
 from repro.serving.loadgen import make_trace as j_make_trace  # noqa: E402
@@ -46,15 +52,17 @@ from repro_torch.serving.engine import ServingEngine  # noqa: E402
 from repro_torch.serving.loadgen import PoissonArrivals, make_trace  # noqa: E402
 from repro_torch.serving.loop import ServingLoop  # noqa: E402
 from repro_torch.serving.scheduler import MDInferenceScheduler, SchedulerConfig  # noqa: E402
+from repro_torch.tree import tree_map  # noqa: E402
 
 PROMPT, GEN = 8, 4
 GEO_ARGS = dict(max_len=32, prompt_width=PROMPT, bs_ladder=(1, 2, 4), n_slots=8,
                 page_size=8, max_steps=8)
 GEO, JGEO = ServingGeometry(**GEO_ARGS), JGeometry(**GEO_ARGS)
-# f32, bridged weights.  K/V entries reach |14|, where the two packages'
-# summation orders (the JAX prefill sums attention in chunks) differ by one
-# part in 1e6: cache and pool leaves get rtol 1e-5 beside atol 1e-5.
-ATOL, RTOL = 1e-5, 1e-5
+# Bounds of the f32 runs against float64, each a share of the float64
+# array's largest entry (see _assert_f64_twins): measured worst 9.8e-6 for
+# logits (gemma's decode step 6, both packages) and 3.4e-6 for K/V (gemma's
+# prefill keys, |k| up to 18), on an AVX-512 CPU.
+F32_LOGITS, F32_KV, F64_TWINS = 2e-5, 1e-5, 1e-12
 
 
 def _twin_variant(name, width=64, n_layers=2, seed=0, quality=80.0, arch="gemma-2b",
@@ -120,21 +128,18 @@ TABLES = np.array([[3, 7, 1, 12], [9, 2, 14, 0], [5, 11, 0, 0]], np.int32)  # sc
 N_PAGES = 16
 
 
-@pytest.fixture(scope="module", params=sorted(MODEL_ARCHS))
-def paged_runs(request):
-    """prefill_ragged -> graft -> 8 paged decode steps on both packages."""
-    jv, tv = _twin_variant("m", seed=5, **MODEL_ARCHS[request.param])
-    jcfg, cfg = jv.cfg, tv.cfg
-    tokens = _prompts(3, seed=7, width=W)
+def _paged_pair(jcfg, jparams, cfg, params, tokens, forced=None):
+    """prefill_ragged -> graft -> 8 paged decode steps on both packages.
+    Each side decodes its own greedy tokens, or ``forced[i]`` at step i."""
     jpre = jax.jit(lambda p, t, lens: JT.prefill_ragged(jcfg, p, {"tokens": t}, lens, W))
     jgraft = jax.jit(lambda pool, pc, tbl: JT.graft_prefill_batch(jcfg, pool, pc, tbl, PAGE))
     jgraft1 = jax.jit(lambda pool, pc, tbl: JT.graft_prefill(jcfg, pool, pc, 1, tbl, PAGE))
     jdec = jax.jit(lambda p, pool, tbl, tok, pos: JT.paged_decode_step(
         jcfg, p, pool, tbl, tok, pos, PAGE))
     out = {}
-    jcache, jlogits = jpre(jv.params, jnp.asarray(tokens), jnp.asarray(LENGTHS))
+    jcache, jlogits = jpre(jparams, jnp.asarray(tokens), jnp.asarray(LENGTHS))
     with torch.inference_mode():
-        cache, logits = T.prefill_ragged(cfg, tv.params, {"tokens": torch.as_tensor(tokens)},
+        cache, logits = T.prefill_ragged(cfg, params, {"tokens": torch.as_tensor(tokens)},
                                          torch.as_tensor(LENGTHS), W)
         out["prefill"] = (logits.numpy().copy(), np.asarray(jlogits),
                           jax.tree.map(lambda t: t.numpy().copy(), cache),
@@ -160,9 +165,11 @@ def paged_runs(request):
         tok[:3] = np.argmax(np.asarray(jlogits), -1)
         jtok, ttok = jnp.asarray(tok), torch.as_tensor(tok)
         steps = []
-        for _ in range(8):
-            jl, jpool = jdec(jv.params, jpool, jnp.asarray(tables), jtok, jnp.asarray(pos))
-            tl, pool = T.paged_decode_step(cfg, tv.params, pool, torch.as_tensor(tables),
+        for i in range(8):
+            if forced is not None:
+                jtok, ttok = jnp.asarray(forced[i]), torch.tensor(forced[i])
+            jl, jpool = jdec(jparams, jpool, jnp.asarray(tables), jtok, jnp.asarray(pos))
+            tl, pool = T.paged_decode_step(cfg, params, pool, torch.as_tensor(tables),
                                            ttok, torch.as_tensor(pos), PAGE)
             steps.append((tl.numpy().copy(), np.asarray(jl), ttok.numpy().copy(),
                           np.asarray(jtok)))
@@ -174,22 +181,61 @@ def paged_runs(request):
     return out
 
 
+@pytest.fixture(scope="module", params=sorted(MODEL_ARCHS))
+def paged_runs(request):
+    """The f32 runs of both packages, and (under ``"f64"``) both again in
+    float64 from the same weights, fed the JAX f32 run's tokens."""
+    jv, tv = _twin_variant("m", seed=5, **MODEL_ARCHS[request.param])
+    tokens = _prompts(3, seed=7, width=W)
+    out = _paged_pair(jv.cfg, jv.params, tv.cfg, tv.params, tokens)
+    forced = [jtok for _, _, _, jtok in out["decode"]]
+    c64 = dataclasses.replace(tv.cfg, dtype="float64")
+    p64 = tree_map(lambda t: t.double() if t.is_floating_point() else t, tv.params)
+    with pytest.MonkeyPatch.context() as mp, jax.enable_x64(True):
+        for mod in (jattention, jlayers, JT):
+            mp.setattr(mod, "jnp", Jnp64())
+        jc64 = dataclasses.replace(jv.cfg, dtype="float64")
+        jp64 = jax.tree.map(lambda a: jnp.asarray(np.asarray(a, np.float64)), jv.params)
+        out["f64"] = _paged_pair(jc64, jp64, c64, p64, tokens, forced)
+    return out
+
+
 def _pool_leaves(tree):
     for group in ("periods", "epilogue"):
         for layer in tree[group]:
             yield layer["kp"], layer["vp"]
 
 
+def _assert_f64_twins(got, want, got64, want64, share, what):
+    """The two packages' float64 runs agree to ``F64_TWINS`` of the
+    largest entry (measured <= 1.3e-14: the same arithmetic), and each f32
+    run lies within ``share`` of it from the float64 result.
+
+    The f32 runs differ from each other only in summation order (the JAX
+    prefill sums attention in key chunks, the port in one product; BLAS
+    blocks differ by host), each by up to its own f32 rounding of the
+    float64 result, so a direct f32-to-f32 check pins one host's orders:
+    on an AVX-512 CPU gemma's prefill keys part by 3.7e-5 and its decode
+    logits by 2.5e-5.  The bounds are about 2-3x the worst f32 error
+    measured there (see ``F32_LOGITS``, ``F32_KV``)."""
+    scale = float(np.abs(want64).max())
+    np.testing.assert_allclose(got64, want64, rtol=0, atol=F64_TWINS * scale,
+                               err_msg=f"{what}: float64 runs")
+    for side, arr in (("port", got), ("jax", want)):
+        np.testing.assert_allclose(np.asarray(arr, np.float64), want64, rtol=0,
+                                   atol=share * scale, err_msg=f"{what}: {side} f32")
+
+
 def test_prefill_ragged_matches_jax(paged_runs):
     logits, jlogits, cache, jcache = paged_runs["prefill"]
-    np.testing.assert_allclose(logits, jlogits, atol=ATOL, rtol=0)
+    logits64, jlogits64, cache64, jcache64 = paged_runs["f64"]["prefill"]
+    _assert_f64_twins(logits, jlogits, logits64, jlogits64, F32_LOGITS, "logits")
     for group in ("periods", "epilogue"):
-        for layer, jlayer in zip(cache[group], jcache[group]):
+        for layers in zip(cache[group], jcache[group], cache64[group], jcache64[group]):
             for key in ("k", "v"):
                 for row, n in enumerate(LENGTHS):  # real positions only
-                    np.testing.assert_allclose(layer[key][..., row, :n, :, :],
-                                               jlayer[key][..., row, :n, :, :],
-                                               atol=ATOL, rtol=RTOL)
+                    _assert_f64_twins(*(t[key][..., row, :n, :, :] for t in layers),
+                                      F32_KV, f"{group} {key} row {row}")
 
 
 @pytest.mark.parametrize("which", ["graft1", "graft"])
@@ -199,11 +245,13 @@ def test_graft_matches_jax(paged_runs, which):
     pool; pages no table names stay zero on both sides.  (Pad positions
     hold pad-token k/v that the mask never exposes.)"""
     pool, jpool = paged_runs[which]
+    pool64, jpool64 = paged_runs["f64"][which]
     cache = paged_runs["prefill"][2]
     rows = [1] if which == "graft1" else [0, 1, 2]
     written = {int(TABLES[r][i // PAGE]) for r in rows for i in range(W)} - {0}
     for group in ("periods", "epilogue"):
-        for pc, jpc, pf in zip(pool[group], jpool[group], cache[group]):
+        for pc, jpc, pf, pc64, jpc64 in zip(pool[group], jpool[group], cache[group],
+                                            pool64[group], jpool64[group]):
             for key, src in (("kp", pf["k"]), ("vp", pf["v"])):
                 got, want = pc[key], jpc[key]
                 assert got.shape == want.shape
@@ -213,18 +261,20 @@ def test_graft_matches_jax(paged_runs, which):
                                 slice(None))
                         np.testing.assert_array_equal(got[slot], src[..., r, i, :, :])
                         if i < LENGTHS[r]:
-                            np.testing.assert_allclose(got[slot], want[slot], atol=ATOL,
-                                                       rtol=RTOL)
+                            _assert_f64_twins(got[slot], want[slot], pc64[key][slot],
+                                              jpc64[key][slot], F32_KV, f"{key} row {r}")
                 for pid in set(range(1, N_PAGES)) - written:
                     assert not got[..., pid, :, :, :].any()
                     assert not want[..., pid, :, :, :].any()
 
 
 def test_paged_decode_steps_match_jax(paged_runs):
-    for i, (logits, jlogits, tok, jtok) in enumerate(paged_runs["decode"]):
+    for i, ((logits, jlogits, tok, jtok), (logits64, jlogits64, tok64, _)) in enumerate(
+            zip(paged_runs["decode"], paged_runs["f64"]["decode"])):
         np.testing.assert_array_equal(tok, jtok, err_msg=f"step {i}")
-        np.testing.assert_allclose(logits[:3], jlogits[:3], atol=ATOL, rtol=0,
-                                   err_msg=f"step {i}")
+        np.testing.assert_array_equal(tok64, jtok, err_msg=f"step {i}")
+        _assert_f64_twins(logits[:3], jlogits[:3], logits64[:3], jlogits64[:3], F32_LOGITS,
+                          f"step {i}")
 
 
 def test_supports_paged_decode_matches_jax():

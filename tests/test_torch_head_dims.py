@@ -165,8 +165,7 @@ def test_cuda_build_refuses_a_head_dim_without_kernels(head_dim, monkeypatch):
 
 def test_every_head_dim_of_the_configs_has_kernels():
     """Every attention config the port supports on the card has its head dim
-    in HEAD_DIMS (phi3-mini's 96 included); hubert's 80 is there for when
-    its frontend is ported."""
+    in HEAD_DIMS (phi3-mini's 96 and hubert's 80 included)."""
     assert {80, 96} <= set(HEAD_DIMS)
     for name, cfg in archs.ARCHS.items():
         try:

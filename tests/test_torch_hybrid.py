@@ -83,9 +83,11 @@ def test_reduced_hybrid_has_a_period_and_an_epilogue():
     T.check_supported(archs.ARCHS[ARCH])
     for arch in ("olmoe-1b-7b", "xlstm-350m"):  # ported since: tests/test_torch_moe.py
         T.check_supported(archs.ARCHS[arch])
-    for arch in ("hubert-xlarge", "paligemma-3b"):
-        with pytest.raises(NotImplementedError):
-            T.check_supported(archs.ARCHS[arch])
+    for arch in ("hubert-xlarge", "paligemma-3b"):  # ported since: tests/test_torch_frontends.py
+        for device in ("cpu", "cuda"):
+            T.check_supported(archs.ARCHS[arch], device)
+    with pytest.raises(ValueError, match="encoder-only"):  # hubert has no decode step
+        T.check_supported(archs.ARCHS["hubert-xlarge"], "cuda", decode=True)
 
 
 # ---------------------------------------------------------------------------
@@ -359,22 +361,30 @@ def test_continuous_backend_refuses_the_family_like_jax():
 def test_train_steps_match_jax():
     """Three ``make_train_step`` steps from the same bridged state (remat on,
     AdamW), as tests/test_torch_training.py runs the attention tiers.
-    Loss, xent, lr and tokens rtol 1e-3; the gradient norm rtol 5e-3 and
-    the parameters within atol 1e-6 + rtol 1e-5 except at most 1% of the
-    elements, none off by more than 1e-3: Adam's first steps set ``m /
-    sqrt(v) = g / |g|``, so an element whose gradient is within rounding
-    of zero can step either way, and the stacked weights amplify what
-    those elements change (measured: the loss within 1.5e-6, the gradient
-    norm within 1.2e-3 at step 2, 512 of 234176 elements beyond the tight
-    tolerance, none by more than 3.1e-4).  The pooled budget alone would
-    pass a small leaf left unchanged or updated wrongly, so each leaf is
-    also held on its own against JAX's update ``delta = after - before``:
-    it moved, and moved where JAX's moved except at most 1% of its
-    elements (measured: 1 of 8192, in an ``mlp.wg``), ``|delta_port - delta_jax|``
-    within 2e-2 of ``|delta_jax|`` (L2 norm over the leaf; measured at most
-    5.3e-3, at the embedding), and at most 1% of the leaf's elements off by
-    more than 1e-2 of its largest JAX update (none in a leaf of fewer than
-    100 elements; measured at most 1 of 256, in a ``conv_w``)."""
+
+    Each step is taken by the port from a copy of JAX's state of that
+    step, so each step's function is held on its own:
+    * loss, xent, lr and tokens rtol 1e-3, the gradient norm rtol 5e-3
+      (measured at most 2.0e-4);
+    * every parameter whose JAX gradient exceeds 1e-3 of its leaf's largest
+      entry (the bound to which the port's gradient matches JAX's, see the
+      module docstring) equals JAX's updated value within atol 1e-6 + rtol
+      1e-5 (measured: no element beyond it);
+    * the others, where Adam's ``m / sqrt(v)`` is the sign of a gradient
+      within rounding of zero, within 2 lr of it (a step of +lr on one side,
+      -lr on the other), and at most 1% of all elements beyond the tight
+      tolerance (measured 27, 3 and 1 of 234176 at steps 0, 1, 2);
+    * every leaf moved on both sides.
+    Along the two free trajectories loss, xent, lr and tokens rtol 1e-3
+    (measured at most 1.3e-4), and the gradient norm at step 0, where the
+    states are the same.  The trajectories part at step 0's update through
+    those sign flips (one embedding element's gradient reads -6.3e-6 in
+    JAX and 2.7e-5 in the port, of a leaf whose largest entry is 3.8, so it
+    steps by +lr on one side and -lr on the other), and step 2's gradient
+    norm is chaotic in the parameters: noise of 1e-5 on every parameter of
+    JAX's step-2 state moves it between 19.2 and 25.9, and the port's own
+    trajectory reads 16.8 where JAX's reads 20.3 (on an AVX-512 CPU; its
+    embedding leaf alone, swapped into JAX's state, gives 17.6)."""
     from repro import training as jtraining
     from repro.training import optimizer as jopt
     from repro_torch import training
@@ -386,33 +396,39 @@ def test_train_steps_match_jax():
         jax.random.key(2))
     state = training.train_state_from_numpy(cfg, jax.tree.map(np.asarray, jstate), device="cpu")
     jstep = jtraining.make_train_step(jcfg, jopt.OptimizerConfig(**opt), jtraining.TrainConfig())
+    jgrad = jax.jit(jax.grad(lambda p, b: JT.loss_fn(jcfg, p, b)[0]))
     step_fn = training.make_train_step(cfg, optimizer.OptimizerConfig(**opt),
                                        training.TrainConfig())
     pipe = training.make_pipeline(training.DataConfig(batch_size=4, seq_len=32, seed=3), cfg)
-    before = jax.tree.map(np.asarray, jstate["params"])
     for step in range(3):
         batch = pipe.batch_at(step)
-        jstate, jm = jstep(jstate, {k: jnp.asarray(v) for k, v in batch.items()})
-        state, m = step_fn(state, {k: torch.from_numpy(v) for k, v in batch.items()})
+        jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+        tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+        before = jax.tree.map(np.asarray, jstate["params"])
+        grads = jax.tree.map(np.asarray, jgrad(jstate["params"], jbatch))
+        forced, fm = step_fn(training.train_state_from_numpy(
+            cfg, jax.tree.map(np.asarray, jstate), device="cpu"), tbatch)
+        jstate, jm = jstep(jstate, jbatch)
+        state, m = step_fn(state, tbatch)
         for key in ("loss", "grad_norm", "lr", "xent", "tokens"):
-            np.testing.assert_allclose(float(m[key]), float(jm[key]),
-                                       rtol=5e-3 if key == "grad_norm" else 1e-3,
-                                       err_msg=f"step {step} {key}")
-    off, total = 0, 0
-    for (path, a, b), (_, a0, _) in zip(_pairs(jstate["params"], state["params"]),
-                                        _pairs(before, state["params"])):
-        a, b = np.asarray(a), _np(b)
-        diff = np.abs(a - b)
-        assert diff.max() <= 1e-3, path
-        off += int((diff > 1e-6 + 1e-5 * np.abs(a)).sum())
-        total += a.size
-        # The leaf on its own, against JAX's update.
-        delta, want = b - a0, a - a0
-        assert (delta != 0).any() and (want != 0).any(), f"{path} did not move"
-        stuck = int(((delta != 0) != (want != 0)).sum())
-        assert stuck <= a.size // 100, f"{path}: {stuck} elements moved on one side only"
-        rel = np.linalg.norm(delta - want) / np.linalg.norm(want)
-        assert rel <= 2e-2, f"{path}: update off by {rel:.3g} of its norm"
-        far = int((np.abs(delta - want) > 1e-2 * np.abs(want).max()).sum())
-        assert far <= a.size // 100, f"{path}: {far} of {a.size} elements off"
-    assert off <= total // 100, f"{off} of {total} parameters differ"
+            rtol = 5e-3 if key == "grad_norm" else 1e-3
+            np.testing.assert_allclose(float(fm[key]), float(jm[key]), rtol=rtol,
+                                       err_msg=f"step {step} {key}, from JAX's state")
+            if key != "grad_norm" or step == 0:
+                np.testing.assert_allclose(float(m[key]), float(jm[key]), rtol=rtol,
+                                           err_msg=f"step {step} {key}")
+        lr = float(jm["lr"])
+        off, total = 0, 0
+        for (path, a, b), (_, a0, _), (_, g, _) in zip(
+                _pairs(jstate["params"], forced["params"]), _pairs(before, forced["params"]),
+                _pairs(grads, forced["params"])):
+            a, b, g = np.asarray(a), _np(b), np.abs(np.asarray(g))
+            where = f"step {step} {path}"
+            assert (b != a0).any() and (a != a0).any(), f"{where} did not move"
+            diff = np.abs(a - b)
+            beyond = diff > 1e-6 + 1e-5 * np.abs(a)
+            assert not (beyond & (g > 1e-3 * g.max())).any(), where
+            assert diff.max() <= 2 * lr * (1 + 1e-3), where
+            off += int(beyond.sum())
+            total += a.size
+        assert off <= total // 100, f"step {step}: {off} of {total} parameters differ"

@@ -11,9 +11,9 @@ on the CPU in f32.
   decode steps; ``JitBackend`` tokens equal; olmoe's continuous tier
   token-equal to the JAX ``ContinuousBatchingBackend`` (its pad tokens and
   inactive decode rows take expert capacity on both sides).
-* ``check_supported`` accepts the MoE and xLSTM kinds and the int8 KV
-  cache (which the paged tier still excludes) and still refuses frontends
-  and prefix-LM; both kinds train (their gradients against the JAX
+* ``check_supported`` accepts the MoE and xLSTM kinds, the int8 KV cache
+  (which the paged tier still excludes) and the two frontends, and refuses
+  hubert's decode; both kinds train (their gradients against the JAX
   package: tests/test_torch_train_zoo.py).
 """
 import dataclasses
@@ -210,9 +210,14 @@ def test_check_supported_accepts_the_new_kinds_and_refuses_the_rest():
         T.check_supported(cfg)
         T.check_supported(cfg, "cuda")  # head dim 128 / no attention: kernels exist
         T.check_supported(archs.reduced(arch), "cpu")
-    for arch, reason in (("hubert-xlarge", "frontends"), ("paligemma-3b", "frontends")):
-        with pytest.raises(NotImplementedError, match=reason):
-            T.check_supported(archs.ARCHS[arch])
+    for arch in ("hubert-xlarge", "paligemma-3b"):  # the frontends, ported since
+        for device in ("cpu", "cuda"):
+            T.check_supported(archs.ARCHS[arch], device)
+            T.check_supported(archs.reduced(arch), device)
+    for device in ("cpu", "cuda"):  # an encoder has no decode step; prefix-LM has
+        with pytest.raises(ValueError, match="encoder-only"):
+            T.check_supported(archs.ARCHS["hubert-xlarge"], device, decode=True)
+        T.check_supported(archs.ARCHS["paligemma-3b"], device, decode=True)
     # The int8 ring cache is served; the paged tier still excludes it.
     quant = archs.reduced("olmoe-1b-7b", kv_cache_quant=True)
     T.check_supported(quant, "cuda")
