@@ -241,6 +241,28 @@ Phases (each passes or raises; any failure exits non-zero with no result):
    (``_prefix_sweep``) and times paligemma's prefill and train shapes and
    hubert's bidirectional D = 80 shape, forward and backward.
 
+10. the distributed and analysis tooling.  After the serve phase,
+   tier-l's decode step at batch 4 (a 129-slot ring, every slot live) is
+   counted on the card by ``kernels/cost.py``'s ``CostCounter`` (each
+   kernel call reports its function-level work, the formulas behind the
+   kernels line's bound column) and traced on meta tensors: FLOPs and
+   bytes equal as integers, and its roofline at chips=1 beside its median
+   ms.  After gemma-2b's train run: step 0's gradient with
+   ``microbatches=2`` against the unsplit one, leaf by leaf (relative
+   Frobenius distance within ``MB_GRAD_REL_BOUND``); 3 steps with
+   ``microbatches=2`` and ``grad_compression`` (finite losses); one full
+   train step counted on the card against its meta trace (equal as
+   integers) and its roofline beside the train run's median step; then,
+   over an NCCL process group of one rank, ``make_train_step`` on a (1, 1)
+   mesh with ``make_rules`` bitwise the unsharded step over two steps
+   (gemma-2b at full width, 2 layers), ``restore(..., shardings=)`` bitwise
+   the saved parameters, ``compressed_psum`` bitwise the requantize
+   formula.  After the zoo: the dry-run over every arch x shape x both
+   meshes (meta tensors, no device), every row ok or skipped with
+   ``skip_reason``'s note, a line per cell, and ``lm_zoo_registry`` refined
+   from its JSON beside the analytic roofline mu and the zoo's measured
+   ``mu_ms``.
+
 Every run measures every column of the kernels line: each serve phase (the
 zoo's serve paths included) and each train run set the launch counters to
 0 just before they start and read them just after, and a kernel's
@@ -275,7 +297,6 @@ SRC = ROOT / "src"
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12  # dense tensor-core bf16
-H100_F32_FLOPS = 67e12  # f32 outside the tensor cores
 
 # The serve phase's request shape and the batch of the full-width kernel
 # timings.
@@ -898,7 +919,7 @@ def _rglru_refusals(torch, gen) -> int:
 def _full_width_rglru(torch, gen, B, S, W, label):
     """The scan kernel at a full-width recurrentgemma shape, f32 as the
     model feeds it (its gates are computed in f32)."""
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import cost, ref
     from repro_torch.kernels import rglru_scan as rk
 
     f32 = torch.float32
@@ -913,9 +934,8 @@ def _full_width_rglru(torch, gen, B, S, W, label):
     plan = rk.launch_plan(a)
     # a and b read once, h written once, h0 read once; one multiply and one
     # add per element on the CUDA cores.
-    nbytes = 3 * a.numel() * 4 + h0.numel() * 4
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = 2 * a.numel() / H100_F32_FLOPS * 1e3
+    bound_ms, bound_by = cost.rglru_scan_work(a.numel(), a.element_size(), h0.numel(),
+                                              h0.element_size()).bound()
     # The plain version is a Python loop of S steps: few graph replays.
     return dict(
         name="rglru_scan_fwd", route="cuda", source="src/repro_torch/kernels/csrc/rglru_scan.cu",
@@ -926,15 +946,14 @@ def _full_width_rglru(torch, gen, B, S, W, label):
         ms=time_ms(torch, lambda: rk.rglru_scan_fwd(a, b, h0)),
         eager_ms=time_ms(torch, lambda: rk.rglru_scan_fwd(a, b, h0), graph=False),
         plain_ms=time_ms(torch, lambda: ref.rglru_scan_ref(a, b, h0), launches=2, trials=3),
-        library_ms=None,
-        bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
     )
 
 
 def _full_width_rglru_bwd(torch, gen, B, S, W, label):
     """The scan's backward (the kernel in reverse, the whole
     ``rglru_scan_bwd`` call) at the recurrentgemma train shape, f32."""
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import cost, ref
     from repro_torch.kernels import rglru_scan as rk
 
     f32 = torch.float32
@@ -948,9 +967,8 @@ def _full_width_rglru_bwd(torch, gen, B, S, W, label):
     # a, dh and h read once, da and db written once (20 bytes per element in
     # f32), h0 read and dh0 written once; three multiplies and an add per
     # element.
-    nbytes = 5 * a.numel() * 4 + 2 * h0.numel() * 4
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = 4 * a.numel() / H100_F32_FLOPS * 1e3
+    bound_ms, bound_by = cost.rglru_scan_bwd_work(a.numel(), a.element_size(), h0.numel(),
+                                                  h0.element_size()).bound()
     return dict(
         name="rglru_scan_bwd", route="cuda", source="src/repro_torch/kernels/csrc/rglru_scan.cu",
         replaces="src/repro/kernels/rglru_scan.py:59", max_abs_err=err,
@@ -961,8 +979,7 @@ def _full_width_rglru_bwd(torch, gen, B, S, W, label):
         eager_ms=time_ms(torch, lambda: rk.rglru_scan_bwd(a, h, h0, dh), graph=False),
         plain_ms=time_ms(torch, lambda: ref.rglru_scan_bwd_ref(a, h, h0, dh), launches=2,
                          trials=3),
-        library_ms=None,
-        bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
     )
 
 
@@ -1401,9 +1418,9 @@ def _full_width_bwd(torch, gen, arch, S=TRAIN_SEQ, prefix=0):
     tile walk (``ref.flash_attention_bwd_tiled_ref``), and prints the
     kernel's eager time beside SDPA's eager backward, like with like."""
     from repro_torch.configs.archs import get_config
+    from repro_torch.kernels import cost, ref
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import flash_attention_bwd as bk
-    from repro_torch.kernels import ref
 
     cfg = get_config(arch)
     bf16 = torch.bfloat16
@@ -1452,14 +1469,14 @@ def _full_width_bwd(torch, gen, arch, S=TRAIN_SEQ, prefix=0):
         return torch.autograd.grad(o, (qq, kk, vv), dout, retain_graph=True)
 
     # q, k, v, out, dout and the f32 LSE read once; dq, dk, dv written once.
-    nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
     # The function needs five S x S x D products over the visible (q, k)
     # pairs: s = q.k^T, dp = dout.v^T, dv = p^T.dout, dq = ds.k,
     # dk = ds^T.q.  (This kernel's dq pass recomputes s and dp and it adds
     # p's rounding remainder to dv, eight in all: that is its own cost, not
     # the bound's.)
-    flops = 5 * 2 * D * NQ * _visible_pairs(torch, B, S, causal, window, pre)
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_BF16_FLOPS * 1e3
+    bound_ms, bound_by = cost.flash_bwd_work(
+        B, NQ, NKV, S, D, q.element_size(),
+        B * cost.visible_pairs(S, causal=causal, window=window, prefix=prefix)).bound()
     mask = _mask_label(causal, window, prefix)
     e = dict(
         name="flash_attention_bwd", route="cuda",
@@ -1470,8 +1487,7 @@ def _full_width_bwd(torch, gen, arch, S=TRAIN_SEQ, prefix=0):
         eager_ms=time_ms(torch, kernel, launches=5, graph=False),
         plain_ms=time_ms(torch, plain, launches=5),
         library_ms=time_ms(torch, library, launches=5, graph=False),
-        library="SDPA backward (eager)",
-        bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library="SDPA backward (eager)", bound_ms=bound_ms, bound_by=bound_by,
     )
     print(f"[kernels] flash_attention_bwd {arch}: route {route}, plan (rows, "
           f"heads per group, groups) {plan}, two launches bitwise equal; eager {e['eager_ms']:.4f}"
@@ -1485,8 +1501,8 @@ def _full_width_paged(torch, full, gen):
     """The paged kernel at the continuous serve phase's tier-l shapes: one
     decode step of the full 8-slot batch at position 128 (the prompt plus
     the first token), each row's pages scattered over the 145-page pool."""
+    from repro_torch.kernels import cost, ref
     from repro_torch.kernels import decode_attention as dk
-    from repro_torch.kernels import ref
 
     bf16 = torch.bfloat16
     B, NQ, NKV, D = N_SLOTS, full["n_heads"], full["n_kv_heads"], full["head_dim"]
@@ -1522,9 +1538,8 @@ def _full_width_paged(torch, full, gen):
     mask = (torch.arange(NB * PAGE, device="cuda") <= pos[:, None])[:, None, None, :]
     qs = q.reshape(B, NQ, 1, D)
     # Live keys only: k and v of positions 0..pos once, q read, out written.
-    nbytes = 2 * B * valid * NKV * D * 2 + 2 * q.numel() * 2 + tables.numel() * 4 + B * 4
-    flops = 4 * B * NQ * D * valid
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_BF16_FLOPS * 1e3
+    bound_ms, bound_by = cost.paged_decode_work(B, NQ, NKV, D, NB, q.element_size(),
+                                                B * valid).bound()
     # The same kernel with the ring planner's split alone (one wave of SMs,
     # not of resident blocks): what the resident-wave plan gains.
     launch_plan = dk.paged_launch_plan
@@ -1549,14 +1564,14 @@ def _full_width_paged(torch, full, gen):
         plain_ms=time_ms(torch, plain),
         library_ms=time_ms(torch, lambda: _sdpa(torch, qs, kd, vd, attn_mask=mask)),
         library="SDPA on the pre-gathered dense view", ring_plan_ms=ring_plan_ms,
-        bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bound_ms=bound_ms, bound_by=bound_by,
     )
 
 
 def _full_width(torch, full, B, gen):
     """Kernel vs plain vs library vs bound at the serve phase's qwen3-14b shapes."""
     import torch.nn.functional as F
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import cost, ref
     from repro_torch.kernels import rmsnorm as rk
 
     bf16 = torch.bfloat16
@@ -1567,7 +1582,8 @@ def _full_width(torch, full, B, gen):
     x = _randn(torch, (B, S, d), bf16, gen)
     w = torch.ones(d, device="cuda")
     err = _compare(torch, "rms_norm full width", rk.rms_norm_fwd(x, w), ref.rms_norm_ref(x, w), bf16)
-    nbytes = 2 * x.numel() * x.element_size() + w.numel() * 4
+    bound_ms, bound_by = cost.rms_norm_work(x.numel(), x.element_size(), w.numel(),
+                                            w.element_size()).bound()
     entries.append(dict(
         name="rms_norm_fwd", route="triton", source="src/repro_torch/kernels/rmsnorm.py",
         replaces="src/repro/kernels/rmsnorm.py:43", max_abs_err=err,
@@ -1576,21 +1592,12 @@ def _full_width(torch, full, B, gen):
         eager_ms=time_ms(torch, lambda: rk.rms_norm_fwd(x, w), graph=False),
         plain_ms=time_ms(torch, lambda: ref.rms_norm_ref(x, w)),
         library_ms=time_ms(torch, lambda: F.rms_norm(x, (d,), w.to(bf16), 1e-6)),
-        bound_ms=nbytes / H100_BYTES_PER_S * 1e3, bound_by="bytes",
+        bound_ms=bound_ms, bound_by=bound_by,
     ))
 
     entries.append(_flash_row(torch, gen, B, NQ, NKV, S, D, 0, False, "prefill"))
     entries.append(_decode_row(torch, gen, B, NKV, NQ // NKV, D, S_cache, S + 1, "tier-l"))
     return entries
-
-
-def _visible_pairs(torch, B, S, causal, window, prefix_len):
-    """The (query, key) pairs the mask lets through, summed over the batch."""
-    from repro_torch.kernels import ref
-
-    ok = ref._scores_mask(S, S, causal=causal, window=window, device="cuda",
-                          prefix_len=prefix_len)
-    return int(ok.sum()) * (1 if prefix_len is not None else B)
 
 
 def _mask_label(causal, window, prefix):
@@ -1617,8 +1624,8 @@ def _flash_row(torch, gen, B, NQ, NKV, S, D, window, lse, label, causal=True, pr
     or bidirectional, with a prefix-LM prefix of ``prefix`` keys on every
     row when it is not 0: kernel vs plain vs SDPA vs bound (with the f32 LSE
     the train path keeps when ``lse``)."""
+    from repro_torch.kernels import cost, ref
     from repro_torch.kernels import flash_attention as fk
-    from repro_torch.kernels import ref
 
     bf16 = torch.bfloat16
     q = _randn(torch, (B, S, NQ, D), bf16, gen).transpose(1, 2)
@@ -1643,9 +1650,9 @@ def _flash_row(torch, gen, B, NQ, NKV, S, D, window, lse, label, causal=True, pr
         err = _compare(torch, tag, got, want, bf16)
     # q, k, v read once; out (and the LSE) written once.  The visible
     # (q, k) pairs, two products of 2 * D FLOPs each.
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + (4 * B * NQ * S if lse else 0)
-    flops = 4 * NQ * D * _visible_pairs(torch, B, S, causal, window, pre)
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_BF16_FLOPS * 1e3
+    bound_ms, bound_by = cost.flash_fwd_work(
+        B, NQ, NKV, S, D, q.element_size(),
+        B * cost.visible_pairs(S, causal=causal, window=window, prefix=prefix), lse=lse).bound()
     reps = 5 if S > 512 else 20  # launches per timed replay
     return dict(
         name="flash_attention_fwd", route="cuda",
@@ -1655,7 +1662,7 @@ def _flash_row(torch, gen, B, NQ, NKV, S, D, window, lse, label, causal=True, pr
         ms=time_ms(torch, kernel, reps), eager_ms=time_ms(torch, kernel, reps, graph=False),
         plain_ms=time_ms(torch, plain, reps),
         library_ms=time_ms(torch, _attention_library(torch, q, k, v, causal, window, pre), reps),
-        bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bound_ms=bound_ms, bound_by=bound_by,
     )
 
 
@@ -1664,8 +1671,8 @@ def _decode_row(torch, gen, B, NKV, G, D, S_cache, valid, label):
     over a (B, S_cache, NKV, D) ring cache whose first ``valid`` slots are
     live; kernel vs plain vs SDPA vs bound, and the output bitwise the same
     over five calls."""
+    from repro_torch.kernels import cost, ref
     from repro_torch.kernels import decode_attention as dk
-    from repro_torch.kernels import ref
 
     bf16 = torch.bfloat16
     NQ = NKV * G
@@ -1687,9 +1694,8 @@ def _decode_row(torch, gen, B, NKV, G, D, S_cache, valid, label):
     heads, n_split, chunk = dk.split_plan(B, NKV, G, S_cache, _sm_count(torch))
     blocks = n_split * B * NKV * -(-G // heads)
     mask = (sp >= 0) & (sp <= pos[:, None])
-    nbytes = (2 * qd.numel() * 2 + 2 * B * valid * NKV * D * 2 + sp.numel() * 4 + B * 4)
-    flops = 4 * B * NQ * D * valid
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_BF16_FLOPS * 1e3
+    bound_ms, bound_by = cost.decode_work(B, NQ, NKV, D, S_cache, qd.element_size(),
+                                          B * valid).bound()
     return dict(
         name="decode_attention_fwd", route="cuda",
         source="src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -1701,7 +1707,7 @@ def _decode_row(torch, gen, B, NKV, G, D, S_cache, valid, label):
         plain_ms=time_ms(torch, lambda: ref.decode_attention_ref(qd, kc, vc, sp, pos)),
         library_ms=time_ms(torch, lambda: _sdpa(
             torch, qd.reshape(B, NQ, 1, D), kc, vc, attn_mask=mask[:, None, None, :])),
-        bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bound_ms=bound_ms, bound_by=bound_by,
     )
 
 
@@ -3806,6 +3812,329 @@ def _check_expert_grads(torch, arch, mu, loads):
           f"(tokens per expert {int(loads.min())}-{int(loads.max())})", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the distributed and analysis tooling on the card.
+# ---------------------------------------------------------------------------
+MB_GRAD_REL_BOUND = 0.05  # microbatched vs unsplit bf16 gradient, per leaf
+MB_TRAIN_STEPS = 3
+SHARDED_LAYERS = 2  # gemma-2b at full width for the world-1 sharded step
+
+
+def _count(fn, prefix_len=None):
+    """The :class:`CostCounter` of one call of ``fn`` (synchronised)."""
+    import torch
+    from repro_torch.kernels.cost import CostCounter
+
+    with CostCounter(prefix_len=prefix_len) as c:
+        fn()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return c
+
+
+def _same_count(label, real, meta):
+    """The card's count must equal the meta trace's, as integers: else the
+    ops and kernels whose counts differ are printed and the run fails."""
+    if real.totals() == meta.totals() and real.kernels == meta.kernels:
+        top = sorted(real.by_op.items(), key=lambda kv: -kv[1][2])[:6]
+        print(f"[counter] {label}: card == meta: {real.totals()}; kernel calls "
+              f"{ {k: v[0] for k, v in real.kernels.items()} }; most bytes (calls, GB): "
+              + ", ".join(f"{k} ({v[0]}, {v[2] / 1e9:.1f})" for k, v in top), flush=True)
+        return
+    for name in sorted(set(real.by_op) | set(meta.by_op)):
+        if real.by_op.get(name) != meta.by_op.get(name):
+            print(f"[counter] {label}: {name} card {real.by_op.get(name)} meta "
+                  f"{meta.by_op.get(name)}", flush=True)
+    for name in sorted(set(real.kernels) | set(meta.kernels)):
+        if real.kernels.get(name) != meta.kernels.get(name):
+            print(f"[counter] {label}: kernel {name} card {real.kernels.get(name)} meta "
+                  f"{meta.kernels.get(name)}", flush=True)
+    fail(f"{label}: the card's count {real.totals()} != the meta trace's {meta.totals()}")
+
+
+def _step_roofline(label, c, ms, card):
+    """The counted step's roofline at chips=1 beside its measured ms."""
+    from repro_torch.launch import roofline as rf
+
+    terms = rf.cost_terms({"flops": c.flops, "bytes": c.bytes, "coll_bytes": 0.0}, chips=1)
+    bound_ms = 1e3 * max(terms.values())
+    out = dict(flops=c.flops, bytes=c.bytes, f32_ops=c.f32_ops,
+               compute_ms=1e3 * terms["compute_s"], memory_ms=1e3 * terms["memory_s"],
+               measured_ms=ms, roofline_share=bound_ms / ms)
+    print(f"[counter] {label} roofline at chips=1 (H100 data sheet): compute "
+          f"{out['compute_ms']:.3f} ms ({c.flops / 1e12:.3f} TFLOP), memory "
+          f"{out['memory_ms']:.3f} ms ({c.bytes / 1e9:.3f} GB); measured {ms:.3f} ms: "
+          f"{100 * out['roofline_share']:.1f} % of the roofline; card {card}", flush=True)
+    return out
+
+
+def phase_decode_count(torch, engine, card):
+    """tier-l's decode step at batch ``BATCH`` counted on the card (the
+    kernels launched) and traced on meta tensors: FLOPs and bytes equal as
+    integers.  The ring holds ``PROMPT + 1`` slots, all live at the counted
+    step (a meta trace counts every slot), and the step's time is the
+    median of 10 uncounted steps."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+
+    v = next(v for v in engine.variants.values() if v.name == "tier-l")
+    cfg, params, B, L = v.cfg, v.params, BATCH, PROMPT + 1
+    gen = torch.Generator().manual_seed(7)
+    prompt = torch.randint(0, cfg.vocab_size, (B, PROMPT), generator=gen).cuda()
+    with torch.inference_mode():
+        cache, logits = T.prefill(cfg, params, {"tokens": prompt}, max_len=L)
+        token = logits.argmax(-1)
+        pos = torch.full((B,), PROMPT, dtype=torch.int32, device="cuda")
+
+        def step():
+            return T.decode_step(cfg, params, cache, token, pos)
+
+        ms = []
+        for i in range(13):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            if i >= 3:
+                ms.append((time.perf_counter() - t0) * 1e3)
+        before = ops.launch_counts()
+        real = _count(step)
+        launched = {k: ops.launch_counts()[k] - before[k] for k in before}
+        check(launched["decode_attention_fwd"] == cfg.n_layers
+              and launched["rms_norm_fwd"] > 0,
+              f"decode count: the counted step launched {launched}")
+        meta_p = T.init_params(cfg, device="meta")
+        meta_c = T.init_cache(cfg, B, L, device="meta")
+        meta = _count(lambda: T.decode_step(
+            cfg, meta_p, meta_c, torch.empty(B, dtype=token.dtype, device="meta"),
+            torch.empty(B, dtype=torch.int32, device="meta")))
+    _same_count(f"tier-l decode step (batch {B}, ring {L} slots, {cfg.n_layers} layers)",
+                real, meta)
+    return _step_roofline("tier-l decode step", real, statistics.median(ms), card)
+
+
+def phase_train_tools(torch, card, gemma_step_ms):
+    """On full-width gemma-2b at the train phase's shape: step 0's
+    gradient with ``microbatches=2`` against the unsplit one, leaf by leaf
+    (relative Frobenius distance within ``MB_GRAD_REL_BOUND``), then
+    ``MB_TRAIN_STEPS`` steps with ``microbatches=2`` and
+    ``grad_compression`` (finite losses); one train step counted on the
+    card against its meta trace (FLOPs and bytes equal as integers) and its
+    roofline beside the train phase's median step; then
+    :func:`_sharded_world1`."""
+    import numpy as np
+    from repro_torch.configs.archs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.training import (
+        DataConfig, OptimizerConfig, TrainConfig, init_train_state, make_grads_fn,
+        make_pipeline, make_train_step,
+    )
+    from repro_torch.tree import named_leaves
+
+    cfg = get_config(TRAIN_ARCHS[0])
+    pipe = make_pipeline(DataConfig(batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=0), cfg)
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in pipe.batch_at(0).items()}
+    opt_cfg = OptimizerConfig(learning_rate=3e-4, warmup_steps=2, total_steps=MB_TRAIN_STEPS)
+    out = {}
+
+    # Step 0's gradient, unsplit and in two microbatches, on the same state.
+    state = init_train_state(cfg, torch.Generator().manual_seed(0), TrainConfig(), device="cuda")
+    _, _, whole = make_grads_fn(cfg, TrainConfig())(state["params"], batch)
+    whole = {k: g.float() for k, g in named_leaves(whole)}
+    _, _, split = make_grads_fn(cfg, TrainConfig(microbatches=2))(state["params"], batch)
+    rel = {}
+    for k, g in named_leaves(split):
+        w = whole.pop(k)
+        rel[k] = float((g.float() - w).norm() / w.norm().clamp_min(1e-30))
+        del w
+    del split, whole, state
+    worst = max(rel, key=rel.get)
+    print(f"[train tools] gemma-2b step 0 gradient, microbatches=2 vs unsplit (bf16, leaf by "
+          f"leaf, relative Frobenius): worst {rel[worst]:.5f} at {worst}, median "
+          f"{statistics.median(rel.values()):.5f} (bound {MB_GRAD_REL_BOUND})", flush=True)
+    check(rel[worst] <= MB_GRAD_REL_BOUND,
+          f"microbatched gradient {worst} {rel[worst]:.5f} from the unsplit one")
+    out["microbatch_grad_rel"] = rel
+
+    # Three steps with microbatches=2 and int8 compression with feedback.
+    tc = TrainConfig(microbatches=2, grad_compression=True)
+    state = init_train_state(cfg, torch.Generator().manual_seed(0), tc, device="cuda")
+    step_fn = make_train_step(cfg, opt_cfg, tc)
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    ops.reset_launch_counts()
+    for i in range(MB_TRAIN_STEPS):
+        b = {k: torch.from_numpy(v).to("cuda") for k, v in pipe.batch_at(i).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, b)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"[train tools] gemma-2b microbatches=2 grad_compression: losses {losses}, step ms "
+          f"{[round(x, 1) for x in ms]}, peak {torch.cuda.max_memory_allocated() / 2**30:.1f} "
+          f"GiB, launches {ops.launch_counts()}; card {card}", flush=True)
+    check(all(np.isfinite(losses)), f"microbatched compressed steps: losses {losses}")
+    out.update(mb_compressed_losses=losses, mb_compressed_step_ms=ms)
+    del state, step_fn
+
+    # One step counted on the card and traced on meta.
+    step_fn = make_train_step(cfg, opt_cfg, TrainConfig())
+    state = init_train_state(cfg, torch.Generator().manual_seed(0), TrainConfig(), device="cuda")
+    real = _count(lambda: step_fn(state, batch))
+    meta_state = init_train_state(cfg, None, TrainConfig(), device="meta")
+    meta_batch = {k: torch.empty(v.shape, dtype=v.dtype, device="meta") for k, v in batch.items()}
+    meta = _count(lambda: step_fn(meta_state, meta_batch))
+    del state
+    torch.cuda.empty_cache()
+    _same_count(f"gemma-2b train step ({TRAIN_BATCH} x {TRAIN_SEQ}, remat)", real, meta)
+    out["train_step"] = _step_roofline("gemma-2b train step", real, gemma_step_ms, card)
+    out.update(_sharded_world1(torch, card, cfg, opt_cfg, pipe))
+    return out
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _sharded_world1(torch, card, cfg, opt_cfg, pipe):
+    """Over an NCCL process group of one rank: ``make_train_step`` on a
+    (1, 1) mesh with ``make_rules`` (the state placed as DTensors) against
+    the unsharded step, bitwise over two steps (losses, grad norms and every
+    leaf of the state); the parameters saved and restored with
+    ``shardings`` onto the mesh, bitwise; ``compressed_psum`` over the
+    group, bitwise the requantize formula."""
+    import dataclasses
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.distributed.compression import compressed_psum, quantize_int8
+    from repro_torch.launch.mesh import make_mesh, make_rules
+    from repro_torch.training import (
+        TrainConfig, init_train_state, make_train_step, place_state, state_shardings,
+    )
+    from repro_torch.tree import named_leaves, tree_leaves
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0,
+                            world_size=1)
+    try:
+        cfg = dataclasses.replace(cfg, n_layers=SHARDED_LAYERS)
+        mesh = make_mesh((1, 1), ("data", "model"))
+        rules = make_rules(mesh)
+        tc = TrainConfig()
+        shardings = state_shardings(cfg, mesh, rules, tc)
+        plain = init_train_state(cfg, torch.Generator().manual_seed(0), tc, device="cuda")
+        sharded = place_state(
+            init_train_state(cfg, torch.Generator().manual_seed(0), tc, device="cuda"), shardings)
+        plain_step = make_train_step(cfg, opt_cfg, tc)
+        sharded_step = make_train_step(cfg, opt_cfg, tc, mesh=mesh, rules=rules)
+        for i in range(2):
+            b = {k: torch.from_numpy(v).to("cuda") for k, v in pipe.batch_at(i).items()}
+            plain, pm = plain_step(plain, b)
+            sharded, sm = sharded_step(sharded, b)
+            for key in ("loss", "grad_norm", "xent", "tokens"):
+                check(torch.equal(pm[key], sm[key]),
+                      f"sharded step {i}: {key} {float(sm[key])} != {float(pm[key])}")
+        for (path, a), b in zip(named_leaves(plain), tree_leaves(sharded)):
+            check(torch.equal(a, b.full_tensor()), f"sharded state after 2 steps: {path} differs")
+        print(f"[sharded] gemma-2b at {SHARDED_LAYERS} layers, full width, on an NCCL world-1 "
+              f"(1, 1) mesh: two steps bitwise the unsharded step (loss {float(pm['loss']):.4f},"
+              f" grad norm {float(pm['grad_norm']):.4f}); card {card}", flush=True)
+
+        with tempfile.TemporaryDirectory() as d:
+            mgr = CheckpointManager(d)
+            mgr.save(2, plain["params"])
+            restored, _ = mgr.restore(plain["params"], shardings=shardings["params"])
+        for (path, a), b in zip(named_leaves(plain["params"]), tree_leaves(restored)):
+            check(isinstance(b, torch.distributed.tensor.DTensor) and b.requires_grad
+                  and torch.equal(a, b.full_tensor()),
+                  f"restore with shardings: {path} differs")
+        print("[sharded] restore(shardings=) onto the mesh: every parameter bitwise the saved "
+              "one, a DTensor on its sharding", flush=True)
+
+        gen = torch.Generator().manual_seed(11)
+        x = torch.randn(4096, 1024, generator=gen).cuda()
+        got = compressed_psum(x, mesh.get_group("data"))
+        q, scale = quantize_int8(x)
+        want = (q.to(torch.int32).float() * scale).to(x.dtype)
+        check(torch.equal(got, want), "compressed_psum over one rank != the requantize formula")
+        print("[sharded] compressed_psum over the world-1 group: bitwise the requantize "
+              "formula", flush=True)
+        del plain, sharded, restored
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return {"sharded_world1": "bitwise", "restore_shardings": "bitwise",
+            "compressed_psum": "bitwise"}
+
+
+def phase_dryrun(torch, card, table3):
+    """The dry-run over every arch x shape x both meshes into a temporary
+    ``--out``: every row ``ok``, or ``skipped`` with exactly
+    ``skip_reason``'s note; a line per cell; then ``lm_zoo_registry`` refined
+    from that JSON, each text-generation arch's mu beside the analytic
+    roofline mu and the zoo phase's measured ``mu_ms`` (``table3``)."""
+    import tempfile
+
+    from repro_torch.configs.archs import ARCH_IDS, get_config
+    from repro_torch.configs.shapes import SHAPES, skip_reason
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import roofline as rf
+    from repro_torch.serving.profiles import QUALITY, lm_zoo_registry
+
+    with tempfile.TemporaryDirectory() as d:
+        out = Path(d) / "roofline_torch.json"
+        t0 = time.perf_counter()
+        rc = dryrun.main(["--arch", "all", "--shape", "all", "--mesh", "both",
+                          "--out", str(out)])
+        seconds = time.perf_counter() - t0
+        cells = json.loads(out.read_text())["cells"]
+        refined = lm_zoo_registry(prompt=PROMPT, gen_tokens=GEN, chips=1,
+                                  roofline_json=str(out))
+    check(rc == 0, f"dry-run exit {rc}")
+    check(len(cells) == len(ARCH_IDS) * len(SHAPES) * 2, f"dry-run: {len(cells)} rows")
+    for c in cells:
+        want = skip_reason(get_config(c["arch"]), c["shape"])
+        tag = f"{c['arch']} {c['shape']} {c['mesh']}"
+        if want:
+            check(c["status"] == "skipped" and c["note"] == want, f"dry-run {tag}: {c}")
+            print(f"[dryrun] {tag}: skipped ({want})", flush=True)
+            continue
+        check(c["status"] == "ok", f"dry-run {tag}: {c['status']} {c.get('note')}")
+        line = f"[dryrun] {tag}: {c['memory']['per_device_total'] / 2**30:.2f} GiB/device"
+        if "terms_s" in c:
+            t = c["terms_s"]
+            line += (f", compute {1e3 * t['compute_s']:.3f} ms, memory "
+                     f"{1e3 * t['memory_s']:.3f} ms, collective {1e3 * t['collective_s']:.3f} "
+                     f"ms, {c['dominant']} dominant")
+        else:  # the multi pod: terms are the single pod's in JAX's rows too
+            f = c["full_step_cost_analysis"]
+            line += (f", compute {1e3 * f['flops'] / rf.HW['peak_flops']:.3f} ms, memory "
+                     f"{1e3 * f['bytes'] / rf.HW['hbm_bw']:.3f} ms, collectives by count "
+                     f"{c['collective_census']}")
+        print(line, flush=True)
+    ok = sum(c["status"] == "ok" for c in cells)
+    print(f"[dryrun] {ok} ok / {len(cells) - ok} skipped in {seconds:.1f}s (meta tensors, no "
+          f"device); H100 data sheet", flush=True)
+    analytic = lm_zoo_registry(prompt=PROMPT, gen_tokens=GEN, chips=1)
+    measured = {row["arch"]: row["mu_ms"] for row in table3.values()}
+    mu = dict(zip(refined.names, refined.mu))
+    rows = {}
+    for arch, roof in zip(analytic.names, analytic.mu):
+        got = measured.get(arch)
+        rows[arch] = dict(refined_mu_ms=mu[arch], roofline_mu_ms=roof, measured_mu_ms=got)
+        print(f"[dryrun] lm_zoo_registry {arch:22s} quality {QUALITY[arch]:4.1f}: refined mu "
+              f"{mu[arch]:9.3f} ms, analytic roofline mu {roof:9.3f} ms, measured mu_ms "
+              + ("not measured" if got is None else f"{got:9.3f}") + f" (prompt {PROMPT}, "
+              f"{GEN} tokens, chips=1); card {card}", flush=True)
+    return dict(seconds=seconds, ok=ok, cells=len(cells), mu=rows)
+
+
 def phase_train_cli(torch, card, arch=PHI3_ARCH, steps=PHI3_TRAIN_STEPS, learn_check=True,
                     batch=TRAIN_BATCH, seq=TRAIN_SEQ):
     """The user's command ``python -m repro_torch.launch.train --arch ARCH
@@ -4136,6 +4465,8 @@ def main(argv=None) -> int:
     phase_model(torch)
     mark("phase_serve")
     dense_counts, serve_results, engine = phase_serve(torch, args.tier_l_layers, card)
+    mark("phase_decode_count")
+    tools = {"decode_step": phase_decode_count(torch, engine, card)}
     mark("phase_cluster")
     cluster_counts, serve_results["cluster"] = phase_cluster(torch, engine, card)
     mark("phase_continuous")
@@ -4199,6 +4530,8 @@ def main(argv=None) -> int:
         (HYBRID_TIER, get_config(HYBRID_ARCH), serve_results["hybrid"], ""))}
     mark("phase_zoo")
     zoo_counts, serve_results["zoo"] = phase_zoo(torch, card, measured)
+    mark("phase_dryrun")
+    tools["dryrun"] = phase_dryrun(torch, card, serve_results["zoo"]["table3"])
     phase_counts = {"dense": dense_counts, "cluster": cluster_counts,
                     "continuous": paged_counts, "int8": int8_counts, "process": process_counts,
                     "serve command": cli_counts, "hybrid": hybrid_counts, "zoo": zoo_counts}
@@ -4208,6 +4541,8 @@ def main(argv=None) -> int:
     gemma, hybrid = TRAIN_ARCHS
     mark("phase_train")
     phase_counts[f"train {gemma}"], train[gemma] = phase_train(torch, gemma, card, args.profile)
+    mark("phase_train_tools")
+    tools.update(phase_train_tools(torch, card, train[gemma]["median_step_ms"]))
     mark("phi3 command")
     phase_counts["train command phi3"], train["phi3 command"] = phase_train_cli(torch, card)
     mark(f"{MOE_ARCH} train")
@@ -4240,7 +4575,7 @@ def main(argv=None) -> int:
     if args.json_out:
         Path(args.json_out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json_out).write_text(json.dumps(
-            dict(card=card, kernels=entries, serve=serve_results, train=train,
+            dict(card=card, kernels=entries, serve=serve_results, train=train, tools=tools,
                  launches=counts, launches_by_phase=phase_counts, profile=profile,
                  seconds=time.perf_counter() - t_start), indent=1,
             default=lambda o: o.item() if hasattr(o, "item") else str(o)))

@@ -13,11 +13,14 @@ layout: ``step_NNNNNNNN/arrays.npz`` (flat ``a/b/0/c`` paths -> arrays) and
   * Keeps the most recent ``keep`` checkpoints (plus any step in
     ``keep_steps``), pruned oldest-first.
   * ``restore(template)`` puts each leaf on the template leaf's device and
-    dtype (and ``requires_grad``).
+    dtype (and ``requires_grad``); ``restore(template, shardings=...)``
+    places each leaf on its sharding as a DTensor instead (reshard on
+    restore: each rank keeps its shard of the saved array).
+  * A sharded state (DTensor leaves) is gathered to full arrays when it is
+    saved, so every rank calls ``save``; rank 0 writes.
 
 bfloat16 has no numpy dtype here: such leaves are stored as their uint16
-bit patterns and the manifest records ``bfloat16``.  Resharding on restore
-waits for the multi-GPU tooling.
+bit patterns and the manifest records ``bfloat16``.
 """
 from __future__ import annotations
 
@@ -32,6 +35,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.tree import named_leaves, tree_map
 
@@ -39,11 +44,19 @@ __all__ = ["CheckpointManager"]
 
 
 def _to_host(t: torch.Tensor):
-    """(numpy array, dtype name): an owned host copy of ``t``."""
+    """(numpy array, dtype name): an owned host copy of ``t`` (a DTensor's
+    full array, gathered from every rank)."""
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
     return t.numpy(), str(t.numpy().dtype)
+
+
+def _writer() -> bool:
+    """Whether this process writes: rank 0, or the only process."""
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 class CheckpointManager:
@@ -73,12 +86,16 @@ class CheckpointManager:
     def save(self, step: int, state, *, extra: Optional[dict] = None):
         """Blocking atomic save."""
         self.wait()  # don't race an in-flight async save of the same step
-        self._write(step, self._snapshot(state), extra or {})
+        host = self._snapshot(state)
+        if _writer():
+            self._write(step, host, extra or {})
 
     def save_async(self, step: int, state, *, extra: Optional[dict] = None):
         """Snapshot synchronously, write in the background."""
         self.wait()  # one in-flight save at a time
         host = self._snapshot(state)  # device->host happens here
+        if not _writer():
+            return
         self._thread = threading.Thread(
             target=self._write, args=(step, host, extra or {}), daemon=True
         )
@@ -121,11 +138,14 @@ class CheckpointManager:
                 shutil.rmtree(self._step_dir(s), ignore_errors=True)
 
     # -- restore -------------------------------------------------------------
-    def restore(self, template, step: Optional[int] = None):
+    def restore(self, template, step: Optional[int] = None, *, shardings=None):
         """Restore into the structure of ``template`` (a tree of tensors).
 
         Returns ``(state, step)``: each leaf on its template leaf's device,
-        in its dtype, with its ``requires_grad``.
+        in its dtype, with its ``requires_grad``.  ``shardings``: a tree of
+        the same structure of :class:`~repro_torch.distributed.api.Sharding`;
+        each leaf is then a DTensor on its sharding, each rank holding its
+        shard of the saved array (reshard on restore), on the mesh's device.
         """
         step = self.latest_step() if step is None else step
         if step is None:
@@ -143,7 +163,14 @@ class CheckpointManager:
                 x = torch.from_numpy(np.array(arr, copy=True))
             return x.to(device=t.device, dtype=t.dtype).requires_grad_(t.requires_grad)
 
+        def place(t, key, sharding):
+            x = put(t, key).detach().to(sharding.mesh.device_type)
+            return (distribute_tensor(x, sharding.mesh, sharding.placements)
+                    .requires_grad_(t.requires_grad))
+
         keys = (key for key, _ in named_leaves(template))
+        if shardings is not None:
+            return tree_map(lambda t, s: place(t, next(keys), s), template, shardings), step
         return tree_map(lambda t: put(t, next(keys)), template), step
 
     def manifest(self, step: int) -> dict:

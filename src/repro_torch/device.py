@@ -2,7 +2,10 @@
 
 Entry points default to ``"cuda"``.  The CPU runs only when a caller asks
 for it (the CPU tests do); asking for CUDA on a machine without a usable
-GPU raises instead of quietly running on the CPU.
+GPU raises instead of quietly running on the CPU.  ``"meta"`` is accepted
+too: tensors with shapes and dtypes but no values, which the dry-run
+(:mod:`repro_torch.launch.dryrun`) traces the model with; on it every
+kernel call takes its plain version's shapes and no CUDA kernel runs.
 """
 from __future__ import annotations
 
@@ -20,6 +23,6 @@ def resolve_device(device="cuda") -> torch.device:
             "False; pass device='cpu' (--device cpu) to run the plain "
             "PyTorch path on the CPU"
         )
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {str(dev)!r} (cuda or cpu)")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {str(dev)!r} (cuda, cpu or meta)")
     return dev

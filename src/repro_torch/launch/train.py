@@ -29,6 +29,15 @@ card (~11 GB and ~30 GB of state).  The
 hybrid recurrentgemma-2b reduced to one period plus its (recurrent,
 recurrent) epilogue is ``--layers 5``.
 
+Under ``torchrun`` (``WORLD_SIZE`` > 1) the process group is initialized
+(NCCL on ``cuda``, one card per local rank; gloo on ``--device cpu``) and
+the step is built on ``make_elastic_mesh()`` with ``make_rules(mesh)``, as
+the JAX package's ``launch/train.py`` does on more than one device.  That
+mesh keeps a tensor axis of up to 16 ranks, and a tensor axis above 1
+raises ``NotImplementedError``: tensor-parallel execution of the model is
+not ported, so every world size above 1 raises.  World size 1 is the
+plain path.
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b --full-config
   PYTHONPATH=src python -m repro_torch.launch.train --arch recurrentgemma-2b --full-config --batch 2 --seq 2048
@@ -40,15 +49,18 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.archs import get_config, reduced
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_elastic_mesh, make_rules
 from repro_torch.training import (
     DataConfig,
     OptimizerConfig,
@@ -56,6 +68,8 @@ from repro_torch.training import (
     init_train_state,
     make_pipeline,
     make_train_step,
+    place_state,
+    state_shardings,
 )
 
 
@@ -86,8 +100,25 @@ def main(argv=None):
                     help="where to train: cuda (the hand-written kernels, the "
                     "default) or cpu (the plain PyTorch versions, only when "
                     "asked for)")
+    ap.epilog = ("Under torchrun (WORLD_SIZE > 1) the step runs on make_elastic_mesh() "
+                 "with make_rules(mesh), whose tensor axis raises NotImplementedError: "
+                 "tensor-parallel execution of the model is not ported.")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+            torch.cuda.set_device(device)
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+        try:
+            mesh = make_elastic_mesh(device=device.type)
+            return _main(args, device, mesh, make_rules(mesh))
+        finally:
+            dist.destroy_process_group()
+    return _main(args, device)
+
+
+def _main(args, device, mesh=None, rules=None):
 
     if args.full_config:
         cfg = get_config(args.arch)
@@ -106,14 +137,14 @@ def main(argv=None):
             print(f"does not fit this card: {reckoning}", flush=True)
             return 1
         try:
-            return _train(args, cfg, device)
+            return _train(args, cfg, device, mesh, rules)
         except torch.cuda.OutOfMemoryError:
             print(f"out of memory: {reckoning}", flush=True)
             return 1
-    return _train(args, cfg, device)
+    return _train(args, cfg, device, mesh, rules)
 
 
-def _train(args, cfg, device):
+def _train(args, cfg, device, mesh=None, rules=None):
     opt_cfg = OptimizerConfig(
         learning_rate=args.lr, warmup_steps=min(100, args.steps // 10 + 1),
         total_steps=args.steps,
@@ -121,19 +152,23 @@ def _train(args, cfg, device):
     train_cfg = TrainConfig(
         microbatches=args.microbatches, grad_compression=args.grad_compression
     )
-    step_fn = make_train_step(cfg, opt_cfg, train_cfg)
+    step_fn = make_train_step(cfg, opt_cfg, train_cfg, mesh=mesh, rules=rules)
     pipe = make_pipeline(
         DataConfig(batch_size=args.batch, seq_len=args.seq, seed=args.seed), cfg
     )
 
     state = init_train_state(cfg, torch.Generator().manual_seed(args.seed), train_cfg,
                              device=device)
+    shardings = None
+    if mesh is not None:
+        shardings = state_shardings(cfg, mesh, rules, train_cfg)
+        state = place_state(state, shardings)
     start_step = 0
     mgr = None
     if args.ckpt_dir:
         mgr = CheckpointManager(args.ckpt_dir, keep=3)
         if mgr.latest_step() is not None:
-            state, start_step = mgr.restore(state)
+            state, start_step = mgr.restore(state, shardings=shardings)
             print(f"resumed from checkpoint at step {start_step}")
 
     t0 = time.time()

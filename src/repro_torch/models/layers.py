@@ -12,6 +12,7 @@ __all__ = [
     "rope",
     "apply_rope",
     "mlp_init_spec",
+    "mlp_init_axes",
     "mlp_apply",
     "truncated_normal_init",
 ]
@@ -68,6 +69,17 @@ def mlp_init_spec(d_model: int, d_ff: int, mlp_type: str):
     if mlp_type == "gelu":
         return {"wi": (d_model, d_ff), "wo": (d_ff, d_model)}
     raise ValueError(f"unknown mlp_type {mlp_type!r}")
+
+
+def mlp_init_axes(mlp_type: str):
+    """The logical axes of :func:`mlp_init_spec`'s leaves (the JAX
+    package's ``(shape, axes)`` spec, second half)."""
+    axes = {"wi": ("embed", "ffn"), "wg": ("embed", "ffn"), "wo": ("ffn", "embed")}
+    if mlp_type == "gelu":
+        del axes["wg"]
+    elif mlp_type not in ("swiglu", "geglu"):
+        raise ValueError(f"unknown mlp_type {mlp_type!r}")
+    return axes
 
 
 def mlp_apply(params, x, mlp_type: str):

@@ -30,7 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import layers
 
-__all__ = ["moe_init_spec", "moe_apply", "capacity"]
+__all__ = ["moe_init_spec", "moe_init_axes", "moe_apply", "capacity"]
 
 
 def capacity(tokens_per_group: int, n_experts: int, top_k: int, cf: float) -> int:
@@ -50,6 +50,26 @@ def moe_init_spec(cfg):
     return spec
 
 
+def moe_init_axes(cfg):
+    """The logical axes of :func:`moe_init_spec`'s leaves: experts
+    unsharded, tensor parallelism inside each expert (``expert_ffn``)."""
+    axes = {"router": ("embed", "experts"), "wi": ("experts", "embed", "expert_ffn"),
+            "wg": ("experts", "embed", "expert_ffn"), "wo": ("experts", "expert_ffn", "embed")}
+    if cfg.mlp_type == "gelu":
+        del axes["wg"]
+    if cfg.n_shared_experts:
+        axes.update({"shared_wi": ("embed", "ffn"), "shared_wg": ("embed", "ffn"),
+                     "shared_wo": ("ffn", "embed")})
+    return axes
+
+
+def _one_hot(idx, n: int):
+    """``F.one_hot(idx, n)``'s int64 values from one comparison: no host
+    read of the indices' range, and the same aten ops on every device (the
+    CPU and CUDA ``one_hot`` check the range first, meta tensors do not)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).long()
+
+
 def _route(cfg, router_w, x):
     """Router in f32: top-k expert ids (T, k), gate values (T, k) and the
     Switch load-balancing loss.  x: (T, D)."""
@@ -62,7 +82,7 @@ def _route(cfg, router_w, x):
         top_gate, top_idx = torch.topk(torch.softmax(logits, dim=-1), cfg.top_k, dim=-1)
         top_gate = top_gate / torch.clamp_min(top_gate.sum(-1, keepdim=True), 1e-9)
     e = cfg.n_experts
-    me = F.one_hot(top_idx[:, 0], e).float().mean(0)
+    me = _one_hot(top_idx[:, 0], e).float().mean(0)
     pe = torch.softmax(logits, dim=-1).mean(0)
     return top_idx, top_gate, e * torch.sum(me * pe)
 
@@ -76,7 +96,7 @@ def _dispatch_group(cfg, params, x, cap):
     flat_e = top_idx.reshape(-1)  # (T*k,) expert per assignment, token-major
     # Slot of each assignment in its expert's queue: how many earlier
     # assignments chose the same expert.
-    onehot = F.one_hot(flat_e, E)
+    onehot = _one_hot(flat_e, E)
     pos = (onehot.cumsum(0) - onehot).gather(1, flat_e[:, None])[:, 0]
     keep = pos < cap
     slot = flat_e * cap + torch.clamp_max(pos, cap - 1)

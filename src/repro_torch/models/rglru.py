@@ -29,6 +29,7 @@ from repro_torch.kernels import ops
 
 __all__ = [
     "rglru_init_spec",
+    "rglru_init_axes",
     "rglru_apply",
     "rglru_decode_step",
     "rglru_init_cache",
@@ -53,6 +54,14 @@ def rglru_init_spec(cfg):
         "gate_x_b": (w,),
         "lamb": (w,),  # Lambda (learned decay)
     }
+
+
+def rglru_init_axes(cfg):
+    """The logical axes of :func:`rglru_init_spec`'s leaves."""
+    return {"wx": ("embed", "lru"), "wy": ("embed", "lru"), "wo": ("lru", "embed"),
+            "conv_w": (None, "lru"), "conv_b": ("lru",), "gate_a": ("lru", None),
+            "gate_x": ("lru", None), "gate_a_b": ("lru",), "gate_x_b": ("lru",),
+            "lamb": ("lru",)}
 
 
 def _depthwise_conv(x, conv_w, conv_b, tail=None):

@@ -84,6 +84,8 @@ from repro_torch.models.config import ModelConfig
 __all__ = [
     "check_supported",
     "model_spec",
+    "param_axes",
+    "cache_axes",
     "unreached_leaves",
     "init_params",
     "params_from_numpy",
@@ -188,6 +190,73 @@ def model_spec(cfg: ModelConfig):
     return spec
 
 
+# ---------------------------------------------------------------------------
+# Logical axes (the sharding layer's names for each dim; the JAX package
+# keeps them beside the shapes as ``(shape, axes)`` leaves, this package in
+# tables of the same tree).
+# ---------------------------------------------------------------------------
+def _attn_axes(cfg: ModelConfig):
+    axes = {"wq": ("embed", "heads"), "wk": ("embed", "kv_heads"),
+            "wv": ("embed", "kv_heads"), "wo": ("heads", "embed")}
+    if cfg.qk_norm:
+        axes["q_norm"] = (None,)
+        axes["k_norm"] = (None,)
+    return axes
+
+
+def block_axes(cfg: ModelConfig, kind: str):
+    """The logical axes of :func:`block_spec`'s leaves."""
+    ln = ("embed",)
+    if kind in ("mlstm", "slstm"):
+        cell = xlstm.mlstm_init_axes(cfg) if kind == "mlstm" else xlstm.slstm_init_axes(cfg)
+        return {"ln1": ln, "cell": cell}
+    return {
+        "ln1": ln,
+        **({"rec": rglru.rglru_init_axes(cfg)} if kind == "recurrent"
+           else {"attn": _attn_axes(cfg)}),
+        "ln2": ln,
+        **({"moe": moe.moe_init_axes(cfg)} if kind == "moe"
+           else {"mlp": layers.mlp_init_axes(cfg.mlp_type)}),
+    }
+
+
+def _model_axes(cfg: ModelConfig):
+    # The token table is replicated over the tensor axis and sharded on
+    # d_model, so token gathers stay local; a tiny classification vocabulary
+    # (hubert's 504) is replicated, as in the JAX package.
+    axes: Dict[str, Any] = {"embed": {"tokens": (None, "embed")}, "final_norm": ("embed",)}
+    if not cfg.tie_embeddings:
+        axes["head"] = ("embed", "vocab" if cfg.vocab_size >= 1024 else None)
+    if cfg.frontend != "none":
+        axes["frontend"] = {"proj": (None, "embed")}
+    axes["periods"] = tuple(block_axes(cfg, k) for k in cfg.pattern)
+    axes["epilogue"] = tuple(block_axes(cfg, k) for k in cfg.epilogue)
+    return axes
+
+
+def _walk_axes(spec, axes, fn, path=()):
+    """``fn(path, shape, axes)`` over the leaves of a spec and its axes
+    table, which must have the same keys and one axis per dim."""
+    if _is_leaf_spec(spec):
+        if not (isinstance(axes, tuple) and len(axes) == len(spec)):
+            raise ValueError(f"{'/'.join(path)}: axes {axes!r} for shape {spec}")
+        return fn(path, spec, axes)
+    if isinstance(spec, dict):
+        if set(spec) != set(axes):
+            raise ValueError(f"{'/'.join(path)}: axes keys {sorted(axes)} != {sorted(spec)}")
+        return {k: _walk_axes(v, axes[k], fn, path + (k,)) for k, v in spec.items()}
+    return tuple(_walk_axes(v, a, fn, path + (str(i),))
+                 for i, (v, a) in enumerate(zip(spec, axes, strict=True)))
+
+
+def param_axes(cfg: ModelConfig):
+    """A tree like :func:`init_params`' with each leaf's logical axes (a
+    tuple of names or None, one per dim); the stacked-period axis is None
+    (unsharded)."""
+    return _walk_axes(model_spec(cfg), _model_axes(cfg),
+                      lambda path, _, ax: (None, *ax) if path[0] == "periods" else ax)
+
+
 def unreached_leaves(cfg: ModelConfig) -> frozenset:
     """Paths (``named_leaves``') of the parameters that no input of ``cfg``
     reaches: an audio encoder's token embedding when its head is untied.
@@ -251,7 +320,8 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     ``norm_offset``; ``lamb`` 0.65; biases 0; weights truncated-normal).
     Each leaf draws from its
     own generator seeded by ``generator``'s seed and the leaf's path, so a
-    leaf's values do not depend on the order of the tree."""
+    leaf's values do not depend on the order of the tree.  On ``"meta"``
+    the leaves have their shapes and dtypes and no values."""
     dev = resolve_device(device)
     check_supported(cfg, dev)
     base = 0 if generator is None else generator.initial_seed()
@@ -260,6 +330,8 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         name = path[-1]
         full = _full_shape(cfg, path, shape)
         dtype = _leaf_dtype(cfg, name)
+        if dev.type == "meta":
+            return torch.empty(full, dtype=dtype, device=dev)
         fill = _init_fill(name, cfg.norm_offset)
         if fill is not None:
             return torch.full(full, fill, dtype=dtype, device=dev)
@@ -502,6 +574,34 @@ def _block_cache(cfg, kind, batch, max_len, dtype, device, lead=()):
         for key in ("k_scale", "v_scale"):
             cache[key] = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
     return cache
+
+
+def _block_cache_axes(cfg, kind, stacked: bool):
+    """Logical axes of :func:`_block_cache`'s leaves.  Ring caches shard
+    their slots on the tensor axis (``seq_kv``): with few KV heads the
+    cache, not the weights, is what decode memory holds."""
+    pre = (None,) if stacked else ()
+    if kind in _ATTN_KINDS:
+        ax = {"k": pre + ("batch", "seq_kv", None, None),
+              "v": pre + ("batch", "seq_kv", None, None),
+              "slot_pos": pre + ("batch", "seq_kv")}
+        if cfg.kv_cache_quant:
+            ax["k_scale"] = pre + ("batch", "seq_kv", None)
+            ax["v_scale"] = pre + ("batch", "seq_kv", None)
+        return ax
+    if kind == "recurrent":
+        return {"h": pre + ("batch", "lru"), "conv_tail": pre + ("batch", None, "lru")}
+    if kind == "mlstm":
+        return {"C": pre + ("batch", None, None, None), "n": pre + ("batch", None, None)}
+    if kind == "slstm":
+        return {k: pre + ("batch", "lru") for k in ("c", "n", "h", "m")}
+    raise ValueError(kind)
+
+
+def cache_axes(cfg: ModelConfig):
+    """Logical axes for :func:`init_cache`'s tree."""
+    return {"periods": tuple(_block_cache_axes(cfg, k, stacked=True) for k in cfg.pattern),
+            "epilogue": tuple(_block_cache_axes(cfg, k, stacked=False) for k in cfg.epilogue)}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):

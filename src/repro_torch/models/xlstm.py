@@ -32,10 +32,12 @@ import torch.nn.functional as F
 
 __all__ = [
     "mlstm_init_spec",
+    "mlstm_init_axes",
     "mlstm_apply",
     "mlstm_decode_step",
     "mlstm_init_cache",
     "slstm_init_spec",
+    "slstm_init_axes",
     "slstm_apply",
     "slstm_decode_step",
     "slstm_init_cache",
@@ -83,6 +85,13 @@ def mlstm_init_spec(cfg):
         "bf": (nh,),
         "wo": (di, d),
     }
+
+
+def mlstm_init_axes(cfg):
+    """The logical axes of :func:`mlstm_init_spec`'s leaves."""
+    return {"wq": ("embed", "lru"), "wk": ("embed", "lru"), "wv": ("embed", "lru"),
+            "wz": ("embed", "lru"), "wi": ("embed", None), "wf": ("embed", None),
+            "bi": (None,), "bf": (None,), "wo": ("lru", "embed")}
 
 
 def _mlstm_qkvg(cfg, params, x):
@@ -193,6 +202,18 @@ def slstm_init_spec(cfg):
         spec[f"b{g}"] = (d,)
     spec["wo_proj"] = (d, d)
     return spec
+
+
+def slstm_init_axes(cfg):
+    """The logical axes of :func:`slstm_init_spec`'s leaves (the recurrence
+    block-diagonal over heads)."""
+    axes = {}
+    for g in _GATES:
+        axes[f"w{g}"] = ("embed", "lru")
+        axes[f"r{g}"] = (None, "lru", None)
+        axes[f"b{g}"] = ("lru",)
+    axes["wo_proj"] = ("lru", "embed")
+    return axes
 
 
 def slstm_init_cache(cfg, batch, device="cuda", lead=(), dtype=torch.float32):

@@ -89,13 +89,16 @@ def lm_zoo_registry(
 
     ``sigma_frac`` models serving jitter (batching/queueing) as a fraction
     of mu.  ``roofline_json``: optional dry-run output (cells of
-    ``decode_32k`` on ``single_pod`` with per-term seconds) to refine mu.
+    ``decode_32k`` on ``single_pod`` with per-term seconds,
+    ``repro_torch.launch.dryrun``'s) to refine mu.
     """
     refine = {}
     if roofline_json and Path(roofline_json).exists():
         data = json.loads(Path(roofline_json).read_text())
         for row in data.get("cells", []):
-            if row.get("shape") == "decode_32k" and row.get("mesh") == "single_pod":
+            # a skipped or failed row (hubert has no decode step) has no terms
+            if (row.get("shape") == "decode_32k" and row.get("mesh") == "single_pod"
+                    and "terms_s" in row):
                 # compiled per-step seconds -> per-token ms at this batch
                 terms = row["terms_s"]
                 refine[row["arch"]] = 1e3 * max(terms.values()) / row.get("global_batch", 1)

@@ -74,16 +74,20 @@ def _slices(t: torch.Tensor):
 
 
 @torch.no_grad()
-def adamw_update(cfg: OptimizerConfig, params, grads, opt_state):
+def adamw_update(cfg: OptimizerConfig, params, grads, opt_state, gnorm=None):
     """One AdamW step, in place.  Returns ``(params, opt_state, metrics)``:
     the same parameter and moment tensors, updated, the incremented step
-    and ``{"grad_norm", "lr"}`` (f32 scalars)."""
+    and ``{"grad_norm", "lr"}`` (f32 scalars).  ``gnorm``: the clip's global
+    norm when ``grads`` hold shards of the gradient (the sharded train
+    step passes the norm over every shard); by default ``global_norm``.
+    On meta tensors (the dry-run) the schedule is taken at step 1."""
     step = opt_state["step"] + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / gnorm.clamp_min(1e-9), max=1.0)
 
     b1, b2 = cfg.beta1, cfg.beta2
-    step_f = torch.tensor(int(step), dtype=_F32)
+    step_f = torch.tensor(1 if step.is_meta else int(step), dtype=_F32)
     corr1 = float(1.0 - torch.tensor(b1, dtype=_F32) ** step_f)
     corr2 = float(1.0 - torch.tensor(b2, dtype=_F32) ** step_f)
     lr_t = lr_at(cfg, step_f)

@@ -6,9 +6,23 @@
 config says), optional microbatch accumulation in f32, optional int8
 gradient compression with error feedback, then AdamW.  PyTorch runs
 eagerly, so there is nothing to jit; the state is updated in place (see
-:mod:`repro_torch.training.optimizer`).  On one GPU there is no mesh: the
-JAX package's ``state_axes`` / ``state_shardings`` / ``batch_shardings``
-wait for the multi-GPU tooling.
+:mod:`repro_torch.training.optimizer`).
+
+With a mesh and axis rules the step is data-parallel over the mesh's
+batch axes, with the state sharded as :func:`state_shardings` says
+(DTensors; the weights' ``embed`` dim over ``data``, as in the JAX
+package).  Each step all-gathers every parameter into a plain tensor (so
+the kernels see plain tensors), runs this rank's rows of the batch,
+reduce-scatters the gradients onto the shards (all-reduces those of
+replicated leaves) and updates the shards.  The arithmetic is the
+unsharded step's: the loss is the mean over the global batch's tokens
+(each rank weights its cross-entropy by its share of the global token
+count, and the shares' gradients are summed), the clip's global norm is
+taken over every shard, a compressed leaf's int8 scale is its whole
+gradient's, and microbatch ``i`` is the same rows of the global batch,
+split over the ranks.  A mesh whose ``model`` axis is larger than 1
+raises ``NotImplementedError``: tensor-parallel execution of the model is
+not ported (``ROADMAP.md`` Queue A item 9).
 
 The train state is ``{"params", "opt": {"mu", "nu", "step"}}`` plus
 ``"error_fb"`` under compression, the JAX package's tree; parameters are
@@ -20,15 +34,19 @@ import dataclasses
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
 
 from repro_torch.device import resolve_device
 from repro_torch.distributed import compression
+from repro_torch.distributed.api import AxisRules, mesh_axes, named_sharding
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.training.optimizer import OptimizerConfig, adamw_update, init_opt_state
-from repro_torch.tree import named_leaves, tree_map
+from repro_torch.tree import named_leaves, tree_leaves, tree_map
 
-__all__ = ["TrainConfig", "init_train_state", "train_state_from_numpy", "make_train_step"]
+__all__ = ["TrainConfig", "init_train_state", "train_state_from_numpy", "make_train_step",
+           "make_grads_fn", "state_axes", "state_shardings", "batch_shardings",
+           "place_state"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,22 +99,71 @@ def train_state_from_numpy(cfg: ModelConfig, tree, device="cuda"):
     return state
 
 
-def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
-                    train_cfg: TrainConfig = TrainConfig()):
-    """Returns ``train_step(state, batch) -> (state, metrics)``.  ``batch``
-    holds ``tokens`` and ``labels`` (B, S) on the state's device; the
-    metrics are ``loss``, ``grad_norm``, ``lr``, ``xent``, ``aux`` and
-    ``tokens`` (f32 scalars)."""
+def _is_axes(x) -> bool:
+    return isinstance(x, tuple) and bool(x) and all(isinstance(e, (str, type(None))) for e in x)
 
+
+def _map_axes(fn, axes):
+    """``fn`` over the logical-axes leaves of an axes tree."""
+    if _is_axes(axes):
+        return fn(axes)
+    if isinstance(axes, dict):
+        return {k: _map_axes(fn, v) for k, v in axes.items()}
+    return tuple(_map_axes(fn, v) for v in axes)
+
+
+def state_axes(cfg: ModelConfig, train_cfg: TrainConfig = TrainConfig()):
+    """Logical axes for the whole train state (mirrors init_train_state)."""
+    p_axes = transformer.param_axes(cfg)
+    axes = {"params": p_axes, "opt": {"mu": p_axes, "nu": p_axes, "step": ()}}
+    if train_cfg.grad_compression:
+        axes["error_fb"] = p_axes
+    return axes
+
+
+def state_shardings(cfg: ModelConfig, mesh, rules: AxisRules, train_cfg=TrainConfig()):
+    """The train state's tree of :class:`~repro_torch.distributed.api.Sharding`."""
+    ps = _map_axes(lambda ax: named_sharding(mesh, rules, ax), transformer.param_axes(cfg))
+    shardings = {"params": ps, "opt": {"mu": ps, "nu": ps,
+                                       "step": named_sharding(mesh, rules, ())}}
+    if train_cfg.grad_compression:
+        shardings["error_fb"] = ps
+    return shardings
+
+
+def batch_shardings(mesh, rules: AxisRules, batch_tree):
+    """Every batch leaf sharded on its lead (global batch) dim."""
+    return tree_map(lambda a: named_sharding(mesh, rules, ("batch",) + (None,) * (a.dim() - 1)),
+                    batch_tree)
+
+
+def place_state(tree, shardings):
+    """Each full tensor of ``tree`` (the same values on every rank) as a
+    DTensor on its sharding: each rank keeps its shard, in the tensor's
+    dtype and with its ``requires_grad``."""
+    return tree_map(lambda t, s: distribute_tensor(t.detach(), s.mesh, s.placements)
+                    .requires_grad_(t.requires_grad), tree, shardings)
+
+
+def make_grads_fn(cfg: ModelConfig, train_cfg: TrainConfig = TrainConfig(), objective=None):
+    """``compute_grads(params, batch) -> (loss, metrics, grads)``: the train
+    step's gradients, over ``train_cfg.microbatches`` slices of the batch's
+    lead dim (f32 accumulation, means over the microbatches).  By default
+    each microbatch differentiates its ``loss``; ``objective(loss, metrics)
+    -> (target, loss, metrics)`` replaces what is differentiated and
+    reported (the sharded step's token-weighted share)."""
     unreached = transformer.unreached_leaves(cfg)
 
     def grads_of(params, batch):
         loss, metrics = transformer.loss_fn(cfg, params, batch)
+        target = loss
+        if objective is not None:
+            target, loss, metrics = objective(loss, metrics)
         # A leaf no input reaches gets a zero gradient, as jax.grad gives
         # it; any other leaf cut off from the loss makes autograd raise.
         leaves = list(named_leaves(params))
         reached = iter(torch.autograd.grad(
-            loss, [p for name, p in leaves if name not in unreached]))
+            target, [p for name, p in leaves if name not in unreached]))
         grads = iter([torch.zeros_like(p) if name in unreached else next(reached)
                       for name, p in leaves])
         return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
@@ -124,6 +191,22 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
         metrics_a = {k: (v if k == "tokens" else v / n) for k, v in metrics_a.items()}
         return loss_a / n, metrics_a, grads_a
 
+    return compute_grads
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
+                    train_cfg: TrainConfig = TrainConfig(), mesh=None,
+                    rules: Optional[AxisRules] = None):
+    """Returns ``train_step(state, batch) -> (state, metrics)``.  ``batch``
+    holds ``tokens`` and ``labels`` (B, S) on the state's device; the
+    metrics are ``loss``, ``grad_norm``, ``lr``, ``xent``, ``aux`` and
+    ``tokens`` (f32 scalars).  With ``mesh`` and ``rules``: the state
+    placed by :func:`place_state` on :func:`state_shardings`, and the
+    global batch, the same on every rank (see the module docstring)."""
+    if mesh is not None and rules is not None:
+        return _sharded_train_step(cfg, opt_cfg, train_cfg, mesh, rules)
+    compute_grads = make_grads_fn(cfg, train_cfg)
+
     def train_step(state, batch):
         loss, metrics, grads = compute_grads(state["params"], batch)
         new_state = dict(state)
@@ -133,6 +216,105 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
         params, opt, opt_metrics = adamw_update(opt_cfg, state["params"], grads, state["opt"])
         new_state["params"] = params
         new_state["opt"] = opt
+        return new_state, {"loss": loss, **opt_metrics, **metrics}
+
+    return train_step
+
+
+def _sharded_train_step(cfg, opt_cfg, train_cfg, mesh, rules):
+    names, sizes = mesh_axes(mesh)
+    size = dict(zip(names, sizes))
+    if size.get("model", 1) > 1:
+        raise NotImplementedError(
+            f"a mesh with model={size['model']}: tensor-parallel execution of the model is "
+            "not ported (ROADMAP.md Queue A item 9); use a (data, 1) mesh")
+    batch_rule = rules.table["batch"]
+    batch_axes = (batch_rule,) if isinstance(batch_rule, str) else tuple(batch_rule or ())
+    data_dims = [names.index(ax) for ax in batch_axes]
+    R = 1
+    for d in data_dims:
+        R *= sizes[d]
+    coord = mesh.get_coordinate()
+    rank = 0  # this rank's index over the batch axes, major to minor
+    for d in data_dims:
+        rank = rank * sizes[d] + coord[d]
+    local_cfg = cfg
+    if "moe" in cfg.layer_kinds():  # MoE groups follow the batch sharding
+        if cfg.moe_groups % R:
+            raise ValueError(f"moe_groups={cfg.moe_groups} does not split over {R} data ranks")
+        local_cfg = dataclasses.replace(cfg, moe_groups=cfg.moe_groups // R)
+    n_mb = max(train_cfg.microbatches, 1)
+
+    def over_data(t, op=None):
+        """``t`` reduced (sum, or ``op``) over the batch axes."""
+        pl = [(Partial(op) if op else Partial()) if i in data_dims else Replicate()
+              for i in range(len(names))]
+        return DTensor.from_local(t, mesh, pl, run_check=False).full_tensor()
+
+    def objective(loss, metrics):
+        c = metrics["tokens"]
+        share = c / over_data(c.detach())
+        target = metrics["xent"] * share + 0.01 * metrics["aux"] / R
+        tot = over_data(torch.stack([target.detach(), (metrics["xent"] * share).detach(),
+                                     (metrics["aux"] / R).detach(), c.detach()]))
+        return target, tot[0], {"xent": tot[1], "aux": tot[2], "tokens": tot[3]}
+
+    compute_grads = make_grads_fn(local_cfg, train_cfg, objective)
+
+    def local_rows(t):
+        B = t.shape[0]
+        if B % (R * n_mb):
+            raise ValueError(f"batch {B} does not split into {n_mb} microbatches over {R} ranks")
+        per, part = B // n_mb, B // (n_mb * R)
+        return torch.cat([t[i * per + rank * part:i * per + (rank + 1) * part]
+                          for i in range(n_mb)])
+
+    def sharded_sum(values, placements):
+        """Each leaf's local value summed over the mesh dims it is sharded
+        on (once per group of leaves sharded alike)."""
+        out = list(values)
+        groups = {}
+        for i, pl in enumerate(placements):
+            groups.setdefault(tuple(isinstance(x, Shard) for x in pl), []).append(i)
+        for key, idx in groups.items():
+            if any(key):
+                pl = [Partial() if k else Replicate() for k in key]
+                tot = DTensor.from_local(torch.stack([values[i] for i in idx]), mesh, pl,
+                                         run_check=False).full_tensor()
+                for j, i in enumerate(idx):
+                    out[i] = tot[j]
+        return out
+
+    def train_step(state, batch):
+        params = state["params"]
+        p_leaves = tree_leaves(params)
+        placements = [p.placements for p in p_leaves]
+        with torch.no_grad():
+            full = tree_map(lambda p: p.full_tensor().requires_grad_(True), params)
+        loss, metrics, grads = compute_grads(full, {k: local_rows(v) for k, v in batch.items()})
+        del full
+        partial = [Partial() if i in data_dims else Replicate() for i in range(len(names))]
+        grads = tree_map(lambda g, p: DTensor.from_local(g, mesh, partial, run_check=False)
+                         .redistribute(mesh, p.placements).to_local(), grads, params)
+        if train_cfg.grad_compression:
+            everywhere = [Partial("max")] * len(names)
+            with torch.no_grad():  # the feedback's shards, updated in place
+                local_e = tree_map(lambda e: e.to_local(), state["error_fb"])
+            grads, _ = compression.quantize_dequantize(
+                grads, local_e,
+                reduce_max=lambda m: DTensor.from_local(torch.stack(m), mesh, everywhere,
+                                                        run_check=False).full_tensor())
+        sums = sharded_sum([g.float().square().sum() for g in tree_leaves(grads)], placements)
+        gnorm = torch.stack(sums).sum().sqrt()
+        opt = state["opt"]
+        with torch.no_grad():  # the shards, updated in place
+            local = {"params": params, "mu": opt["mu"], "nu": opt["nu"]}
+            local = tree_map(lambda t: t.to_local(), local)
+        _, new_opt, opt_metrics = adamw_update(
+            opt_cfg, local["params"], grads,
+            {"mu": local["mu"], "nu": local["nu"], "step": opt["step"].to_local()}, gnorm=gnorm)
+        step = DTensor.from_local(new_opt["step"], mesh, opt["step"].placements, run_check=False)
+        new_state = dict(state, opt={"mu": opt["mu"], "nu": opt["nu"], "step": step})
         return new_state, {"loss": loss, **opt_metrics, **metrics}
 
     return train_step

@@ -1,7 +1,8 @@
 """Package boundary of the PyTorch port: no JAX, no ``repro``, CUDA by default.
 
 ``repro_torch`` must import with ``jax`` (and ``repro``) blocked, no file
-of the port or ``chip_smoke.py`` may import either, and an entry point
+of the port, ``chip_smoke.py`` or the port's examples
+(``examples/torch_*.py``) may import either, and an entry point
 asked for nothing must refuse to run on a machine without a GPU instead
 of quietly running on the CPU.
 """
@@ -17,7 +18,8 @@ torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+         + sorted((ROOT / "examples").glob("torch_*.py")))
 
 
 def _module_name(path: Path) -> str:
