@@ -14,7 +14,8 @@ Phases (each passes or raises; any failure exits non-zero with no result):
    seconds, the tensor-core flash kernels' (forward and backward)
    registers, shared memory and spills, and the count of HGMMA (``wgmma``)
    instructions in their SASS (``cuobjdump -sass``), failing if one of the
-   six instantiations of either has none.
+   ten instantiations of either (bf16 and f16 at D = 64, 80, 96, 128, 256)
+   has none.
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the kernel-test sweep shapes and at the full-width shapes of the main
    path, with f32 atol 1e-4 (summation order) and bf16 atol 2e-2 + rtol
@@ -24,8 +25,9 @@ Phases (each passes or raises; any failure exits non-zero with no result):
    time with its launch cost.  The flash forward, ring decode and flash
    backward sweeps include recurrentgemma's G = 10, D = 256 heads.  The
    flash forward sweep runs f32 (the CUDA-core kernel), bf16 and f16 (the
-   tensor-core kernel at D >= 64) with long and ragged S (1000, 2047, 2048,
-   2100) at D = 128 / 256 and window edges inside a 64-key tile; it has
+   tensor-core kernel at D >= 64) with long and ragged S (63, 65, 1000,
+   2047, 2048, 2100) at D = 80 / 96 / 128 / 256 and window edges inside a
+   64-key tile; it has
    full-width rows at the serve prefill and at both train shapes (gemma-2b
    q (2, 8, 2048, 256), recurrentgemma q (2, 10, 2048, 256) window 2048,
    with the LSE).  The ring decode sweep runs f32, bf16 and f16, G = 5 / 8
@@ -45,11 +47,13 @@ Phases (each passes or raises; any failure exits non-zero with no result):
    flash backward kernel runs the tests/test_kernels.py cases plus D 128 /
    256, G 5 / 8 / 10, ragged S, windowed and bidirectional, in f32, bf16
    and f16 (the forward kernel's LSE is checked too); then its wgmma route
-   (bf16 / f16 at D = 64 / 128 / 256) on S up to 3000, ragged head groups,
-   windows cut mid-tile and a window of 1, each bitwise equal over two
-   launches; and full-width rows at both train shapes (gemma-2b q (2, 8,
-   2048, 256) causal, recurrentgemma-2b q (2, 10, 2048, 256) window 2048,
-   olmoe-1b-7b q (2, 16, 2048, 128) with one q head per kv head, G = 1),
+   (bf16 / f16 at D = 64 / 80 / 96 / 128 / 256) on S up to 3000, ragged
+   head groups, windows cut mid-tile and a window of 1, each bitwise equal
+   over two launches; and full-width rows at the train shapes (gemma-2b q
+   (2, 8, 2048, 256) causal, recurrentgemma-2b q (2, 10, 2048, 256) window
+   2048, olmoe-1b-7b q (2, 16, 2048, 128) with one q head per kv head, G =
+   1, hubert-xlarge q (2, 16, 2048, 80) bidirectional, phi3-mini-3.8b q (2,
+   32, 2048, 96) causal; the forward at the last two too),
    each bitwise equal over two launches, whose library time is the
    backward of ``F.scaled_dot_product_attention`` alone, eager, printed
    beside the kernel's eager time.  The RG-LRU scan kernel (S
@@ -476,7 +480,7 @@ def _hgmma_report(cuda_build):
                     counts[func] = 0
             elif func and "HGMMA" in line:
                 counts[func] += 1
-        check(len(counts) == 6, f"expected 6 {kernel} instantiations in the SASS, found {counts}")
+        check(len(counts) == 10, f"expected 10 {kernel} instantiations in the SASS, found {counts}")
         for func, n in counts.items():
             check(n > 0, f"{kernel}<{func}> has no HGMMA instruction")
         print(f"[build] HGMMA instructions per {kernel} (cuobjdump -sass): {counts}", flush=True)
@@ -614,10 +618,15 @@ def phase_kernels(torch, full):
         # window edges inside a 64-key tile
         (1, 4, 1, 1000, 128, True, 100), (1, 4, 2, 300, 64, True, 65),
         (1, 2, 1, 517, 256, False, 130), (1, 2, 1, 700, 256, True, 127),
-        # head dims 80 (hubert) and 96 (phi3-mini, 32 heads, MHA): the
-        # CUDA-core kernel in every dtype
+        # head dims 80 (hubert, bidirectional) and 96 (phi3-mini, 32 heads,
+        # MHA): the CUDA-core kernel in f32, the tensor-core kernel's 16 /
+        # 32-wide feature boxes in bf16 / f16; ragged and long S, windows
+        # cut mid-tile
         (2, 4, 2, 256, 80, True, 0), (1, 4, 4, 300, 96, True, 64), (1, 2, 1, 129, 96, False, 0),
         (1, 32, 32, 200, 96, True, 0), (1, 2, 1, 517, 80, False, 130),
+        (1, 4, 1, 63, 80, True, 0), (1, 4, 2, 65, 96, False, 0), (1, 16, 16, 1000, 80, False, 0),
+        (1, 8, 8, 2047, 96, True, 0), (1, 4, 4, 2100, 80, False, 0), (1, 4, 2, 2100, 96, True, 100),
+        (1, 8, 2, 1000, 80, True, 130), (1, 2, 1, 2047, 96, False, 65),
     ]
     for dtype in (f32, bf16, f16):
         for B, NQ, NKV, S, D, causal, window in flash_cases:
@@ -699,6 +708,7 @@ def phase_kernels(torch, full):
     # decode, and its prefill (16 kv heads).
     olmoe = get_config(MOE_ARCH)
     pali, hubert = get_config(PALI_ARCH), get_config(HUBERT_ARCH)
+    phi3 = get_config(PHI3_ARCH)
     olmoe_paged = _full_width_paged(torch, dict(full, n_heads=olmoe.n_heads,
                                                 n_kv_heads=olmoe.n_kv_heads,
                                                 head_dim=olmoe.head_dim), gen)
@@ -719,7 +729,8 @@ def phase_kernels(torch, full):
                     min(hybrid.window, full["max_len"]), full["prompt"] + 1, "tier-rg"),
         # The frontends: paligemma's prefill (256 patches and the prompt) and
         # its train shape (256 patches and TRAIN_SEQ tokens), prefix 256;
-        # hubert's bidirectional encoder at D = 80 (the CUDA-core kernel).
+        # hubert's bidirectional encoder at D = 80 (16-wide feature boxes);
+        # phi3-mini's train shape at D = 96 (32-wide boxes).
         _flash_row(torch, gen, full["batch"], pali.n_heads, pali.n_kv_heads,
                    pali.num_prefix_tokens + full["prompt"], pali.head_dim, 0, False,
                    "paligemma prefill", prefix=pali.num_prefix_tokens),
@@ -728,13 +739,15 @@ def phase_kernels(torch, full):
                    "paligemma training", prefix=pali.num_prefix_tokens),
         _flash_row(torch, gen, TRAIN_BATCH, hubert.n_heads, hubert.n_kv_heads, TRAIN_SEQ,
                    hubert.head_dim, 0, True, "hubert training", causal=False),
+        _flash_row(torch, gen, TRAIN_BATCH, phi3.n_heads, phi3.n_kv_heads, TRAIN_SEQ,
+                   phi3.head_dim, 0, True, "phi3-mini training"),
     ]
     for e in more:
         _print_entry(e)
     bwd = [_full_width_bwd(torch, gen, arch) for arch in TRAIN_ARCHS + (MOE_ARCH,)]
     bwd += [_full_width_bwd(torch, gen, PALI_ARCH, S=pali.num_prefix_tokens + TRAIN_SEQ,
                             prefix=pali.num_prefix_tokens),
-            _full_width_bwd(torch, gen, HUBERT_ARCH)]
+            _full_width_bwd(torch, gen, HUBERT_ARCH), _full_width_bwd(torch, gen, PHI3_ARCH)]
     for e in bwd:
         _print_entry(e)
     print("[kernels] rglru_scan_fwd / rglru_scan_bwd have no library yardstick: no single "
@@ -1141,7 +1154,7 @@ def _bwd_f64(torch, q, k, v, out, dout, lse, causal, window, round_to=None, scal
     operands as the kernels round them: ds rounded to that dtype, and p as
     the sum of p rounded and its remainder rounded (two products in the
     wgmma kernels) or, without ``split_p``, p rounded once (the WMMA
-    kernels): the plain version of the kernel's arithmetic."""
+    kernels at D = 16 / 32): the plain version of the kernel's arithmetic."""
     from repro_torch.kernels import ref
 
     B, NQ, S, D = q.shape
@@ -1223,19 +1236,19 @@ def _bwd_sweep(torch, gen) -> int:
     fed the forward kernel's output and LSE, on model-layout views: the
     tests/test_kernels.py cases, then D 128 / 256, G 5 / 8 / 10 (MQA), ragged S,
     windowed and bidirectional; f32 (the CUDA-core kernels), bf16 and f16
-    (the tensor-core kernels: wgmma at D = 64 / 128 / 256, WMMA at the
-    others).  Then, bf16 and f16 only, the wgmma route's own cases: D 64 /
-    128 / 256, S 63 / 65 / 1000 / 2047 / 2048 / 2100 / 3000, G 8 / 10 with
-    ragged head groups (the planner's 3 + 3 + 2, 4 + 4 + 2 and 3 + 3 + 3 +
-    1), windows cut mid-tile, a window of 1 (every off-diagonal pair
-    masked) and rows past S that see no key; each also bitwise equal over
-    two launches, and from S = 1000 up (but the window of 1, whose dq and
-    dk are exactly 0) held to the relative-error gate (``_rel_gate``).
-    Last, bf16 only, three cases at a train step's magnitudes (q, k, v
-    drawn x 8, dout x 1e-9, as gemma-2b's first step gives them: |q| to
-    ~50, |dout| ~3e-9, LSE ~490), where atol says nothing and the gate
-    does: gemma-2b's and recurrentgemma-2b's heads on the wgmma route and
-    phi3-mini's on the WMMA route."""
+    (the tensor-core kernels: wgmma at D = 64 / 80 / 96 / 128 / 256, WMMA
+    at 16 / 32).  Then, bf16 and f16 only, the wgmma route's own cases: D
+    64 / 80 / 96 / 128 / 256, S 63 / 65 / 1000 / 2047 / 2048 / 2100 /
+    3000, G 8 / 10 with ragged head groups (the planner's 3 + 3 + 2, 4 + 4
+    + 2 and 3 + 3 + 3 + 1), windows cut mid-tile, a window of 1 (every
+    off-diagonal pair masked) and rows past S that see no key; each also
+    bitwise equal over two launches, and from S = 1000 up (but the window
+    of 1, whose dq and dk are exactly 0) held to the relative-error gate
+    (``_rel_gate``).  Last, bf16 only, three cases at a train step's
+    magnitudes (q, k, v drawn x 8, dout x 1e-9, as gemma-2b's first step
+    gives them: |q| to ~50, |dout| ~3e-9, LSE ~490), where atol says
+    nothing and the gate does: gemma-2b's, recurrentgemma-2b's and
+    phi3-mini's heads, all on the wgmma route."""
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import flash_attention_bwd as bk
     from repro_torch.kernels import ref
@@ -1252,6 +1265,9 @@ def _bwd_sweep(torch, gen) -> int:
         # head dims 96 (phi3-mini: 32 heads, MHA) and 80
         (1, 4, 2, 200, 96, True, 0), (2, 4, 4, 130, 80, False, 40), (1, 32, 32, 128, 96, True, 0),
     ]
+    # D = 80 / 96: 16 / 32-wide feature boxes, 128 fixed rows a block
+    # (hubert-xlarge bidirectional, MHA; phi3-mini causal, MHA; GQA with
+    # ragged groups, windows cut mid-tile)
     wgmma_cases = [
         (1, 8, 1, 63, 64, True, 0), (1, 10, 1, 65, 128, True, 0), (1, 8, 1, 1000, 256, True, 0),
         (1, 10, 1, 2047, 256, True, 0), (1, 8, 2, 2048, 128, True, 0),
@@ -1259,6 +1275,10 @@ def _bwd_sweep(torch, gen) -> int:
         (1, 8, 1, 3000, 256, True, 0), (1, 10, 1, 2900, 256, False, 0),
         (1, 10, 2, 517, 128, True, 130), (2, 4, 4, 2048, 64, False, 65),
         (1, 4, 2, 1000, 64, True, 1), (1, 2, 1, 1, 256, True, 0),
+        (1, 8, 1, 63, 80, True, 0), (1, 10, 1, 65, 96, True, 0), (1, 16, 16, 1000, 80, False, 0),
+        (1, 8, 8, 2047, 96, True, 0), (1, 10, 2, 2100, 80, True, 100),
+        (2, 4, 4, 2100, 96, False, 65), (1, 10, 1, 1000, 96, True, 130),
+        (1, 8, 2, 2047, 80, False, 0),
     ]
     train_scale_cases = [
         (1, 8, 1, 2048, 256, True, 0), (1, 10, 1, 2048, 256, True, 1000),
@@ -1305,8 +1325,8 @@ def _prefix_sweep(torch, gen) -> int:
     """Prefix-LM attention (the JAX model's ``(causal & window) | (kpos <
     prefix_len[b])``) on every route the frontends reach, forward and
     backward, each against its plain version: f32 (the CUDA-core kernels),
-    bf16 and f16 (wgmma at D = 64 / 128 / 256, the CUDA-core forward and
-    the WMMA backward at D = 80 / 96).  Per-row prefix lengths that differ
+    bf16 and f16 (wgmma at D = 64 / 80 / 96 / 128 / 256, the CUDA-core
+    forward and the WMMA backward at D = 32).  Per-row prefix lengths that differ
     within a batch, 0, 1, lengths that end inside a 64-key tile and one
     that is all of S, paligemma's G = 8 and D = 256, a window beside a
     prefix.  The forward (out and LSE) against ``flash_attention_ref``, the
@@ -1325,6 +1345,7 @@ def _prefix_sweep(torch, gen) -> int:
         ((1, 0), 4, 2, 130, 128, 0), ((63, 65, 64), 4, 1, 200, 64, 0),
         ((37, 300), 4, 4, 300, 80, 0), ((129, 5), 2, 1, 257, 96, 0),
         ((70, 3), 4, 1, 300, 64, 37), ((200,), 2, 1, 200, 32, 0),
+        ((1000, 63), 8, 2, 2100, 80, 0), ((65, 2047), 4, 1, 2047, 96, 100),
     ]
     n = 0
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
@@ -1411,8 +1432,9 @@ def _full_width_bwd(torch, gen, arch, S=TRAIN_SEQ, prefix=0):
     (2, 8, 2048, 256) causal and recurrentgemma-2b q (2, 10, 2048, 256)
     with its window of 2048, one kv head each, olmoe-1b-7b's q (2, 16,
     2048, 128) with a kv head per q head (G = 1), paligemma-3b's q (2, 8,
-    2304, 256) causal with its 256-key prefix and hubert-xlarge's q (2, 16,
-    2048, 80) bidirectional (the WMMA route).  Also checks that two
+    2304, 256) causal with its 256-key prefix, hubert-xlarge's q (2, 16,
+    2048, 80) bidirectional and phi3-mini-3.8b's q (2, 32, 2048, 96)
+    causal (16 / 32-wide feature boxes).  Also checks that two
     launches are bitwise equal, holds the gradients to the relative-error
     gate and, with a prefix or bidirectional, to the model of the kernel's
     tile walk (``ref.flash_attention_bwd_tiled_ref``), and prints the
@@ -1745,6 +1767,7 @@ def phase_model(torch):
         del cpu_params, gpu_params
     _model_bf16_grads(torch, get_config(TRAIN_ARCHS[0], n_layers=2))
     _model_bf16_grads(torch, get_config(MOE_ARCH, n_layers=2))
+    _model_bf16_grads(torch, get_config(PHI3_ARCH, n_layers=2))
 
 
 def _model_bf16_grads(torch, cfg):
@@ -1754,8 +1777,9 @@ def _model_bf16_grads(torch, cfg):
     / 16 kv heads x 128, 64 experts top-8), 2 layers each, batch 2 x 2048
     tokens (the train phase's attention shapes); the frontends' train
     commands add paligemma-3b (its 256 patches before the 2048 tokens,
-    prefix-LM) and hubert-xlarge (2048 frames, bidirectional, D = 80: the
-    WMMA route), each batch the train pipeline's first.  Three runs differ only in
+    prefix-LM) and hubert-xlarge (2048 frames, bidirectional, D = 80), and
+    the model phase phi3-mini-3.8b (d 3072, 32 heads x 96, MHA), each batch
+    the train pipeline's first.  Three runs differ only in
     the attention backward, the forward being the same kernels (a swapped
     forward could flip a near-tied top-k choice and move whole expert
     leaves): the kernel; the plain version (``ref.flash_attention_bwd_ref``,
@@ -4140,8 +4164,8 @@ def phase_train_cli(torch, card, arch=PHI3_ARCH, steps=PHI3_TRAIN_STEPS, learn_c
     """The user's command ``python -m repro_torch.launch.train --arch ARCH
     --full-config --batch B --seq S`` for ``steps`` steps, run in this
     process (``launch.train.main``) so its launches are counted.  phi3-mini:
-    every attention call at head dim 96 (the CUDA-core flash forward, the
-    tensor-core backward); xlstm-350m: no attention, the norms the only
+    every attention call at head dim 96 (both flash kernels on ``wgmma``
+    with 32-wide feature boxes); xlstm-350m: no attention, the norms the only
     kernel.  Checks exit 0, finite losses, with ``learn_check`` the last
     below the first, and the flash launches worked out from the layer
     kinds."""

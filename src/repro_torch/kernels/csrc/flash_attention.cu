@@ -2,12 +2,13 @@
 // K/V tiles, f32 accumulation, GQA by kv head = q head / G.  Two kernels,
 // chosen by dtype and head dim (the wrapper's ``flash_route`` says which):
 //
-// * flash_fwd_wgmma_kernel: bf16 / f16 at D = 64, 128, 256, every shape
-//   the full-width paths run (prefill and training).  Tensor cores.
+// * flash_fwd_wgmma_kernel: bf16 / f16 at D = 64, 80, 96, 128, 256, every
+//   shape the full-width paths run (prefill and training; hubert-xlarge's
+//   D = 80 and phi3-mini's 96 included).  Tensor cores.
 // * flash_fwd_kernel: f32 at any D (TF32 would break the f32 tolerance of
-//   1e-4 that the f32 model checks hold), and bf16 / f16 at D = 16, 32, 80
-//   and 96 (phi3-mini's 96 and hubert's 80 are not whole 64-wide swizzle
-//   boxes).  CUDA cores; shared memory at D = 96 is 90,880 bytes.
+//   1e-4 that the f32 model checks hold), and bf16 / f16 at D = 16, 32 (on
+//   no full-width path).  CUDA cores; shared memory at D = 96 is 90,880
+//   bytes.
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py
 // (flash_attention_fwd, pallas_call at :119, _kernel at :30).
@@ -23,8 +24,8 @@
 // What the tensor-core kernel does about it.  A block owns 128 query rows
 // of one (batch, q head): two consumer warpgroups of 64 rows each and one
 // producer warpgroup.
-// * Loads: one thread of the producer warpgroup issues TMA tile loads (4-D tensor maps over
-//   (D, S, heads, batch) with the caller's byte strides, so the model's
+// * Loads: one thread of the producer warpgroup issues TMA tile loads (4-D
+//   tensor maps over (D, S, heads, batch) with the caller's byte strides, so the model's
 //   (B, S, N, HD) views are read in place) into a ring of K/V stages with
 //   full / empty mbarriers; the next tile's K and V land while this one is
 //   multiplied.  Q is loaded once.  TMA fills rows past S with zeros.
@@ -33,14 +34,23 @@
 //   masked (only on tiles that straddle the band or the end of S), put
 //   through the online softmax in registers, converted to bf16 / f16 and
 //   fed straight back as the register A operand of O += P.V (wgmma
-//   m64n{64,128}k16, V as the MN-major B operand through the transpose
+//   m64n{64,80,96,128}k16, V as the MN-major B operand through the transpose
 //   bit): for 16-bit types the accumulator's register order is the A
 //   fragment's, so P never goes through shared memory.
-// * Tiles: 128-byte swizzle, so a box is 64 elements wide and D = 128 / 256
-//   is 2 / 4 boxes side by side; the wgmma descriptors use the same swizzle.
-//   Shared memory at D = 256: Q 128 x 256 bf16 = 64 KB plus 2 stages of K
-//   and V (64 x 256 each, 32 KB) = 192 KB of the 227 KB a block may use;
-//   D <= 128 takes 3 stages (32 + 96 KB / 16 + 48 KB).  Registers per
+// * Tiles (hopper.cuh FeatureBoxes): the widest swizzle whose box divides
+//   D.  D = 64 / 128 / 256: 128-byte swizzle, boxes 64 elements wide, 1 /
+//   2 / 4 side by side; D = 96: 64-byte swizzle, three 32-wide boxes; D =
+//   80: 32-byte swizzle, five 16-wide boxes.  The wgmma descriptors use the
+//   same swizzle (layout type 1 / 2 / 3); S = Q.K^T takes k16 steps along
+//   the boxes (5 at D = 80, 6 at 96), and P.V is one m64n80k16 / m64n96k16
+//   per 16 keys with LBO = one box, as D = 128 spans two boxes with one
+//   n128.  Shared memory at D = 256: Q 128 x 256 bf16 = 64 KB plus 2 stages
+//   of K and V (64 x 256 each, 32 KB) = 192 KB of the 227 KB a block may
+//   use; D <= 128 takes 3 stages (16 + 48 KB at D = 64, 24 + 72 KB at 96).
+//   At hubert-xlarge's and phi3-mini's train shapes 3 stages timed 0.1825
+//   / 0.2170 ms against 0.1887-0.1909 / 0.2296-0.2305 with 4 and 0.1894 /
+//   0.2246 with 6 (scripts/flash_headdim_timing.py on variants of this
+//   file, one H100 80GB HBM3 at 700 W, one call).  Registers per
 //   consumer thread at D = 256: the O accumulator 128 f32, the scores 32
 //   f32, P 16 x 32-bit, so 64 keys per tile keeps the state within the 240
 //   registers setmaxnreg gives each consumer thread (the producer
@@ -79,7 +89,7 @@ namespace repro_torch {
 namespace {
 
 // ===========================================================================
-// CUDA-core kernel: f32, and bf16 / f16 at D = 16, 32, 80, 96.
+// CUDA-core kernel: f32, and bf16 / f16 at D = 16, 32.
 // ===========================================================================
 namespace cc {
 
@@ -231,7 +241,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, float
 }  // namespace cc
 
 // ===========================================================================
-// Tensor-core kernel: bf16 / f16 at D = 64, 128, 256 (wgmma + TMA).
+// Tensor-core kernel: bf16 / f16 at D = 64, 80, 96, 128, 256 (wgmma + TMA).
 // ===========================================================================
 namespace tc {
 
@@ -244,15 +254,14 @@ constexpr int kThreads = kConsumerWarps * 32 + 128;  // + the producer warpgroup
 // Registers per thread after setmaxnreg: 128 * 24 + 256 * 240 <= 65536.
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
-constexpr int kBox = 64;               // box width: 64 16-bit elements = 128 B
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kNegInfL2 = kNegInf * kLog2e;  // the sentinel in log2 units
 
 template <int D>
 struct Layout {
+  using F = FeatureBoxes<D>;  // boxes of 64 / 32 / 16 features, 128 / 64 / 32-byte swizzle
   static constexpr int kStages = D >= 256 ? 2 : 3;
-  static constexpr int kBoxes = D / kBox;
   static constexpr int kQBytes = kBQ * D * 2;
   static constexpr int kTileBytes = kBK * D * 2;  // one K or V tile
   static constexpr int kQ = 0;
@@ -272,6 +281,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                        float* __restrict__ lse, const int* __restrict__ prefix, int NQ, int G,
                        int S, Strides3 os, int causal, int window, float scale_log2) {
   using L = Layout<D>;
+  using F = typename L::F;
   constexpr int NST = L::kStages;
   extern __shared__ uint8_t smem_raw[];
   // 128-byte swizzle atoms are 1024 B: align every tile to that.
@@ -313,8 +323,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     if (warp == kConsumerWarps && lane == 0) {
       mbar_expect_tx(q_bar, L::kQBytes);
 #pragma unroll
-      for (int j = 0; j < L::kBoxes; ++j)
-        tma_load_4d(q_s + j * (kBQ * 128), &qmap, q_bar, j * kBox, q0, h, b);
+      for (int j = 0; j < F::kBoxes; ++j)
+        tma_load_4d(q_s + j * (kBQ * F::kRowBytes), &qmap, q_bar, j * F::kBox, q0, h, b);
       int st = 0;
       uint32_t phase = 0;
       for (int kt = kt_begin; kt < kt_end; ++kt) {
@@ -323,9 +333,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         const uint32_t k_s = base + L::kK + st * L::kTileBytes;
         const uint32_t v_s = base + L::kV + st * L::kTileBytes;
 #pragma unroll
-        for (int j = 0; j < L::kBoxes; ++j) {
-          tma_load_4d(k_s + j * (kBK * 128), &kmap, full(st), j * kBox, kt * kBK, kvh, b);
-          tma_load_4d(v_s + j * (kBK * 128), &vmap, full(st), j * kBox, kt * kBK, kvh, b);
+        for (int j = 0; j < F::kBoxes; ++j) {
+          tma_load_4d(k_s + j * (kBK * F::kRowBytes), &kmap, full(st), j * F::kBox, kt * kBK,
+                      kvh, b);
+          tma_load_4d(v_s + j * (kBK * F::kRowBytes), &vmap, full(st), j * F::kBox, kt * kBK,
+                      kvh, b);
         }
         if (++st == NST) {
           st = 0;
@@ -345,11 +357,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   const int wg_hi = wg_lo + 63;
   const int r0 = wg_lo + 16 * (warp % 4) + lane / 4;  // this thread's rows: r0, r0 + 8
 
-  // O in NC column chunks of NW accumulators (one P.V wgmma each): element
-  // e of chunk c is i = c * NW + e, at row r0 + 8 * ((i >> 1) & 1) and
-  // column 8 * (i / 4) + 2t + (i & 1).
-  constexpr int NC = D == 64 ? 1 : D / 128;
-  constexpr int NW = D == 64 ? 32 : 64;
+  // O in NC column chunks of NW accumulators (one P.V wgmma each, n = 2 NW:
+  // 64, 80, 96 or 128 columns): element e of chunk c is i = c * NW + e, at
+  // row r0 + 8 * ((i >> 1) & 1) and column 8 * (i / 4) + 2t + (i & 1).
+  constexpr int NC = D % 128 == 0 ? D / 128 : 1;
+  constexpr int NW = D % 128 == 0 ? 64 : D / 2;
   float o[NC][NW];
 #pragma unroll
   for (int c = 0; c < NC; ++c)
@@ -358,7 +370,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   float m0 = kNegInfL2, m1 = kNegInfL2;  // running max (log2 units) of rows r0, r0 + 8
   float l0 = 0.f, l1 = 0.f;              // this thread's share of the row sums
 
-  const uint32_t q_wg = q_s + wg * (64 * 128);
+  const uint32_t q_wg = q_s + wg * (64 * F::kRowBytes);
   mbar_wait(q_bar, 0);
 
   int st = 0;
@@ -373,7 +385,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     if (active) {
       const uint32_t k_s = base + L::kK + st * L::kTileBytes;
       const uint32_t v_s = base + L::kV + st * L::kTileBytes;
-      // S = Q . K^T, 64 x 64 f32, over D in steps of 16.
+      // S = Q . K^T, 64 x 64 f32, over D in steps of 16 (kSteps to a box).
       float s[32];
 #pragma unroll
       for (int i = 0; i < 32; ++i) s[i] = 0.f;
@@ -381,9 +393,12 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t off = (kk % 4) * 32u;  // 16 elements into the 128-byte row
-        const uint64_t da = desc_sw128(q_wg + (kk / 4) * (kBQ * 128) + off, 16, 1024);
-        const uint64_t db = desc_sw128(k_s + (kk / 4) * (kBK * 128) + off, 16, 1024);
+        const uint32_t off = (kk % F::kSteps) * 32u;  // 16 elements into the box row
+        const uint32_t box = kk / F::kSteps;
+        const uint64_t da = desc_sw(q_wg + box * (kBQ * F::kRowBytes) + off, 16, F::kGroupBytes,
+                                    F::kLayout);
+        const uint64_t db = desc_sw(k_s + box * (kBK * F::kRowBytes) + off, 16, F::kGroupBytes,
+                                    F::kLayout);
         M::ss64(s, da, db, kk > 0);
       }
       wgmma_commit();
@@ -444,19 +459,20 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
         for (int e = 0; e < NW; ++e) o[c][e] *= ((e >> 1) & 1) ? c1 : c0;
 
-      // O += P . V over the tile's 64 keys in steps of 16; a chunk of 128
-      // columns spans two 64-wide boxes of V (LBO = one box).
+      // O += P . V over the tile's 64 keys in steps of 16; a chunk spans
+      // 2 NW / kBox boxes of V side by side (LBO = one box): two 64-wide
+      // boxes at D = 128 / 256, three 32-wide at D = 96, five 16-wide at 80.
 #pragma unroll
       for (int c = 0; c < NC; ++c) fence_regs(o[c]);
       wgmma_fence();
 #pragma unroll
       for (int kc = 0; kc < 4; ++kc) {
-        const uint32_t v_k = v_s + kc * (16 * 128);
+        const uint32_t v_k = v_s + kc * (16 * F::kRowBytes);
 #pragma unroll
         for (int c = 0; c < NC; ++c) {
-          const uint64_t db = desc_sw128(v_k + 2 * c * (kBK * 128), kBK * 128, 1024);
-          if constexpr (D == 64) M::rs64(o[c], pa[kc], db);
-          else M::rs128(o[c], pa[kc], db);
+          const uint64_t db = desc_sw(v_k + c * (2 * NW / F::kBox) * (kBK * F::kRowBytes),
+                                      kBK * F::kRowBytes, F::kGroupBytes, F::kLayout);
+          M::template rs<NW>(o[c], pa[kc], db);
         }
       }
       wgmma_commit();
@@ -509,9 +525,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, float
                                      ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap qmap, kmap, vmap;
-  if (!make_map_4d(&qmap, q, dt, D, S, NQ, B, qs.s, qs.h, qs.b, kBQ) ||
-      !make_map_4d(&kmap, k, dt, D, S, NKV, B, ks.s, ks.h, ks.b, kBK) ||
-      !make_map_4d(&vmap, v, dt, D, S, NKV, B, vs.s, vs.h, vs.b, kBK))
+  using F = FeatureBoxes<D>;
+  if (!make_map_4d(&qmap, q, dt, D, S, NQ, B, qs.s, qs.h, qs.b, kBQ, F::kBox, F::kSwizzle) ||
+      !make_map_4d(&kmap, k, dt, D, S, NKV, B, ks.s, ks.h, ks.b, kBK, F::kBox, F::kSwizzle) ||
+      !make_map_4d(&vmap, v, dt, D, S, NKV, B, vs.s, vs.h, vs.b, kBK, F::kBox, F::kSwizzle))
     return cudaErrorInvalidValue;
   constexpr int smem = Layout<D>::kAlloc;
   auto kernel = flash_fwd_wgmma_kernel<T, D>;
@@ -527,8 +544,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, float
 }  // namespace tc
 
 // One kernel per (dtype, D): the tensor-core kernel for 16-bit types at
-// D = 64 / 128 / 256, the CUDA-core kernel otherwise (f32, and D = 16, 32,
-// 80, 96: the 128-byte swizzle boxes are 64 features wide).
+// D = 64, 80, 96, 128, 256, the CUDA-core kernel otherwise (f32, and
+// D = 16, 32, which no full-width path runs).
 template <typename T>
 cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v, void* out,
                        float* lse, const int* prefix, int B, int NQ, int NKV, int S, Strides3 qs,
@@ -540,11 +557,15 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v, void*
   switch (D) {
     case 16: return cc::launch<T, 16>(REPRO_FLASH_ARGS);
     case 32: return cc::launch<T, 32>(REPRO_FLASH_ARGS);
-    case 80: return cc::launch<T, 80>(REPRO_FLASH_ARGS);
-    case 96: return cc::launch<T, 96>(REPRO_FLASH_ARGS);
     case 64:
       if constexpr (k16) return tc::launch<T, 64>(REPRO_FLASH_ARGS);
       else return cc::launch<T, 64>(REPRO_FLASH_ARGS);
+    case 80:
+      if constexpr (k16) return tc::launch<T, 80>(REPRO_FLASH_ARGS);
+      else return cc::launch<T, 80>(REPRO_FLASH_ARGS);
+    case 96:
+      if constexpr (k16) return tc::launch<T, 96>(REPRO_FLASH_ARGS);
+      else return cc::launch<T, 96>(REPRO_FLASH_ARGS);
     case 128:
       if constexpr (k16) return tc::launch<T, 128>(REPRO_FLASH_ARGS);
       else return cc::launch<T, 128>(REPRO_FLASH_ARGS);

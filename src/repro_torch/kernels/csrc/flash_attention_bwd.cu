@@ -16,12 +16,12 @@
 // Three implementations, chosen by the wrapper's ``bwd_route`` from the
 // dtype and head dim:
 //
-//  * "wgmma": bf16 / f16 at D = 64, 128, 256, every full-width train shape
-//    but phi3-mini's D = 96 (namespace tcb, below).
-//  * "wmma": bf16 / f16 at D = 16, 32, 80, 96 (80 and 96 are not whole
-//    64-wide swizzle boxes, as in the forward): WMMA 16x16x16 over 64-row
-//    tiles staged by the threads; the dk/dv launch works per q head into
-//    (B, NQ, S, D) f32 scratch that a third kernel sums per kv head.
+//  * "wgmma": bf16 / f16 at D = 64, 80, 96, 128, 256, every full-width
+//    train shape (namespace tcb, below).
+//  * "wmma": bf16 / f16 at D = 16, 32 (on no full-width path): WMMA
+//    16x16x16 over 64-row tiles staged by the threads; the dk/dv launch
+//    works per q head into (B, NQ, S, D) f32 scratch that a third kernel
+//    sums per kv head.
 //  * "cuda_core": f32 at any D, the products in f32 FMAs; the dk/dv block
 //    walks the whole GQA group with dk, dv in registers.
 //
@@ -44,8 +44,8 @@
 //       S^T = K.Q^T and dP^T = V.dout^T are SS wgmma m64n64k16 (both
 //       operands K-major in shared memory); P^T and dS^T stay in registers,
 //       rounded to T, as the A operand of dV += P^T.dout and dK += dS^T.Q
-//       (wgmma m64n{64,128}k16, dout / Q the MN-major B operand through the
-//       transpose bit, as the forward's P.V), then dV += R^T.dout with R
+//       (wgmma m64n{64,80,96,128}k16, dout / Q the MN-major B operand
+//       through the transpose bit, as the forward's P.V), then dV += R^T.dout with R
 //       P's rounding remainder rounded to T (an early key's few terms with
 //       p near 1 do not average P's rounding away); f32 accumulators across
 //       every head and q tile of the group.  Head groups: the fewest that fill the
@@ -76,14 +76,27 @@
 // swap them through shared memory (32 f32 a thread, 32 KB) between two
 // named barriers, and each accumulates half of dQ, or of dK and dV: at D =
 // 256 that is 2 x 64 f32 accumulators a thread, where a whole 64 x 256 dK
-// and dV would take 256.  At D = 64 each consumer owns 64 rows (128 a block)
-// and computes both scores.  Shared memory at D = 256: A1 + A2 64 KB, a
+// and dV would take 256.  At D = 64 / 80 / 96 each consumer owns 64 rows
+// (128 a block) with all D columns and computes both scores (half of 80 or
+// 96 columns would cut through a feature box): dK + dV are 80 / 96 f32 a
+// thread beside the two 32-f32 score tiles, and ptxas fits them in 168
+// registers with no spill.  Shared memory at D = 256: A1 + A2 64 KB, a
 // 2-stage ring of B1 + B2 128 KB, LSE / delta 1 KB, the swap 32 KB: 231,464
-// bytes of the 232,448 a block may use; D = 128: 3 stages, D = 64: 4.
+// bytes of the 232,448 a block may use; D = 128: 3 stages, D = 64 / 80 /
+// 96: 4 (A1 + A2 48 KB and a 96 KB ring at D = 96; at hubert-xlarge's and
+// phi3-mini's train shapes 3 stages timed the same, 0.6032 / 0.6867 ms
+// against 0.6023-0.6068 / 0.6865-0.6888, and 6 stages 0.6143 / 0.6907:
+// scripts/flash_headdim_timing.py, one H100 80GB HBM3 at 700 W, one call).
 //
-// Head dims 16, 32, 64, 80, 96, 128, 256 (WMMA: 16, 32, 80, 96); shared
-// memory at D = 96: 107,008 bytes (WMMA), 115,968 (dq) and 133,120 (dk/dv)
-// on the CUDA cores.
+// Feature boxes (hopper.cuh FeatureBoxes, as in the forward): D = 64 / 128
+// / 256 in 64-wide boxes with 128-byte swizzle, D = 96 in 32-wide boxes
+// with 64-byte swizzle, D = 80 in 16-wide boxes with 32-byte swizzle.  The
+// K-major score products take k16 steps along the boxes (5 at D = 80, 6 at
+// 96); each MN-major product is one n80 / n96 wgmma per 16 rows with LBO =
+// one box.  The arithmetic and fold order are the same at every D.
+//
+// Head dims 16, 32, 64, 80, 96, 128, 256 (WMMA: 16, 32); shared memory at
+// D = 96: 115,968 (dq) and 133,120 (dk/dv) bytes on the CUDA cores.
 //
 // Semantics match the Pallas kernels: the finite sentinel -1e30 for masked
 // scores, p = exp(s - lse).  Unlike the Pallas kernels, S need not be a
@@ -784,12 +797,10 @@ cudaError_t dispatch_d(bool dkv, int D, const TcArgs& t, int B, int NKV, cudaStr
       case 256: return dkv ? launch_dkv<T, 256>(a, B, NKV, st) : launch_dq<T, 256>(a, B, st);
       default: return cudaErrorInvalidValue;
     }
-  } else {  // 16-bit at D = 64 / 128 / 256 take the wgmma route (tcb)
+  } else {  // 16-bit at D = 64, 80, 96, 128, 256 take the wgmma route (tcb)
     switch (D) {
       case 16: return launch_tc<T, 16>(dkv, t, B, NKV, st);
       case 32: return launch_tc<T, 32>(dkv, t, B, NKV, st);
-      case 80: return launch_tc<T, 80>(dkv, t, B, NKV, st);
-      case 96: return launch_tc<T, 96>(dkv, t, B, NKV, st);
       default: return cudaErrorInvalidValue;
     }
   }
@@ -827,7 +838,7 @@ int run(bool dkv, TcArgs& t, int dtype, int B, int NKV, int D, void* stream) {
 }
 
 // ===========================================================================
-// Hopper tensor-core path: bf16 / f16 at D = 64, 128, 256 (wgmma + TMA), as
+// Hopper tensor-core path: bf16 / f16 at D = 64, 80, 96, 128, 256 (wgmma + TMA), as
 // the header describes.  One kernel template serves both passes: a block
 // owns a tile of "fixed" rows (its q rows for dq; its keys for dk / dv),
 // whose two operands A1, A2 (Q and dout, or K and V) TMA loads once, and
@@ -853,20 +864,23 @@ constexpr float kNegInfL2 = kNegInf * kLog2e;  // the sentinel in log2 units
 
 // kSplit (D = 128, 256): the two consumer warpgroups share 64 fixed rows;
 // warpgroup 0 computes S (and P), warpgroup 1 dP, they swap them through
-// shared memory, and each accumulates half of the D columns.  D = 64: each
-// warpgroup owns 64 fixed rows (128 a block) with all D columns and computes
-// both scores itself.  kStages: the streamed ring; kVec: 64 f32 LSE + 64 f32
-// delta per stage (the dk / dv pass); kX: the swap buffer (32 f32 per thread
-// per warpgroup).  The wrapper plans with kRows (flash_attention_bwd.wgmma_rows)
-// and passes it in; a launch planned with other rows is refused.
+// shared memory, and each accumulates half of the D columns.  D = 64, 80,
+// 96: each warpgroup owns 64 fixed rows (128 a block) with all D columns
+// and computes both scores itself (half of 80 or 96 columns would cut
+// through a box).  F: the feature boxes (hopper.cuh FeatureBoxes: 64 / 32
+// / 16 features with 128 / 64 / 32-byte swizzle).  kStages: the streamed
+// ring; kVec: 64 f32 LSE + 64 f32 delta per stage (the dk / dv pass); kX:
+// the swap buffer (32 f32 per thread per warpgroup).  The wrapper plans
+// with kRows (flash_attention_bwd.wgmma_rows) and passes it in; a launch
+// planned with other rows is refused.
 template <int D>
 struct Layout {
-  static constexpr bool kSplit = D > 64;
+  using F = FeatureBoxes<D>;
+  static constexpr bool kSplit = D >= 128;
   static constexpr int kRows = kSplit ? 64 : 128;   // fixed rows a block
   static constexpr int kCols = kSplit ? D / 2 : D;  // accumulator columns a warpgroup
   static constexpr int kNW = kCols / 2;             // accumulator floats a thread
   static constexpr int kStages = D >= 256 ? 2 : (D >= 128 ? 3 : 4);
-  static constexpr int kBoxes = D / 64;
   static constexpr int kFixedBytes = kRows * D * 2;  // one of A1, A2
   static constexpr int kTileBytes = kTile * D * 2;   // one of B1, B2
   static constexpr int kA1 = 0;
@@ -901,6 +915,7 @@ __device__ __forceinline__ void bwd_block(const CUtensorMap* a1map, const CUtens
                                           const CUtensorMap* lsemap, const CUtensorMap* dlmap,
                                           const Params& p, int blk, int n_blocks) {
   using L = Layout<D>;
+  using F = typename L::F;
   constexpr int NST = L::kStages;
   extern __shared__ uint8_t smem_raw[];
   // 128-byte swizzle atoms are 1024 B: align every tile to that.
@@ -965,9 +980,10 @@ __device__ __forceinline__ void bwd_block(const CUtensorMap* a1map, const CUtens
     if (warp == kConsumerWarps && lane == 0) {
       mbar_expect_tx(fixed_bar, 2 * L::kFixedBytes);
 #pragma unroll
-      for (int j = 0; j < L::kBoxes; ++j) {
-        tma_load_4d(base + L::kA1 + j * (L::kRows * 128), a1map, fixed_bar, j * 64, row0b, hA, b);
-        tma_load_4d(base + L::kA2 + j * (L::kRows * 128), a2map, fixed_bar, j * 64, row0b, hA, b);
+      for (int j = 0; j < F::kBoxes; ++j) {
+        const uint32_t off = j * (L::kRows * F::kRowBytes);
+        tma_load_4d(base + L::kA1 + off, a1map, fixed_bar, j * F::kBox, row0b, hA, b);
+        tma_load_4d(base + L::kA2 + off, a2map, fixed_bar, j * F::kBox, row0b, hA, b);
       }
       int st = 0;
       uint32_t phase = 0;
@@ -978,9 +994,10 @@ __device__ __forceinline__ void bwd_block(const CUtensorMap* a1map, const CUtens
         mbar_expect_tx(full(st), 2 * L::kTileBytes + (DKV ? 2 * kTile * 4 : 0));
         const uint32_t b1 = base + L::kB + st * 2 * L::kTileBytes;
 #pragma unroll
-        for (int j = 0; j < L::kBoxes; ++j) {
-          tma_load_4d(b1 + j * (kTile * 128), b1map, full(st), j * 64, r, hB, b);
-          tma_load_4d(b1 + L::kTileBytes + j * (kTile * 128), b2map, full(st), j * 64, r, hB, b);
+        for (int j = 0; j < F::kBoxes; ++j) {
+          const uint32_t off = j * (kTile * F::kRowBytes);
+          tma_load_4d(b1 + off, b1map, full(st), j * F::kBox, r, hB, b);
+          tma_load_4d(b1 + L::kTileBytes + off, b2map, full(st), j * F::kBox, r, hB, b);
         }
         if constexpr (DKV) {
           const uint32_t vec = base + L::kVec + st * (2 * kTile * 4);
@@ -1004,9 +1021,9 @@ __device__ __forceinline__ void bwd_block(const CUtensorMap* a1map, const CUtens
   const int tid = threadIdx.x % 128;
   const int wrow0 = row0b + (L::kSplit ? 0 : 64 * wg);  // this warpgroup's first fixed row
   const int r0 = wrow0 + 16 * (warp % 4) + lane / 4;    // this thread's rows: r0, r0 + 8
-  const uint32_t a_off = L::kSplit ? 0u : wg * (64u * 128u);
+  const uint32_t a_off = L::kSplit ? 0u : wg * (64u * F::kRowBytes);
   // This warpgroup's accumulator columns start at box ``cbox``.
-  const uint32_t cbox = L::kSplit ? wg * (L::kCols / 64) : 0;
+  const uint32_t cbox = L::kSplit ? wg * (L::kCols / F::kBox) : 0;
   // In split mode warpgroup 0 computes S from A1, B1 and warpgroup 1 dP from A2, B2.
   const bool own_s = !L::kSplit || wg == 0;
   // The swap buffer: per warpgroup 8 float4 a thread, [c][thread].
@@ -1058,7 +1075,8 @@ __device__ __forceinline__ void bwd_block(const CUtensorMap* a1map, const CUtens
                         (p.window > 0 && q_hi - k_lo >= p.window);
 
       // Scores: sc = A1.B1^T (S) or A2.B2^T (dP), 64 x 64 f32 over D in
-      // steps of 16; without the split, dp = A2.B2^T as well.
+      // steps of 16 (kSteps to a box); without the split, dp = A2.B2^T as
+      // well.
       float sc[32], dp[L::kSplit ? 1 : 32];
 #pragma unroll
       for (int i = 0; i < 32; ++i) sc[i] = 0.f;
@@ -1072,17 +1090,23 @@ __device__ __forceinline__ void bwd_block(const CUtensorMap* a1map, const CUtens
         const uint32_t bb = own_s ? b1 : b2;
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
-          const uint32_t off = (kk % 4) * 32u;  // 16 elements into the 128-byte row
-          M::ss64(sc, desc_sw128(a + (kk / 4) * (L::kRows * 128) + off, 16, 1024),
-                  desc_sw128(bb + (kk / 4) * (kTile * 128) + off, 16, 1024), kk > 0);
+          const uint32_t off = (kk % F::kSteps) * 32u;  // 16 elements into the box row
+          const uint32_t box = kk / F::kSteps;
+          M::ss64(sc, desc_sw(a + box * (L::kRows * F::kRowBytes) + off, 16, F::kGroupBytes,
+                              F::kLayout),
+                  desc_sw(bb + box * (kTile * F::kRowBytes) + off, 16, F::kGroupBytes, F::kLayout),
+                  kk > 0);
         }
       }
       if constexpr (!L::kSplit) {
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
-          const uint32_t off = (kk % 4) * 32u;
-          M::ss64(dp, desc_sw128(base + L::kA2 + a_off + (kk / 4) * (L::kRows * 128) + off, 16, 1024),
-                  desc_sw128(b2 + (kk / 4) * (kTile * 128) + off, 16, 1024), kk > 0);
+          const uint32_t off = (kk % F::kSteps) * 32u;
+          const uint32_t box = kk / F::kSteps;
+          M::ss64(dp, desc_sw(base + L::kA2 + a_off + box * (L::kRows * F::kRowBytes) + off, 16,
+                              F::kGroupBytes, F::kLayout),
+                  desc_sw(b2 + box * (kTile * F::kRowBytes) + off, 16, F::kGroupBytes, F::kLayout),
+                  kk > 0);
         }
       }
       wgmma_commit();
@@ -1174,20 +1198,19 @@ __device__ __forceinline__ void bwd_block(const CUtensorMap* a1map, const CUtens
 
       // acc0 += dS.B1, acc1 += P.B2 over the tile's 64 rows in steps of 16;
       // B1 / B2 are the MN-major operands (the transpose bit), this
-      // warpgroup's columns from box cbox (LBO = one box).
+      // warpgroup's kCols columns from box cbox (LBO = one box), one
+      // wgmma of n = kCols (64, 80, 96 or 128).
       fence_regs(acc0);
       fence_regs(acc1);
       wgmma_fence();
 #pragma unroll
       for (int kc = 0; kc < 4; ++kc) {
-        const uint32_t off = kc * (16 * 128) + cbox * (kTile * 128);
-        const uint64_t d1 = desc_sw128(b1 + off, kTile * 128, 1024);
-        if constexpr (L::kNW == 32) M::rs64(acc0, da[kc], d1);
-        else M::rs128(acc0, da[kc], d1);
+        const uint32_t off = kc * (16 * F::kRowBytes) + cbox * (kTile * F::kRowBytes);
+        const uint64_t d1 = desc_sw(b1 + off, kTile * F::kRowBytes, F::kGroupBytes, F::kLayout);
+        M::template rs<L::kNW>(acc0, da[kc], d1);
         if constexpr (DKV) {
-          const uint64_t d2 = desc_sw128(b2 + off, kTile * 128, 1024);
-          if constexpr (L::kNW == 32) M::rs64(acc1, pa[kc], d2);
-          else M::rs128(acc1, pa[kc], d2);
+          const uint64_t d2 = desc_sw(b2 + off, kTile * F::kRowBytes, F::kGroupBytes, F::kLayout);
+          M::template rs<L::kNW>(acc1, pa[kc], d2);
         }
       }
       wgmma_commit();
@@ -1226,10 +1249,9 @@ __device__ __forceinline__ void bwd_block(const CUtensorMap* a1map, const CUtens
         wgmma_fence();
 #pragma unroll
         for (int kc = 0; kc < 4; ++kc) {
-          const uint32_t off = kc * (16 * 128) + cbox * (kTile * 128);
-          const uint64_t d2 = desc_sw128(b2 + off, kTile * 128, 1024);
-          if constexpr (L::kNW == 32) M::rs64(acc1, pa[kc], d2);
-          else M::rs128(acc1, pa[kc], d2);
+          const uint32_t off = kc * (16 * F::kRowBytes) + cbox * (kTile * F::kRowBytes);
+          const uint64_t d2 = desc_sw(b2 + off, kTile * F::kRowBytes, F::kGroupBytes, F::kLayout);
+          M::template rs<L::kNW>(acc1, pa[kc], d2);
         }
         wgmma_commit();
         wgmma_wait<0>();
@@ -1295,7 +1317,7 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap kfix, const __grid_co
 
 // lse2 = lse * log2(e) and delta = rowsum(dout * out) (f32, one warp a row,
 // 8 elements a lane from 16-byte loads, a fixed shuffle order) into (B, NQ,
-// S_pad) scratch, zero past S.  D = 64, 128, 256: D / 8 lanes load.
+// S_pad) scratch, zero past S.  D = 64, 80, 96, 128, 256: D / 8 lanes load.
 template <typename T>
 __global__ void __launch_bounds__(256) flash_bwd_prep_kernel(
     const T* __restrict__ out, const T* __restrict__ dout, const float* __restrict__ lse,
@@ -1325,7 +1347,7 @@ __global__ void __launch_bounds__(256) flash_bwd_prep_kernel(
 
 // dk[b, kvh] = the sum over groups g = 0, 1, ... (in that order, f32) of
 // part0[g, b, kvh], cast to T; dv likewise from part1.  Four columns a
-// thread (D is a multiple of 64; dk / dv rows 8-byte aligned).
+// thread (D is a multiple of 16; dk / dv rows 8-byte aligned).
 template <typename T>
 __global__ void __launch_bounds__(256) flash_bwd_group_merge_kernel(
     const float* __restrict__ part0, const float* __restrict__ part1, T* __restrict__ dk,
@@ -1391,7 +1413,8 @@ cudaError_t launch(const Operands& o, cudaStream_t stream) {
   // Fixed operands in boxes of kRows rows, streamed ones in boxes of 64.
   CUtensorMap qf, dof, kf, vf, qs, dos, ks, vs, lsem, dlm;
   auto map = [&](CUtensorMap* m, const void* ptr, int N, const Strides3& st, int rows) {
-    return make_map_4d(m, ptr, dt, D, o.S, N, o.B, st.s, st.h, st.b, rows);
+    return make_map_4d(m, ptr, dt, D, o.S, N, o.B, st.s, st.h, st.b, rows, L::F::kBox,
+                       L::F::kSwizzle);
   };
   if (!map(&qf, o.q, o.NQ, o.qs, L::kRows) || !map(&dof, o.dout, o.NQ, o.dos, L::kRows) ||
       !map(&kf, o.k, o.NKV, o.ks, L::kRows) || !map(&vf, o.v, o.NKV, o.vs, L::kRows) ||
@@ -1446,6 +1469,8 @@ template <typename T>
 cudaError_t dispatch_d(int D, const Operands& o, cudaStream_t stream) {
   switch (D) {
     case 64: return launch<T, 64>(o, stream);
+    case 80: return launch<T, 80>(o, stream);
+    case 96: return launch<T, 96>(o, stream);
     case 128: return launch<T, 128>(o, stream);
     case 256: return launch<T, 256>(o, stream);
     default: return cudaErrorInvalidValue;
@@ -1529,7 +1554,7 @@ extern "C" int flash_attention_bwd_dkv(
   return repro_torch::run(true, t, dtype, B, NKV, D, stream);
 }
 
-// The tensor-core route (bf16 / f16, D = 64 / 128 / 256): q, out, dout, dq
+// The tensor-core route (bf16 / f16, D = 64 / 80 / 96 / 128 / 256): q, out, dout, dq
 // (B, NQ, S, D) and k, v, dk, dv (B, NKV, S, D) through element strides,
 // q, k, v, out, dout 16-byte aligned with strides in 16-byte units (TMA and
 // 16-byte loads), dk / dv rows 8-byte aligned; lse (B, NQ, S) f32

@@ -97,14 +97,36 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
+// How a 16-bit operand of head dim D lies in shared memory, as TMA writes it
+// and the wgmma descriptors read it: boxes of kBox features x the tile's
+// rows side by side, each box row kRowBytes, swizzled by the widest mode
+// whose box width divides D (D = 64 / 128 / 256: 64 features, 128-byte
+// swizzle; D = 96: 32 features, 64-byte; D = 80: 16 features, 32-byte).
+// A k16 step of a K-major product is 32 bytes of a box row (kSteps to a
+// box); an 8-row group (the SBO) is 8 rows; the swizzle pattern repeats
+// within 1024 bytes, so tiles aligned to that need no base offset.
+template <int D>
+struct FeatureBoxes {
+  static_assert(D % 16 == 0, "head dim not a multiple of 16");
+  static constexpr int kBox = D % 64 == 0 ? 64 : (D % 32 == 0 ? 32 : 16);
+  static constexpr int kBoxes = D / kBox;
+  static constexpr int kRowBytes = kBox * 2;
+  static constexpr int kGroupBytes = 8 * kRowBytes;
+  static constexpr int kSteps = kBox / 16;
+  static constexpr uint64_t kLayout = kBox == 64 ? 1 : (kBox == 32 ? 2 : 3);
+  static constexpr CUtensorMapSwizzle kSwizzle =
+      kBox == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                 : (kBox == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B);
+};
+
 // A 4-D map (D, S, heads, batch) over a 16-bit operand with the given
-// element strides, boxes of 64 features x ``rows``, 128-byte swizzle (the
-// layout the wgmma descriptors below read).  A stride of a size-1 dim is
-// never used; it is replaced by the packed one.  False if TMA cannot take
-// the operand (base or strides not in 16-byte units).
+// element strides, boxes of ``box`` features x ``rows`` with ``swizzle``
+// (FeatureBoxes<D>: the layout the wgmma descriptors below read).  A stride
+// of a size-1 dim is never used; it is replaced by the packed one.  False if
+// TMA cannot take the operand (base or strides not in 16-byte units).
 inline bool make_map_4d(CUtensorMap* map, const void* ptr, CUtensorMapDataType dtype, int D,
                         int S, int N, int B, long long st_s, long long st_h, long long st_b,
-                        int rows) {
+                        int rows, int box, CUtensorMapSwizzle swizzle) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const unsigned long long esz = 2;
@@ -117,10 +139,10 @@ inline bool make_map_4d(CUtensorMap* map, const void* ptr, CUtensorMapDataType d
   for (cuuint64_t s : strides)
     if (s % 16 != 0 || s >= (1ull << 40)) return false;
   if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return false;
-  cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  cuuint32_t boxdim[4] = {(cuuint32_t)box, (cuuint32_t)rows, 1, 1};
   cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, dtype, 4, const_cast<void*>(ptr), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return fn(map, dtype, 4, const_cast<void*>(ptr), dims, strides, boxdim, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -140,17 +162,18 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 }
 
 // ---- wgmma ----------------------------------------------------------------
-// Shared-memory matrix descriptor for a 128-byte-swizzled operand (the
-// layout TMA writes with CU_TENSOR_MAP_SWIZZLE_128B): 14-bit start address,
-// leading and stride byte offsets, all in 16-byte units, layout type 1
-// (B128) in bits 62-63.  K-major: SBO = the stride between 8-row groups,
-// LBO unused.  MN-major (transposed): LBO = the stride between 64-element
-// column blocks, SBO = the stride between 8-row groups of K.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo_bytes,
-                                               uint32_t sbo_bytes) {
+// Shared-memory matrix descriptor for a swizzled operand (the layout TMA
+// writes with the matching CU_TENSOR_MAP_SWIZZLE_*): 14-bit start address,
+// leading and stride byte offsets, all in 16-byte units, and the layout
+// type in bits 62-63 (1: 128-byte swizzle, 2: 64-byte, 3: 32-byte).
+// K-major: SBO = the stride between 8-row groups, LBO unused.  MN-major
+// (transposed): LBO = the stride between column blocks of one swizzle row,
+// SBO = the stride between 8-row groups of K.
+__device__ __forceinline__ uint64_t desc_sw(uint32_t addr, uint32_t lbo_bytes, uint32_t sbo_bytes,
+                                            uint64_t layout) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lbo_bytes >> 4) << 16) |
-         (static_cast<uint64_t>(sbo_bytes >> 4) << 32) | (1ull << 62);
+         (static_cast<uint64_t>(sbo_bytes >> 4) << 32) | (layout << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -175,7 +198,7 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 // D (64 x N, f32) = A (64 x 16, shared) * B (16 x N, shared, K-major), or
 // D += when scale_d != 0:  wgmma_ss_m64n64k16_*.
 // D += A (64 x 16, registers) * B (16 x N, shared, MN-major):
-// wgmma_rs_m64n{64,128}k16_*.  A register fragment: a[0] = (row, k 2t..2t+1),
+// wgmma_rs_m64n{64,80,96,128}k16_*.  A register fragment: a[0] = (row, k 2t..2t+1),
 // a[1] = (row + 8, same k), a[2] = (row, k + 8), a[3] = (row + 8, k + 8),
 // row = 16 * warp + lane / 4, t = lane % 4, two 16-bit values per register,
 // the lower k in the low half.
@@ -239,6 +262,46 @@ __device__ __forceinline__ void wgmma_rs_m64n128k16_f16(float (&d)[64], const ui
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+__device__ __forceinline__ void wgmma_rs_m64n80k16_bf16(float (&d)[40], const uint32_t (&a)[4],
+                                                       uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n96k16_bf16(float (&d)[48], const uint32_t (&a)[4],
+                                                       uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n80k16_f16(float (&d)[40], const uint32_t (&a)[4],
+                                                       uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n96k16_f16(float (&d)[48], const uint32_t (&a)[4],
+                                                       uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // The wgmma shapes by element type.
 template <typename T>
 struct Mma;
@@ -247,11 +310,14 @@ struct Mma<__nv_bfloat16> {
   static __device__ __forceinline__ void ss64(float (&d)[32], uint64_t a, uint64_t b, int sd) {
     wgmma_ss_m64n64k16_bf16(d, a, b, sd);
   }
-  static __device__ __forceinline__ void rs64(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-    wgmma_rs_m64n64k16_bf16(d, a, b);
-  }
-  static __device__ __forceinline__ void rs128(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
-    wgmma_rs_m64n128k16_bf16(d, a, b);
+  // D (64 x 2 NW) += A . B for NW f32 accumulators a thread: n64 / 80 / 96 / 128.
+  template <int NW>
+  static __device__ __forceinline__ void rs(float (&d)[NW], const uint32_t (&a)[4], uint64_t b) {
+    static_assert(NW == 32 || NW == 40 || NW == 48 || NW == 64, "no such wgmma width");
+    if constexpr (NW == 32) wgmma_rs_m64n64k16_bf16(d, a, b);
+    else if constexpr (NW == 40) wgmma_rs_m64n80k16_bf16(d, a, b);
+    else if constexpr (NW == 48) wgmma_rs_m64n96k16_bf16(d, a, b);
+    else wgmma_rs_m64n128k16_bf16(d, a, b);
   }
   static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
     __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -266,11 +332,14 @@ struct Mma<__half> {
   static __device__ __forceinline__ void ss64(float (&d)[32], uint64_t a, uint64_t b, int sd) {
     wgmma_ss_m64n64k16_f16(d, a, b, sd);
   }
-  static __device__ __forceinline__ void rs64(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-    wgmma_rs_m64n64k16_f16(d, a, b);
-  }
-  static __device__ __forceinline__ void rs128(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
-    wgmma_rs_m64n128k16_f16(d, a, b);
+  // D (64 x 2 NW) += A . B for NW f32 accumulators a thread: n64 / 80 / 96 / 128.
+  template <int NW>
+  static __device__ __forceinline__ void rs(float (&d)[NW], const uint32_t (&a)[4], uint64_t b) {
+    static_assert(NW == 32 || NW == 40 || NW == 48 || NW == 64, "no such wgmma width");
+    if constexpr (NW == 32) wgmma_rs_m64n64k16_f16(d, a, b);
+    else if constexpr (NW == 40) wgmma_rs_m64n80k16_f16(d, a, b);
+    else if constexpr (NW == 48) wgmma_rs_m64n96k16_f16(d, a, b);
+    else wgmma_rs_m64n128k16_f16(d, a, b);
   }
   static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
     __half2 v = __floats2half2_rn(lo, hi);

@@ -8,14 +8,14 @@ what bounds it on the H100 and what its design does about that.
 :func:`bwd_route` picks one of three implementations from the dtype and
 head dim alone:
 
-* ``"wgmma"`` (bf16 / f16 at D = 64, 128, 256): TMA loads and ``wgmma`` on
-  the tensor cores; one call launches an LSE / delta pass, one grid of
+* ``"wgmma"`` (bf16 / f16 at D = 64, 80, 96, 128, 256): TMA loads and
+  ``wgmma`` on the tensor cores; one call launches an LSE / delta pass, one grid of
   the dk/dv blocks (key tile, head group; planned by :func:`bwd_plan`)
   and the dq blocks, and, when there is more than one group, a merge of
   the groups' f32 partials in group order.  TMA needs 16-byte-aligned
   operands with strides in 16-byte units: the wrapper raises otherwise
   (nothing falls back).
-* ``"wmma"`` (bf16 / f16 at D = 16, 32, 80, 96) and ``"cuda_core"`` (f32):
+* ``"wmma"`` (bf16 / f16 at D = 16, 32) and ``"cuda_core"`` (f32):
   a dq launch (which also writes ``delta = rowsum(dout * out)``) and a
   dk/dv launch; the WMMA one works per q head into f32 scratch that a
   third kernel sums per kv head.
@@ -49,9 +49,10 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 def bwd_route(dtype, D: int) -> str:
     """Which implementation a CUDA call of ``dtype`` and head dim ``D``
     launches: ``"wgmma"`` for bf16 / f16 at D in
-    :data:`~repro_torch.kernels.flash_attention.TENSOR_CORE_HEAD_DIMS`,
-    ``"wmma"`` for bf16 / f16 at the other head dims (80 and 96 are not
-    whole 64-wide swizzle boxes), ``"cuda_core"`` for f32 (full precision)."""
+    :data:`~repro_torch.kernels.flash_attention.TENSOR_CORE_HEAD_DIMS` (D =
+    80 / 96 in 16 / 32-wide feature boxes, as the forward), ``"wmma"`` for
+    bf16 / f16 at D = 16 / 32 (on no full-width path), ``"cuda_core"`` for
+    f32 (full precision)."""
     if dtype in (torch.bfloat16, torch.float16):
         return "wgmma" if D in TENSOR_CORE_HEAD_DIMS else "wmma"
     return "cuda_core"
@@ -60,12 +61,13 @@ def bwd_route(dtype, D: int) -> str:
 def wgmma_rows(D: int) -> int:
     """Fixed rows of a wgmma block at head dim ``D``: 64 at D = 128 / 256
     (the two consumer warpgroups share them and split the columns), 128 at
-    D = 64 (each owns 64).  The kernel refuses a launch planned with other
-    rows (``csrc`` ``tcb::Layout<D>::kRows``), and it states its shared
-    memory as a compile-time bound."""
+    D = 64 / 80 / 96 (each owns 64 with all D columns: half of 80 or 96
+    would cut through a feature box).  The kernel refuses a launch planned
+    with other rows (``csrc`` ``tcb::Layout<D>::kRows``), and it states its
+    shared memory as a compile-time bound."""
     if D not in TENSOR_CORE_HEAD_DIMS:
         raise ValueError(f"wgmma_rows: head dim {D} not in {TENSOR_CORE_HEAD_DIMS}")
-    return 64 if D > 64 else 128
+    return 64 if D >= 128 else 128
 
 
 def bwd_plan(B: int, NQ: int, NKV: int, S: int, D: int, sm_count: int):

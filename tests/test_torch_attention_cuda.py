@@ -54,7 +54,9 @@ def test_flash_fwd_and_bwd_at_head_dims_80_96(sm90, case, D, dtype):
     from repro_torch.kernels import flash_attention_bwd as bk
 
     B, NQ, NKV, S, causal, window = case
-    assert fk.flash_route(getattr(torch, dtype), D) == "cuda_core"
+    route = "cuda_core" if dtype == "float32" else "wgmma"  # 16 / 32-wide feature boxes
+    assert fk.flash_route(getattr(torch, dtype), D) == route
+    assert bk.bwd_route(getattr(torch, dtype), D) == route
     q, dout = (_rn(sm90, (B, S, NQ, D), dtype).transpose(1, 2) for _ in range(2))
     k, v = (_rn(sm90, (B, S, NKV, D), dtype).transpose(1, 2) for _ in range(2))
     out, lse = fk.flash_attention_fwd(q, k, v, causal=causal, window=window, return_lse=True)

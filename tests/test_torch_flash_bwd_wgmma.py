@@ -50,7 +50,9 @@ def jgrad_ref(q, k, v, dout, *, causal, window):
 
 # (B, NQ, NKV, S, D, causal, window): S 1 / 63 / 64 / 65 / 200, G 1 / 3 / 8
 # / 10, causal, bidirectional and windowed with the window's edge inside a
-# 64-key tile; D = 256 only at S <= 128.
+# 64-key tile; D = 256 only at S <= 128; then D = 80 / 96 (hubert-xlarge's
+# and phi3-mini's head dims, 16 / 32-wide feature boxes in the kernel):
+# ragged S, G 3 / 5 with ragged groups, bidirectional, a window cut mid-tile.
 MODEL_CASES = [
     (1, 2, 2, 1, 16, True, 0),
     (1, 3, 1, 63, 16, True, 0),
@@ -61,6 +63,11 @@ MODEL_CASES = [
     (1, 8, 2, 200, 16, True, 37),
     (1, 10, 1, 130, 16, False, 70),
     (1, 2, 1, 128, 256, True, 0),
+    (1, 2, 2, 65, 80, False, 0),
+    (1, 5, 1, 130, 96, True, 0),
+    (1, 3, 1, 63, 96, True, 0),
+    (2, 6, 2, 200, 80, True, 37),
+    (1, 5, 1, 150, 80, False, 70),
 ]
 
 
@@ -124,7 +131,9 @@ def test_tiled_model_other_tile_shapes(case, blocks):
 
 
 @pytest.mark.parametrize("case", [(1, 8, 1, 200, 64, True, 0), (2, 10, 2, 130, 128, False, 40),
-                                  (1, 10, 1, 128, 256, True, 64), (1, 4, 4, 65, 64, True, 0)],
+                                  (1, 10, 1, 128, 256, True, 64), (1, 4, 4, 65, 64, True, 0),
+                                  (1, 16, 16, 130, 80, False, 0), (1, 4, 4, 200, 96, True, 0),
+                                  (1, 10, 2, 150, 96, True, 65)],
                          ids=str)
 def test_tiled_model_bf16_matches_plain(case):
     """In bf16 the model rounds ds to bf16 before its products and takes p
@@ -154,6 +163,9 @@ PLAN_SHAPES = [
     (1, 10, 1, 65, 64),
     (3, 6, 2, 1, 256),
     (1, 16, 1, 4096, 64),
+    (2, 16, 16, 2048, 80),  # hubert-xlarge train
+    (2, 32, 32, 2048, 96),  # phi3-mini-3.8b train
+    (1, 10, 2, 2100, 80),
 ]
 
 
@@ -196,7 +208,7 @@ def test_plan_takes_one_group_when_the_grid_is_full():
 
 
 @pytest.mark.parametrize("bad", [
-    dict(D=96), dict(D=80), dict(D=32), dict(NQ=6, NKV=4), dict(S=0), dict(B=0),
+    dict(D=16), dict(D=48), dict(D=32), dict(NQ=6, NKV=4), dict(S=0), dict(B=0),
     dict(sm_count=0), dict(NKV=0),
 ], ids=str)
 def test_plan_refuses_what_the_kernel_cannot_take(bad):
@@ -207,8 +219,8 @@ def test_plan_refuses_what_the_kernel_cannot_take(bad):
 
 
 def test_layout_refuses_other_head_dims():
-    assert [bk.wgmma_rows(D) for D in (64, 128, 256)] == [128, 64, 64]
-    for D in (16, 32, 80, 96, 512):
+    assert [bk.wgmma_rows(D) for D in (64, 80, 96, 128, 256)] == [128, 128, 128, 64, 64]
+    for D in (16, 32, 48, 512):
         with pytest.raises(ValueError):
             bk.wgmma_rows(D)
 
@@ -216,9 +228,11 @@ def test_layout_refuses_other_head_dims():
 @pytest.mark.parametrize("dtype,D,route", [
     ("bfloat16", 64, "wgmma"), ("bfloat16", 128, "wgmma"), ("bfloat16", 256, "wgmma"),
     ("float16", 64, "wgmma"), ("float16", 128, "wgmma"), ("float16", 256, "wgmma"),
-    ("bfloat16", 16, "wmma"), ("bfloat16", 32, "wmma"), ("bfloat16", 80, "wmma"),
-    ("bfloat16", 96, "wmma"), ("float16", 96, "wmma"),
+    ("bfloat16", 16, "wmma"), ("bfloat16", 32, "wmma"), ("bfloat16", 80, "wgmma"),
+    ("bfloat16", 96, "wgmma"), ("float16", 96, "wgmma"), ("float16", 80, "wgmma"),
+    ("float16", 32, "wmma"),
     ("float32", 64, "cuda_core"), ("float32", 96, "cuda_core"), ("float32", 256, "cuda_core"),
+    ("float32", 80, "cuda_core"),
 ])
 def test_bwd_route_by_dtype_and_head_dim(dtype, D, route):
     assert bk.bwd_route(getattr(torch, dtype), D) == route
@@ -242,6 +256,9 @@ KERNEL_CASES = [
     (1, 8, 1, 63, 64, True, 0), (1, 10, 1, 65, 128, True, 0), (2, 8, 1, 1000, 256, True, 0),
     (1, 10, 1, 2047, 256, True, 2048), (1, 4, 2, 2100, 128, False, 0),
     (1, 10, 2, 517, 64, True, 130), (2, 4, 4, 130, 256, False, 40), (1, 2, 1, 1, 128, True, 0),
+    # D = 80 / 96: 16 / 32-wide feature boxes, 128 fixed rows a block
+    (1, 8, 1, 63, 80, True, 0), (1, 10, 1, 65, 96, True, 0), (2, 16, 16, 1000, 80, False, 0),
+    (1, 10, 2, 2100, 80, True, 100), (1, 8, 8, 2047, 96, True, 0), (2, 4, 4, 517, 96, False, 65),
 ]
 
 
@@ -288,4 +305,4 @@ def test_wgmma_kernels_have_hgmma(sm90):
                 counts[func] = 0
         elif func and "HGMMA" in line:
             counts[func] += 1
-    assert len(counts) == 6 and all(n > 0 for n in counts.values()), counts
+    assert len(counts) == 10 and all(n > 0 for n in counts.values()), counts

@@ -249,8 +249,11 @@ def test_split_plan_refuses_what_the_kernel_cannot_take():
 @pytest.mark.parametrize("dtype, D, route", [
     ("bfloat16", 64, "wgmma"), ("bfloat16", 128, "wgmma"), ("bfloat16", 256, "wgmma"),
     ("float16", 64, "wgmma"), ("float16", 128, "wgmma"), ("float16", 256, "wgmma"),
+    ("bfloat16", 80, "wgmma"), ("bfloat16", 96, "wgmma"), ("float16", 80, "wgmma"),
+    ("float16", 96, "wgmma"),
     ("bfloat16", 16, "cuda_core"), ("bfloat16", 32, "cuda_core"), ("float16", 32, "cuda_core"),
     ("float32", 64, "cuda_core"), ("float32", 128, "cuda_core"), ("float32", 256, "cuda_core"),
+    ("float32", 80, "cuda_core"), ("float32", 96, "cuda_core"),
 ])
 def test_flash_route_by_dtype_and_head_dim(dtype, D, route):
     from repro_torch.kernels.flash_attention import flash_route
@@ -274,6 +277,20 @@ def test_16_byte_check_refuses_misaligned_operands(what):
     with pytest.raises(ValueError, match="16-byte"):
         check_16b(what, "v", torch.zeros(1 + 2 * 4 * 8 * 64, dtype=torch.bfloat16)[1:]
                   .view(2, 4, 8, 64))  # base off by 2 bytes
+
+
+@pytest.mark.parametrize("D", [80, 96])
+def test_16_byte_check_takes_the_head_dim_80_96_views(D):
+    """hubert-xlarge's (D = 80) and phi3-mini's (D = 96) model views reach the
+    tensor-core route: rows of 160 / 192 bytes, in 16-byte units, pass; a row
+    padded by 4 elements (8 bytes) does not."""
+    from repro_torch.kernels.flash_attention import check_16b
+
+    x = torch.zeros(2, 12, 4, D, dtype=torch.bfloat16)  # (B, S, N, D)
+    check_16b("flash_attention_fwd (TMA)", "q", x.transpose(1, 2))
+    padded = torch.zeros(2, 12, 4, D + 4, dtype=torch.bfloat16)[..., :D]
+    with pytest.raises(ValueError, match="16-byte"):
+        check_16b("flash_attention_bwd (TMA)", "k", padded.transpose(1, 2))
 
 
 def _paged_case(rng, B, dtype, NKV=2, G=2, D=32, page=8, NB=3):
