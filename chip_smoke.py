@@ -266,11 +266,20 @@ Phases (each passes or raises; any failure exits non-zero with no result):
    ``skip_reason``'s note, a line per cell, and ``lm_zoo_registry`` refined
    from its JSON beside the analytic roofline mu and the zoo's measured
    ``mu_ms``.
+11. tensor parallel (after the tooling's sharded step): four processes of
+   this script on the one card, a gloo group over a FileStore; llama3-8b
+   and gemma-2b on a (1, 4) ("data", "model") mesh and olmoe-1b-7b on (2,
+   2), full width at 2 layers, batch 2 x 2048: bf16 train steps through
+   the kernels at each rank's heads (launches counted per rank), the
+   gradient in bf16 and in float64 against the unsharded ones (see
+   ``phase_tensor_parallel``), per-rank step ms, memory and the bytes of
+   every collective beside ``launch/roofline.py``'s reckoning.
 
 Every run measures every column of the kernels line: each serve phase (the
 zoo's serve paths included) and each train run set the launch counters to
 0 just before they start and read them just after, and a kernel's
-``launches`` is the sum over those phases of the same run.  The last lines are the card line, one
+``launches`` is the sum over those phases of the same run (the tensor
+parallel phase's ranks count in their own processes and report).  The last lines are the card line, one
 ``{"kernels": [...]}`` JSON line and the ``{"ok": true, "device": ...}``
 JSON line.
 Each release between phases prints what stays allocated: the bytes of live
@@ -289,6 +298,7 @@ import argparse
 import contextlib
 import gc
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -4097,6 +4107,444 @@ def _sharded_world1(torch, card, cfg, opt_cfg, pipe):
             "compressed_psum": "bitwise"}
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: tensor-parallel training, four ranks on the one card.
+# ---------------------------------------------------------------------------
+TP_WORLD = 4
+# (arch, (data, model) mesh, config overrides): full width, depth cut to
+# SHARDED_LAYERS; olmoe's MoE groups split over its two data ranks.
+TP_CASES = (("llama3-8b", (1, 4), {}), ("gemma-2b", (1, 4), {}),
+            ("olmoe-1b-7b", (2, 2), {"moe_groups": 2}))
+TP_STEPS = 2
+TP_GRAD_BOUND = 3.0  # times the unsharded bf16 run's own error against float64
+# Relative floor of the bf16 loss and xent checks (a mean over 4096 tokens
+# whose rounding errors the two runs draw independently): a few times the
+# measured noise (3e-4).
+TP_METRIC_FLOOR = 2.0 ** -9
+# The float64 runs (the plain kernels: the kernels have no float64 route)
+# against each other.  At full width the JAX init's fan-in makes the stack
+# chaotic: a rounding difference grows ~1e8-fold into a layer's gradients
+# (the float64 runs differ by up to 6.5e-8 at one layer), so in bf16 and
+# f32 most leaves' gradients are noise and only float64 can show a wrong
+# sum.
+TP_F64_LEAF_TOL = 1e-4  # relative Frobenius distance, each leaf
+TP_F64_METRIC_RTOL = 1e-9  # the xent; the loss adds the MoE's f32 router loss:
+TP_AUX_RTOL = 1e-5  # the router is f32 in every dtype, as in the JAX model
+# The float64 runs' cut (the bf16 runs keep the model's vocab and depth):
+# four ranks' float64 token tables and their gradients (4.2 GB each at
+# llama3-8b's 128256 x 4096, whole on every rank) do not fit one card
+# beside the rest, and gloo moves their float64 weights and gradients
+# through host memory: one layer, 8192 entries (still split over the
+# ranks).
+TP_F64_VOCAB = 8192
+TP_F64_LAYERS = 1
+TP_RANK_TIMEOUT_S = 400.0
+_SPAWNED = []  # rank processes, killed by the watchdog too
+
+
+def _tp_cfg(arch, over):
+    import dataclasses
+
+    from repro_torch.configs.archs import get_config
+
+    return dataclasses.replace(get_config(arch), n_layers=SHARDED_LAYERS, **over)
+
+
+def _widen(torch, p, dtype):
+    """``p`` trainable, widened to ``dtype`` where that is wider (exactly)."""
+    return p.to(torch.promote_types(p.dtype, getattr(torch, dtype))).requires_grad_(True)
+
+
+def _tp_params(torch, cfg, dtype):
+    """Seed 0's parameters of the bf16 ``cfg`` on the card, each leaf
+    widened to ``dtype`` where that is wider: every run of a case holds the
+    same values, so one float64 run is every run's reference."""
+    from repro_torch.models.transformer import init_params
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda p: _widen(torch, p, dtype),
+                    init_params(cfg, torch.Generator().manual_seed(0), "cuda"))
+
+
+def _tp_state(torch, cfg, shardings, dtype):
+    """:func:`_tp_params` placed on ``shardings`` leaf by leaf, with zero
+    moments and step made on each rank's shards (no rank holds a whole
+    widened model or a whole state's f32 moments)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.models.transformer import init_params
+    from repro_torch.training import place_state
+    from repro_torch.tree import tree_map
+
+    params = tree_map(lambda p, s: place_state(_widen(torch, p, dtype), s),
+                      init_params(cfg, torch.Generator().manual_seed(0), "cuda"),
+                      shardings["params"])
+
+    def zeros(p):
+        return DTensor.from_local(torch.zeros(p.to_local().shape, dtype=torch.float32,
+                                              device="cuda"),
+                                  p.device_mesh, p.placements, run_check=False, shape=p.shape,
+                                  stride=p.stride())
+
+    step = place_state(torch.zeros((), dtype=torch.int32, device="cuda"),
+                       shardings["opt"]["step"])
+    return {"params": params, "opt": {"mu": tree_map(zeros, params),
+                                      "nu": tree_map(zeros, params), "step": step}}
+
+
+@contextlib.contextmanager
+def _counting_collectives(dist, last=True):
+    """Within the block (when ``last``), the result bytes on this rank of
+    every all-reduce, all-gather and reduce-scatter, by kind (the
+    convention of ``launch/roofline.py``), into the dict it yields."""
+    traffic, names = {}, {"all_reduce": "all-reduce", "all_gather_into_tensor": "all-gather",
+                          "reduce_scatter_tensor": "reduce-scatter"}
+    calls = {name: getattr(dist, name) for name in names}
+
+    def counted(name):
+        def call(out, *args, **kw):
+            traffic[names[name]] = traffic.get(names[name], 0) + out.numel() * out.element_size()
+            return calls[name](out, *args, **kw)
+        return call
+
+    try:
+        for name in names:
+            if last:
+                setattr(dist, name, counted(name))
+        yield traffic
+    finally:
+        for name, fn in calls.items():
+            setattr(dist, name, fn)
+
+
+def _tp_case(torch, rank, arch, shape, over):
+    """One case on this rank.  In bf16: the tensor-parallel gradients and
+    ``TP_STEPS`` train steps on the mesh (the kernels' launches, step ms,
+    memory, the collectives' bytes of the last step, the flash calls'
+    shapes); in float64 (the same weights widened, the plain kernels): the
+    tensor-parallel gradients.  Then rank 0 alone, while the others wait,
+    takes the unsharded gradients in float64 and bf16 on the same weights
+    and batch; then every leaf is gathered and rank 0 measures the
+    relative Frobenius distances: bf16, each run against float64; float64,
+    the two runs against each other."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from repro_torch.distributed import tensor_parallel as tpm
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh, make_rules
+    from repro_torch.training import (
+        DataConfig, OptimizerConfig, TrainConfig, make_grads_fn, make_pipeline, make_train_step,
+        state_shardings,
+    )
+    from repro_torch.tree import named_leaves
+
+    cfg = _tp_cfg(arch, over)
+    mesh = make_mesh(shape, ("data", "model"))
+    rules = make_rules(mesh)
+    pipe = make_pipeline(DataConfig(batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=0), cfg)
+    batches = [{k: torch.from_numpy(v).to("cuda") for k, v in pipe.batch_at(i).items()}
+               for i in range(TP_STEPS)]
+    out = dict(arch=arch, mesh=list(shape), heads=dataclasses.asdict(
+        tpm.local_heads(cfg, mesh.get_local_rank("model"), shape[1])))
+    kernel, shapes = ops._flash.flash_attention_fwd, set()
+
+    def recording(q, k, v, **kw):
+        shapes.add((str(q.dtype), tuple(q.shape), tuple(k.shape)))
+        return kernel(q, k, v, **kw)
+
+    # The float64 runs: cut to TP_F64_VOCAB and TP_F64_LAYERS, their own batch.
+    cut = dataclasses.replace(cfg, vocab_size=min(cfg.vocab_size, TP_F64_VOCAB),
+                              n_layers=TP_F64_LAYERS)
+    cut_batch = {k: torch.from_numpy(v).to("cuda") for k, v in make_pipeline(
+        DataConfig(batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=0), cut).batch_at(0).items()}
+    seconds, t_case = {}, time.perf_counter()
+
+    def lap(name):  # where the case's time goes
+        nonlocal t_case
+        seconds[name] = round(time.perf_counter() - t_case, 1)
+        t_case = time.perf_counter()
+
+    ops.reset_launch_counts()
+    grads, tp_metrics = {}, {}
+    for dtype, base, batch in (("bfloat16", cfg, batches[0]), ("float64", cut, cut_batch)):
+        c = dataclasses.replace(base, dtype=dtype)
+        torch.cuda.reset_peak_memory_stats()
+        state = _tp_state(torch, base, state_shardings(c, mesh, rules), dtype)
+        torch.cuda.synchronize()
+        held_gib = torch.cuda.memory_allocated() / 2**30
+        ops._flash.flash_attention_fwd = recording
+        try:
+            with plain_kernels() if dtype == "float64" else contextlib.nullcontext():
+                loss, m, grads[dtype] = make_grads_fn(c, TrainConfig(), mesh=mesh, rules=rules)(
+                    state["params"], batch)
+            tp_metrics[dtype] = {"loss": float(loss), **{k: float(v) for k, v in m.items()}}
+        finally:
+            ops._flash.flash_attention_fwd = kernel
+        if dtype == "bfloat16":  # the train steps
+            step_fn = make_train_step(c, OptimizerConfig(learning_rate=3e-4, warmup_steps=1,
+                                                         total_steps=TP_STEPS),
+                                      mesh=mesh, rules=rules)
+            ms, metrics = [], []
+            for i, b in enumerate(batches):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with _counting_collectives(dist, last=i == len(batches) - 1) as traffic:
+                    state, m = step_fn(state, b)
+                metrics.append({k: float(v) for k, v in m.items()})
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            out.update(step_ms=ms, metrics=metrics, traffic=traffic, held_gib=held_gib,
+                       peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                       launches=ops.launch_counts())
+            del step_fn
+        del state
+        torch.cuda.empty_cache()
+        lap(dtype)
+    out.update(flash_shapes=sorted(shapes), tp_metrics=tp_metrics)
+
+    def reference(base, dtype, batch):  # rank 0 alone, the others waiting
+        ref = None
+        if rank == 0:
+            c = dataclasses.replace(base, dtype=dtype)
+            with plain_kernels() if dtype == "float64" else contextlib.nullcontext():
+                loss, m, g = make_grads_fn(c)(_tp_params(torch, base, dtype), batch)
+            ref = ({"loss": float(loss), **{k: float(v) for k, v in m.items()}},
+                   dict(named_leaves(g)))
+            del g
+            torch.cuda.empty_cache()
+        dist.barrier()
+        return ref
+
+    def compare(dtype, fn):  # every leaf gathered; rank 0 reads it
+        found = {}
+        for path, g in named_leaves(grads.pop(dtype)):
+            full = tpm.gather(g)
+            if rank == 0:
+                found[path] = fn(path, full)
+            del full
+        torch.cuda.empty_cache()
+        return found
+
+    ref = reference(cut, "float64", cut_batch)
+    exact64 = compare("float64", lambda path, full: float((full - ref[1][path]).norm())
+                      / float(ref[1][path].norm().clamp_min(1e-300)))
+    ref64 = ref and ref[0]
+    del ref
+    torch.cuda.empty_cache()
+    lap("float64 check")
+    exact, plain = reference(cfg, "float64", batches[0]), reference(cfg, "bfloat16", batches[0])
+    lap("references")
+
+    def against(path, full):  # the tensor-parallel and unsharded runs, each vs float64
+        w, p = exact[1][path], plain[1].pop(path)
+        n = float(w.norm().clamp_min(1e-300))
+        return (float((full.double() - w).norm()) / n, float((p.double() - w).norm()) / n,
+                float(full.double().square().sum()), float((p.double() - w).square().sum()))
+
+    bf16 = compare("bfloat16", against)
+    lap("bf16 check")
+    if rank == 0:
+        out.update(bf16_leaves=bf16, f64_leaves=exact64, seconds=seconds,
+                   ref_metrics={"bfloat16": plain[0], "float64": exact[0], "float64 cut": ref64},
+                   f64_sq=sum(float(x.square().sum()) for x in exact[1].values()))
+    del exact, plain
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_rank(torch, rank, store, out_dir):
+    """One of the phase's ``TP_WORLD`` processes: a gloo group over a
+    FileStore, every case of ``TP_CASES`` in turn; writes its readings to
+    ``OUT_DIR/rank{rank}.json``."""
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, TP_WORLD), rank=rank,
+                            world_size=TP_WORLD)
+    try:
+        cases = [_tp_case(torch, rank, arch, shape, over) for arch, shape, over in TP_CASES]
+    finally:
+        dist.destroy_process_group()
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(cases))
+
+
+def _tp_roofline(cfg, shape):
+    """``launch/roofline.py``'s reckoning of one train step's collectives per
+    device on a (data, model) mesh of ``shape`` at the phase's batch: bytes
+    by kind (the dry-run's components: each block kind times its count,
+    then the ends) and the collective term in ms."""
+    import dataclasses
+
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import roofline as rf
+    from repro_torch.launch.mesh import make_custom_mesh, make_rules
+
+    mesh = make_custom_mesh(*shape)
+    rules = make_rules(mesh)
+    tokens, itemsize = TRAIN_BATCH * TRAIN_SEQ, getattr(torch, cfg.dtype).itemsize
+    total = {}
+
+    def add(weights, n):
+        coll, _ = rf.reckon_collectives(weights, rules, mesh, tokens=tokens, itemsize=itemsize,
+                                        train=True, top_k=cfg.top_k or 1)
+        for kind, b in coll.items():
+            total[kind] = total.get(kind, 0) + b * n
+
+    for kind in set(cfg.layer_kinds()):
+        add(dryrun._weights(cfg, kind), cfg.layer_kinds().count(kind))
+    cfg0 = dataclasses.replace(cfg, n_layers=0)
+    add([w for w in dryrun._model_weights(cfg0) if w[0][0] not in ("periods", "epilogue")], 1)
+    return total, 1e3 * sum(total.values()) / rf.HW["link_bw"]
+
+
+def phase_tensor_parallel(torch, card):
+    """The attention and MoE stacks trained tensor-parallel: ``TP_WORLD``
+    processes of this script on the one card, a gloo group over a
+    FileStore (NCCL refuses two ranks on one device), each case of
+    ``TP_CASES`` on its mesh at full width, depth ``SHARDED_LAYERS``, batch
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ`` of the seed-0 pipeline: ``TP_STEPS``
+    bf16 train steps through the kernels, whose launches on every rank
+    must be the steps' (no plain version), and the gradient in bf16 and in
+    float64 (the same weights widened; the plain kernels).  float64: every
+    gathered leaf within ``TP_F64_LEAF_TOL`` (relative Frobenius) of the
+    unsharded float64 gradient, loss and xent within
+    ``TP_F64_METRIC_RTOL``.  bf16, against float64 (the phi3-mini rule,
+    with the one-device run in the CPU's place): each leaf's relative
+    error within ``TP_GRAD_BOUND`` times the unsharded bf16 run's plus
+    REL_FLOOR, loss and xent the same way plus ``TP_METRIC_FLOOR``, the
+    norm within ``TP_GRAD_BOUND`` times the unsharded gradient's whole
+    distance from float64 (which bounds that run's norm error); step 0's
+    loss and norm are the gradient's.  Prints the per-rank kernel shapes,
+    step ms, GiB held and peak, and the bytes each rank's collectives
+    returned in the last step beside ``launch/roofline.py``'s reckoning for
+    that mesh.  Returns (launches summed over the ranks, readings)."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    with tempfile.TemporaryDirectory() as d:
+        env = dict(os.environ, PYTHONUNBUFFERED="1",
+                   PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+        logs = [open(Path(d, f"rank{r}.log"), "w") for r in range(TP_WORLD)]
+        t0 = time.perf_counter()
+        for r in range(TP_WORLD):
+            _SPAWNED.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--tp-rank", str(r),
+                 "--tp-store", str(Path(d, "store")), "--tp-out", d],
+                stdout=logs[r], stderr=subprocess.STDOUT, env=env, cwd=str(ROOT)))
+        procs, failed = list(_SPAWNED), None
+        while any(p.poll() is None for p in procs) and failed is None:
+            time.sleep(0.5)
+            failed = next((r for r, p in enumerate(procs) if p.poll() not in (None, 0)), None)
+            if time.perf_counter() - t0 > TP_RANK_TIMEOUT_S:
+                failed = "timeout"
+        for p in procs:
+            p.kill()
+            p.wait()
+        _SPAWNED.clear()
+        for f in logs:
+            f.close()
+        wall = time.perf_counter() - t0
+        texts = [Path(d, f"rank{r}.log").read_text() for r in range(TP_WORLD)]
+        if failed is not None:
+            fail(f"tensor parallel: rank {failed} failed after {wall:.1f}s:\n"
+                 + "\n".join(f"--- rank {r}\n{t[-3000:]}" for r, t in enumerate(texts)))
+        ranks = [json.loads(Path(d, f"rank{r}.json").read_text()) for r in range(TP_WORLD)]
+    print(f"[tensor parallel] {TP_WORLD} ranks on one card over gloo (FileStore), "
+          f"{wall:.1f}s with start-up; collectives: plain torch.distributed calls on the CUDA "
+          "tensors, none staged through host memory by the port (gloo copies CUDA tensors "
+          "through its own host buffers; no collective time here is NCCL's); card "
+          f"{card}", flush=True)
+    counts, readings = {}, {}
+    for i, (arch, shape, over) in enumerate(TP_CASES):
+        cfg = _tp_cfg(arch, over)
+        per_rank = [r[i] for r in ranks]
+        head = per_rank[0]
+        want = {k: (TP_STEPS + 1) * v for k, v in _train_launches(cfg).items()
+                if k.startswith("flash")}
+        for c in per_rank:
+            for k in TRAIN_PATH_KERNELS:
+                counts[k] = counts.get(k, 0) + c["launches"][k]
+        reckoned, coll_ms = _tp_roofline(cfg, shape)
+        refs, tp = head["ref_metrics"], head["tp_metrics"]
+        f64, m_tp = refs["float64"], head["metrics"][0]
+        bf, exact = head["bf16_leaves"], head["f64_leaves"]
+        ratio = {k: v[0] / max(v[1], REL_FLOOR) for k, v in bf.items()}
+        worst, worst64 = max(bf, key=ratio.get), max(exact, key=exact.get)
+        # The bf16 norms: the gathered gradient's, and the unsharded run's
+        # whole distance from float64, which bounds its norm's error.
+        norm, norm64 = math.sqrt(sum(v[2] for v in bf.values())), math.sqrt(head["f64_sq"])
+        dist_plain = math.sqrt(sum(v[3] for v in bf.values()))
+        print(f"[tensor parallel] {arch} {tuple(shape)} float64 (plain kernels, vocab "
+              f"{min(cfg.vocab_size, TP_F64_VOCAB)}, {TP_F64_LAYERS} layer): the tensor-parallel "
+              f"gradient against the "
+              f"unsharded one, {len(exact)} leaves, worst relative distance "
+              f"{exact[worst64]:.3g} at {worst64} (bound {TP_F64_LEAF_TOL}); loss "
+              f"{tp['float64']['loss']!r} vs {refs['float64 cut']['loss']!r}", flush=True)
+        print(f"[tensor parallel] {arch} {tuple(shape)} bf16 gradients against float64 "
+              f"(relative Frobenius): worst ratio {ratio[worst]:.3f} at {worst} "
+              f"({bf[worst][0]:.4g} vs the unsharded run's {bf[worst][1]:.4g}; bound "
+              f"{TP_GRAD_BOUND}x + {REL_FLOOR}); median {statistics.median(v[0] for v in bf.values()):.4g}"
+              f" / {statistics.median(v[1] for v in bf.values()):.4g}; norm {norm:.6f} vs "
+              f"float64 {norm64:.6f} (the unsharded gradient {dist_plain:.4g} from it); loss "
+              f"{tp['bfloat16']['loss']:.6f} / unsharded {refs['bfloat16']['loss']:.6f} / float64 "
+              f"{f64['loss']:.6f}", flush=True)
+        print(f"[tensor parallel] {arch} on a (data, model) = {tuple(shape)} mesh, full width, "
+              f"{cfg.n_layers} layers, bf16 steps, batch {TRAIN_BATCH} x {TRAIN_SEQ}: rank 0 heads "
+              f"{head['heads']}; flash (dtype, q, kv) per rank {head['flash_shapes']}; step 0 "
+              f"loss {m_tp['loss']:.6f}, grad norm {m_tp['grad_norm']:.6f}; step ms per rank "
+              f"{[[round(x, 1) for x in c['step_ms']] for c in per_rank]}; GiB held per rank "
+              f"{[round(c['held_gib'], 2) for c in per_rank]}, peak "
+              f"{[round(c['peak_gib'], 2) for c in per_rank]}; rank 0's seconds "
+              f"{head['seconds']}; launches per rank "
+              f"{[{k: c['launches'][k] for k in TRAIN_PATH_KERNELS} for c in per_rank]}; "
+              f"last step's collectives, result bytes on rank 0 {head['traffic']} (all "
+              f"{sum(head['traffic'].values()) / 1e9:.3f} GB) vs the roofline's reckoning "
+              f"{reckoned} ({sum(reckoned.values()) / 1e9:.3f} GB, {coll_ms:.3f} ms at 450 GB/s "
+              f"NVLink); card {card}", flush=True)
+        for r, c in enumerate(per_rank):
+            check(all(c["launches"][k] == n for k, n in want.items())
+                  and c["launches"]["rms_norm_fwd"] > 0,
+                  f"tensor parallel {arch}: rank {r} launched {c['launches']}, want {want} "
+                  "and the norm")
+            check(all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
+                      for m in c["metrics"]),
+                  f"tensor parallel {arch}: rank {r}'s steps {c['metrics']} not finite")
+        for path, d in exact.items():
+            check(d <= TP_F64_LEAF_TOL,
+                  f"tensor parallel {arch} {shape}: float64 gradient {path} {d:.3g} (relative) "
+                  f"from the unsharded one, beyond {TP_F64_LEAF_TOL}")
+        for k, tol in (("xent", TP_F64_METRIC_RTOL), ("aux", TP_AUX_RTOL)):
+            cut = refs["float64 cut"][k]
+            check(abs(tp["float64"][k] - cut) <= tol * abs(cut),
+                  f"tensor parallel {arch}: float64 {k} {tp['float64'][k]!r} vs the unsharded "
+                  f"{cut!r}, beyond rtol {tol}")
+        for k in ("loss", "xent"):
+            check(abs(tp["bfloat16"][k] - f64[k]) <= TP_GRAD_BOUND * abs(refs["bfloat16"][k]
+                                                                         - f64[k])
+                  + TP_METRIC_FLOOR * abs(f64[k]),
+                  f"tensor parallel {arch}: bf16 {k} {tp['bfloat16'][k]} beyond {TP_GRAD_BOUND}x "
+                  f"the unsharded run's distance from float64 {f64[k]}")
+        for path, (ke, pe, *_) in bf.items():
+            check(ke <= TP_GRAD_BOUND * pe + REL_FLOOR,
+                  f"tensor parallel {arch} {shape}: bf16 gradient {path} {ke:.4g} (relative) "
+                  f"from float64, beyond {TP_GRAD_BOUND}x the unsharded run's {pe:.4g}")
+        check(abs(norm - norm64) <= TP_GRAD_BOUND * dist_plain,
+              f"tensor parallel {arch}: bf16 gradient norm {norm} vs float64 {norm64}, beyond "
+              f"{TP_GRAD_BOUND}x the unsharded gradient's distance {dist_plain}")
+        check(abs(m_tp["grad_norm"] - norm) <= 1e-4 * norm
+              and m_tp["loss"] == tp["bfloat16"]["loss"],
+              f"tensor parallel {arch}: step 0's loss {m_tp['loss']} and grad norm "
+              f"{m_tp['grad_norm']} are not its gradient's {norm}")
+        readings[arch] = dict(mesh=list(shape), ranks=per_rank, roofline_bytes=reckoned,
+                              roofline_collective_ms=coll_ms)
+    return counts, readings
+
+
 def phase_dryrun(torch, card, table3):
     """The dry-run over every arch x shape x both meshes into a temporary
     ``--out``: every row ``ok``, or ``skipped`` with exactly
@@ -4382,7 +4830,7 @@ def _watchdog(seconds: float) -> None:
         print(f"chip_smoke: FAIL: still running after {seconds:.0f}s; stacks follow",
               file=sys.stderr, flush=True)
         faulthandler.dump_traceback(all_threads=True)
-        for child in multiprocessing.active_children():
+        for child in multiprocessing.active_children() + _SPAWNED:
             child.kill()
         os._exit(1)
 
@@ -4462,6 +4910,9 @@ def main(argv=None) -> int:
                     "phase; print each train run's profiled step in full")
     ap.add_argument("--ptxas", action="store_true", help="print nvcc -Xptxas -v register use")
     ap.add_argument("--json-out", default=None, help="also write the results here")
+    ap.add_argument("--tp-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-store", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-out", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -4469,6 +4920,10 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(SRC))
     import torch
 
+    if args.tp_rank is not None:  # one rank of phase_tensor_parallel
+        _watchdog(TP_RANK_TIMEOUT_S)
+        _tp_rank(torch, args.tp_rank, args.tp_store, args.tp_out)
+        return 0
     t_start = time.perf_counter()
 
     def mark(phase):  # where the run's time goes, phase by phase
@@ -4567,6 +5022,8 @@ def main(argv=None) -> int:
     phase_counts[f"train {gemma}"], train[gemma] = phase_train(torch, gemma, card, args.profile)
     mark("phase_train_tools")
     tools.update(phase_train_tools(torch, card, train[gemma]["median_step_ms"]))
+    mark("phase_tensor_parallel")
+    phase_counts["tensor parallel"], tools["tensor_parallel"] = phase_tensor_parallel(torch, card)
     mark("phi3 command")
     phase_counts["train command phi3"], train["phi3 command"] = phase_train_cli(torch, card)
     mark(f"{MOE_ARCH} train")

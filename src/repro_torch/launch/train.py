@@ -33,10 +33,15 @@ Under ``torchrun`` (``WORLD_SIZE`` > 1) the process group is initialized
 (NCCL on ``cuda``, one card per local rank; gloo on ``--device cpu``) and
 the step is built on ``make_elastic_mesh()`` with ``make_rules(mesh)``, as
 the JAX package's ``launch/train.py`` does on more than one device.  That
-mesh keeps a tensor axis of up to 16 ranks, and a tensor axis above 1
-raises ``NotImplementedError``: tensor-parallel execution of the model is
-not ported, so every world size above 1 raises.  World size 1 is the
-plain path.
+mesh keeps a tensor axis of up to ``--model-parallel`` ranks (16, the JAX
+package's), every other rank data-parallel, and the attention and MoE
+stacks train tensor-parallel on it
+(:mod:`repro_torch.distributed.tensor_parallel`); recurrent and xLSTM
+blocks on a tensor axis above 1 raise ``NotImplementedError``, and heads
+that do not split into whole groups over it ``ValueError``.  A relaunch
+on another mesh (another world size or ``--model-parallel``) restores the
+checkpoint onto its shardings and goes on.  World size 1 is the plain
+path.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b --full-config
@@ -45,6 +50,8 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch hubert-xlarge --full-config --batch 2 --seq 2048
   PYTHONPATH=src python -m repro_torch.launch.train --arch paligemma-3b --full-config --batch 2 --seq 2048
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --arch llama3-8b --steps 100
+  PYTHONPATH=src python -m torch.distributed.run --standalone --nproc_per_node 4 \
+      -m repro_torch.launch.train --device cpu --arch llama3-8b --d-model 64 --steps 3
 """
 from __future__ import annotations
 
@@ -100,9 +107,13 @@ def main(argv=None):
                     help="where to train: cuda (the hand-written kernels, the "
                     "default) or cpu (the plain PyTorch versions, only when "
                     "asked for)")
+    ap.add_argument("--model-parallel", type=int, default=16,
+                    help="under torchrun: the elastic mesh's tensor axis, at most this "
+                    "many ranks")
     ap.epilog = ("Under torchrun (WORLD_SIZE > 1) the step runs on make_elastic_mesh() "
-                 "with make_rules(mesh), whose tensor axis raises NotImplementedError: "
-                 "tensor-parallel execution of the model is not ported.")
+                 "with make_rules(mesh): tensor-parallel over its model axis (attention "
+                 "and MoE stacks; recurrent and xLSTM blocks raise NotImplementedError), "
+                 "data-parallel over the rest.")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
@@ -111,7 +122,7 @@ def main(argv=None):
             torch.cuda.set_device(device)
         dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
         try:
-            mesh = make_elastic_mesh(device=device.type)
+            mesh = make_elastic_mesh(args.model_parallel, device=device.type)
             return _main(args, device, mesh, make_rules(mesh))
         finally:
             dist.destroy_process_group()
@@ -128,6 +139,8 @@ def _main(args, device, mesh=None, rules=None):
             over["n_layers"] = args.layers
         cfg = reduced(args.arch, **over)
     print(f"arch={cfg.name} params~{cfg.param_count()/1e6:.1f}M device={device}")
+    if mesh is not None:
+        print(f"mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}", flush=True)
     if device.type == "cuda":
         have = torch.cuda.get_device_properties(device).total_memory
         reckoning = (f"{cfg.name}'s weights, gradients and f32 moments take "

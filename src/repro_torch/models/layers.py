@@ -82,7 +82,11 @@ def mlp_init_axes(mlp_type: str):
     return axes
 
 
-def mlp_apply(params, x, mlp_type: str):
+def mlp_apply(params, x, mlp_type: str, tp=None):
+    """The MLP; with ``tp`` (a split tensor axis) this rank's ``ffn``
+    columns of ``wi`` / ``wg`` and rows of ``wo``, summed over the axis."""
+    if tp is not None:
+        x = tp.enter(x)
     if mlp_type == "swiglu":
         h = F.silu(x @ params["wi"]) * (x @ params["wg"])
     elif mlp_type == "geglu":
@@ -91,4 +95,5 @@ def mlp_apply(params, x, mlp_type: str):
         h = F.gelu(x @ params["wi"], approximate="tanh")
     else:
         raise ValueError(mlp_type)
-    return h @ params["wo"]
+    y = h @ params["wo"]
+    return y if tp is None else tp.leave(y)

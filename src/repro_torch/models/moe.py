@@ -20,7 +20,12 @@ Differences in form, not in result:
   atomics, so the result, and the greedy tokens downstream, are the same
   from run to run on the card.
 * ``constrain`` (a sharding annotation, the identity on one device) is
-  dropped.
+  dropped.  On a split tensor axis (``tp``) each rank runs its
+  ``expert_ffn`` columns of every expert (``ffn`` of the shared ones) on
+  the tokens that every rank routes alike (the router is whole), and the
+  combined outputs are summed over the axis.  The gates enter the split
+  region, so their gradient, the router's and the load-balancing loss's
+  are whole on every rank and the loss is not summed over the axis.
 """
 from __future__ import annotations
 
@@ -87,8 +92,9 @@ def _route(cfg, router_w, x):
     return top_idx, top_gate, e * torch.sum(me * pe)
 
 
-def _dispatch_group(cfg, params, x, cap):
-    """One group: x (T, D) -> ((T, D), aux)."""
+def _dispatch_group(cfg, params, x, xe, cap, tp=None):
+    """One group: x (T, D) -> ((T, D), aux); ``xe``: x as the experts read it
+    (entered into the split region under ``tp``, else x)."""
     T_, D = x.shape
     E, k = cfg.n_experts, cfg.top_k
     top_idx, top_gate, aux = _route(cfg, params["router"], x)
@@ -103,7 +109,7 @@ def _dispatch_group(cfg, params, x, cap):
 
     # Into the (E, cap, D) buffer; dropped assignments land on a trash row.
     dst = torch.where(keep, slot, E * cap)
-    buf = x.new_zeros((E * cap + 1, D)).index_copy_(0, dst, x.repeat_interleave(k, dim=0))
+    buf = x.new_zeros((E * cap + 1, D)).index_copy_(0, dst, xe.repeat_interleave(k, dim=0))
     buf = buf[:-1].view(E, cap, D)
 
     # Expert FFN, dense over the buffer.
@@ -117,12 +123,15 @@ def _dispatch_group(cfg, params, x, cap):
 
     # Combine: each token's k weighted rows, summed in a fixed order.
     w = (top_gate.reshape(-1) * keep).to(out_buf.dtype)
+    if tp is not None:
+        w = tp.enter(w)
     back = out_buf[slot] * w[:, None]
     return back.view(T_, k, D).sum(1), aux
 
 
-def moe_apply(cfg, params, x):
-    """x: (B, S, D) -> ((B, S, D), aux loss scalar f32)."""
+def moe_apply(cfg, params, x, tp=None):
+    """x: (B, S, D) -> ((B, S, D), aux loss scalar f32); ``tp``: the split
+    tensor axis (see the module docstring)."""
     B, S, D = x.shape
     g = cfg.moe_groups
     total = B * S
@@ -131,12 +140,16 @@ def moe_apply(cfg, params, x):
     tpg = total // g
     cap = capacity(tpg, cfg.n_experts, cfg.top_k, cfg.capacity_factor)
 
-    outs, auxes = zip(*(_dispatch_group(cfg, params, xi, cap)
-                        for xi in x.reshape(g, tpg, D)))
+    xg = x.reshape(g, tpg, D)
+    xe = xg if tp is None else tp.enter(xg)
+    outs, auxes = zip(*(_dispatch_group(cfg, params, xi, ei, cap, tp)
+                        for xi, ei in zip(xg, xe)))
     out = torch.stack(outs).reshape(B, S, D).to(x.dtype)
+    if tp is not None:
+        out = tp.leave(out)
     if cfg.n_shared_experts:
         shared = layers.mlp_apply(
             {"wi": params["shared_wi"], "wg": params["shared_wg"], "wo": params["shared_wo"]},
-            x, "swiglu" if cfg.mlp_type != "gelu" else "gelu")
+            x, "swiglu" if cfg.mlp_type != "gelu" else "gelu", tp=tp)
         out = out + shared
     return out, torch.stack(auxes).mean()

@@ -72,6 +72,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import tensor_parallel
 from repro_torch.kernels.flash_attention import HEAD_DIMS
 from repro_torch.models import layers, moe, rglru, xlstm
 from repro_torch.models.attention import (
@@ -226,7 +227,8 @@ def _model_axes(cfg: ModelConfig):
     # (hubert's 504) is replicated, as in the JAX package.
     axes: Dict[str, Any] = {"embed": {"tokens": (None, "embed")}, "final_norm": ("embed",)}
     if not cfg.tie_embeddings:
-        axes["head"] = ("embed", "vocab" if cfg.vocab_size >= 1024 else None)
+        axes["head"] = ("embed", "vocab" if cfg.vocab_size >= tensor_parallel.VOCAB_SPLIT_MIN
+                                  else None)
     if cfg.frontend != "none":
         axes["frontend"] = {"proj": (None, "embed")}
     axes["periods"] = tuple(block_axes(cfg, k) for k in cfg.pattern)
@@ -402,6 +404,11 @@ class SeqContext:
     page_size: int = 0
     # Prefix-LM (paligemma's image prefix): (B,) int32 lengths, or None.
     prefix_len: Optional[torch.Tensor] = None
+    # The tensor axis (training on a mesh whose ``model`` axis is split):
+    # each block runs this rank's heads / ffn / expert_ffn columns.  Carried
+    # here, not read per block, so a period's recompute under remat (on
+    # autograd's thread) sees it too.
+    tp: Optional[tensor_parallel.TensorParallel] = None
 
 
 def _norm(cfg, w, x):
@@ -427,6 +434,8 @@ def _kv_dequant(q, scale, dtype):
 def _attention(cfg, p, x, ctx: SeqContext, kind: str, cache):
     B, S, _ = x.shape
     hd, nq, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    if ctx.tp is not None:  # this rank's q heads and the kv heads they read
+        x, p, nq, nkv = ctx.tp.attention_inputs(cfg, p, x)
     q = (x @ p["wq"]).reshape(B, S, nq, hd)
     k = (x @ p["wk"]).reshape(B, S, nkv, hd)
     v = (x @ p["wv"]).reshape(B, S, nkv, hd)
@@ -484,7 +493,8 @@ def _attention(cfg, p, x, ctx: SeqContext, kind: str, cache):
                 cache[key][:, slot0:slot0 + first] = t[:, start:start + first]
                 if keep > first:  # wrapped remainder
                     cache[key][:, :keep - first] = t[:, start + first:]
-    return out.reshape(B, S, nq * hd) @ p["wo"]
+    out = out.reshape(B, S, nq * hd) @ p["wo"]
+    return out if ctx.tp is None else ctx.tp.leave(out)
 
 
 def _ring_writes(cfg, k, v):
@@ -548,9 +558,9 @@ def apply_block(cfg, kind: str, p, x, ctx: SeqContext, cache):
         x = x + _attention(cfg, p["attn"], h, ctx, kind, cache)
     h2 = _norm(cfg, p["ln2"], x)
     if kind == "moe":
-        y, aux = moe.moe_apply(cfg, p["moe"], h2)
+        y, aux = moe.moe_apply(cfg, p["moe"], h2, ctx.tp)
         return x + y, cache, aux
-    return x + layers.mlp_apply(p["mlp"], h2, cfg.mlp_type), cache, None
+    return x + layers.mlp_apply(p["mlp"], h2, cfg.mlp_type, ctx.tp), cache, None
 
 
 # ---------------------------------------------------------------------------
@@ -721,13 +731,18 @@ def forward_hidden(cfg, params, batch_inputs, cache=None, decode=False, position
     (updated in place; with ``page_tables``, decode only, a paged pool) and
     the stack's load-balancing loss (an f32 scalar, or None: see
     :func:`_run_stack`)."""
+    tp = tensor_parallel.context()
+    if tp is not None and (cache is not None or decode):
+        raise NotImplementedError(
+            "prefill and decode on a split tensor axis (kv_heads / seq_kv-sharded caches) are "
+            "not ported (ROADMAP.md Queue A); serve on one rank")
     x, pos, prefix_len = _embed_inputs(cfg, params, batch_inputs)
     if positions is not None:
         pos = positions
     sin, cos = layers.rope(pos, cfg.head_dim, cfg.rope_theta,
                            dtype=torch.promote_types(x.dtype, torch.float32))
     ctx = SeqContext(positions=pos, sin=sin, cos=cos, decode=decode,
-                     page_tables=page_tables, page_size=page_size, prefix_len=prefix_len)
+                     page_tables=page_tables, page_size=page_size, prefix_len=prefix_len, tp=tp)
     x, aux = _run_stack(cfg, params, x, ctx, cache=cache)
     return _norm(cfg, params["final_norm"], x), cache, aux
 
@@ -747,9 +762,12 @@ def _unembed(cfg, params, x):
     return _logits(x, _head_weight(cfg, params))
 
 
-def _xent_chunk(x, w, labels):
+def _xent_chunk(x, w, labels, tp=None, v0=0):
     """Summed negative log-likelihood of one chunk's valid labels (>= 0)
-    and their count, both f32."""
+    and their count, both f32.  With ``tp``, ``w`` is this rank's head
+    columns, vocab entries ``v0`` on (:func:`tensor_parallel.vocab_xent`)."""
+    if tp is not None:
+        return tensor_parallel.vocab_xent(_logits(x, w), labels, v0, tp)
     lp = torch.log_softmax(_logits(x, w), dim=-1)
     valid = labels >= 0
     nll = -lp.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
@@ -767,7 +785,10 @@ def loss_fn(cfg, params, batch):
     blocks) and ``tokens`` (valid labels), all f32, as the JAX package's
     ``loss_fn``.  Each ``cfg.loss_chunk`` slice of the sequence is
     checkpointed when autograd records, so the backward pass holds one
-    chunk's logits at a time."""
+    chunk's logits at a time.  On a split tensor axis a head of
+    ``VOCAB_SPLIT_MIN`` entries or more is split on the vocab: each rank
+    scores its columns (a tied table's rows, the table entered whole) and
+    the softmax's sums are reduced over the axis."""
     x, _, aux = forward_hidden(cfg, params, batch)
     labels = batch["labels"].long()
     B, S = labels.shape
@@ -775,16 +796,25 @@ def loss_fn(cfg, params, batch):
     C = min(cfg.loss_chunk, S)
     while S % C:
         C -= 1
-    w = _head_weight(cfg, params)
+    tp, v0 = tensor_parallel.context(), 0
+    if tp is not None and cfg.vocab_size < tensor_parallel.VOCAB_SPLIT_MIN:
+        tp = None  # a whole head: every rank scores every entry
+    if tp is None:
+        w = _head_weight(cfg, params)
+    else:
+        x = tp.enter(x)
+        v0, v1 = tensor_parallel.vocab_range(cfg.vocab_size, tp.rank, tp.size)
+        w = (tp.enter(params["embed"]["tokens"])[v0:v1].T if cfg.tie_embeddings
+             else params["head"])
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(S // C):
         xs, ls = x[:, i * C:(i + 1) * C], labels[:, i * C:(i + 1) * C]
         if torch.is_grad_enabled():
-            t, c = checkpoint(_xent_chunk, xs, w, ls, use_reentrant=False,
+            t, c = checkpoint(_xent_chunk, xs, w, ls, tp, v0, use_reentrant=False,
                               preserve_rng_state=False)
         else:
-            t, c = _xent_chunk(xs, w, ls)
+            t, c = _xent_chunk(xs, w, ls, tp, v0)
         tot = tot + t
         cnt = cnt + c
     xent = tot / cnt.clamp_min(1.0)

@@ -9,20 +9,27 @@ eagerly, so there is nothing to jit; the state is updated in place (see
 :mod:`repro_torch.training.optimizer`).
 
 With a mesh and axis rules the step is data-parallel over the mesh's
-batch axes, with the state sharded as :func:`state_shardings` says
-(DTensors; the weights' ``embed`` dim over ``data``, as in the JAX
-package).  Each step all-gathers every parameter into a plain tensor (so
-the kernels see plain tensors), runs this rank's rows of the batch,
-reduce-scatters the gradients onto the shards (all-reduces those of
-replicated leaves) and updates the shards.  The arithmetic is the
-unsharded step's: the loss is the mean over the global batch's tokens
-(each rank weights its cross-entropy by its share of the global token
-count, and the shares' gradients are summed), the clip's global norm is
-taken over every shard, a compressed leaf's int8 scale is its whole
-gradient's, and microbatch ``i`` is the same rows of the global batch,
-split over the ranks.  A mesh whose ``model`` axis is larger than 1
-raises ``NotImplementedError``: tensor-parallel execution of the model is
-not ported (``ROADMAP.md`` Queue A item 9).
+batch axes and tensor-parallel over its ``model`` axis, with the state
+sharded as :func:`state_shardings` says (DTensors; the weights' ``embed``
+dim over ``data``, ``heads`` / ``kv_heads`` / ``ffn`` / ``expert_ffn`` /
+``vocab`` over ``model``, as in the JAX package).  Each step all-gathers
+every parameter over the batch axes into a plain tensor (so the kernels
+see plain tensors): the rank's slice over ``model`` where the model runs
+split (:mod:`repro_torch.distributed.tensor_parallel`), the whole leaf
+where the leaf is replicated or where a kv head must not be cut.  It runs
+this rank's rows of the batch under the rules, reduce-scatters the
+gradients onto the shards (all-reduces those of replicated leaves) and
+updates the shards.  The arithmetic is the unsharded step's: the loss is
+the mean over the global batch's tokens (each rank weights its
+cross-entropy by its share of the global token count, and the shares'
+gradients are summed), the clip's global norm is taken over every shard,
+a compressed leaf's int8 scale is its whole gradient's, and microbatch
+``i`` is the same rows of the global batch, split over the ranks.  Every
+collective is a plain ``torch.distributed`` call
+(:func:`~repro_torch.distributed.tensor_parallel.gather` and its
+siblings): DTensor's functional collectives fault on CUDA tensors over
+gloo.  Recurrent and xLSTM blocks on a ``model`` axis above 1 raise
+``NotImplementedError`` (``ROADMAP.md`` Queue A).
 
 The train state is ``{"params", "opt": {"mu", "nu", "step"}}`` plus
 ``"error_fb"`` under compression, the JAX package's tree; parameters are
@@ -34,11 +41,12 @@ import dataclasses
 from typing import Optional
 
 import torch
-from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
+from torch.distributed.tensor import DTensor, Shard, distribute_tensor
 
 from repro_torch.device import resolve_device
-from repro_torch.distributed import compression
-from repro_torch.distributed.api import AxisRules, mesh_axes, named_sharding
+from repro_torch.distributed import compression, tensor_parallel
+from repro_torch.distributed.api import AxisRules, axis_rules, mesh_axes, named_sharding
+from repro_torch.distributed.tensor_parallel import TENSOR_AXIS, all_reduce, reduce_scatter
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.training.optimizer import OptimizerConfig, adamw_update, init_opt_state
@@ -139,19 +147,34 @@ def batch_shardings(mesh, rules: AxisRules, batch_tree):
 
 def place_state(tree, shardings):
     """Each full tensor of ``tree`` (the same values on every rank) as a
-    DTensor on its sharding: each rank keeps its shard, in the tensor's
-    dtype and with its ``requires_grad``."""
-    return tree_map(lambda t, s: distribute_tensor(t.detach(), s.mesh, s.placements)
+    DTensor on its sharding: each rank keeps its shard of its own copy (no
+    collective), in the tensor's dtype and with its ``requires_grad``."""
+    return tree_map(lambda t, s: distribute_tensor(t.detach(), s.mesh, s.placements,
+                                                   src_data_rank=None)
                     .requires_grad_(t.requires_grad), tree, shardings)
 
 
-def make_grads_fn(cfg: ModelConfig, train_cfg: TrainConfig = TrainConfig(), objective=None):
+def make_grads_fn(cfg: ModelConfig, train_cfg: TrainConfig = TrainConfig(), objective=None,
+                  mesh=None, rules: Optional[AxisRules] = None):
     """``compute_grads(params, batch) -> (loss, metrics, grads)``: the train
     step's gradients, over ``train_cfg.microbatches`` slices of the batch's
     lead dim (f32 accumulation, means over the microbatches).  By default
     each microbatch differentiates its ``loss``; ``objective(loss, metrics)
     -> (target, loss, metrics)`` replaces what is differentiated and
-    reported (the sharded step's token-weighted share)."""
+    reported (the sharded step's token-weighted share).  With ``mesh`` and
+    ``rules``: the sharded step's gradients of the placed parameters over
+    the global batch, each a DTensor on its parameter's placements."""
+    if mesh is not None and rules is not None:
+        sharded = _sharded_grads(cfg, train_cfg, mesh, rules)
+
+        def dtensors(params, batch):
+            loss, metrics, grads = sharded(params, batch)
+            return loss, metrics, tree_map(
+                lambda g, p: DTensor.from_local(g, mesh, p.placements, run_check=False,
+                                                shape=p.shape, stride=p.stride()),
+                grads, params)
+
+        return dtensors
     unreached = transformer.unreached_leaves(cfg)
 
     def grads_of(params, batch):
@@ -221,13 +244,25 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
     return train_step
 
 
-def _sharded_train_step(cfg, opt_cfg, train_cfg, mesh, rules):
+def _reduce(values, mesh, dims, op="sum"):
+    """``values`` (a tensor) summed (or ``op="max"``) over the mesh dims
+    ``dims``, one group after the other."""
+    for i in dims:
+        if mesh.size(i) > 1:
+            values = all_reduce(values, mesh.get_group(i), op)
+    return values
+
+
+def _sharded_grads(cfg, train_cfg, mesh, rules):
+    """``grads(params, batch) -> (loss, metrics, grads)`` of the sharded
+    step: the parameters DTensors on their storage placements, the batch
+    global; each gradient this rank's local shard on its parameter's
+    placements (see the module docstring)."""
     names, sizes = mesh_axes(mesh)
     size = dict(zip(names, sizes))
-    if size.get("model", 1) > 1:
-        raise NotImplementedError(
-            f"a mesh with model={size['model']}: tensor-parallel execution of the model is "
-            "not ported (ROADMAP.md Queue A item 9); use a (data, 1) mesh")
+    tp = size.get(TENSOR_AXIS, 1)
+    if tp > 1:
+        tensor_parallel.check_config(cfg, tp)
     batch_rule = rules.table["batch"]
     batch_axes = (batch_rule,) if isinstance(batch_rule, str) else tuple(batch_rule or ())
     data_dims = [names.index(ax) for ax in batch_axes]
@@ -244,19 +279,19 @@ def _sharded_train_step(cfg, opt_cfg, train_cfg, mesh, rules):
             raise ValueError(f"moe_groups={cfg.moe_groups} does not split over {R} data ranks")
         local_cfg = dataclasses.replace(cfg, moe_groups=cfg.moe_groups // R)
     n_mb = max(train_cfg.microbatches, 1)
-
-    def over_data(t, op=None):
-        """``t`` reduced (sum, or ``op``) over the batch axes."""
-        pl = [(Partial(op) if op else Partial()) if i in data_dims else Replicate()
-              for i in range(len(names))]
-        return DTensor.from_local(t, mesh, pl, run_check=False).full_tensor()
+    # Which leaves the model reads split over the tensor axis (the rest it
+    # reads whole: a leaf replicated there, or kv heads fewer than ranks).
+    whole = tensor_parallel.whole_axes(cfg, tp)
+    split = _map_axes(lambda ax: not whole.intersection(ax), transformer.param_axes(cfg))
+    model_dim = names.index(TENSOR_AXIS) if TENSOR_AXIS in names else None
+    gather_dims = set(data_dims)
 
     def objective(loss, metrics):
         c = metrics["tokens"]
-        share = c / over_data(c.detach())
+        share = c / _reduce(c.detach(), mesh, data_dims)
         target = metrics["xent"] * share + 0.01 * metrics["aux"] / R
-        tot = over_data(torch.stack([target.detach(), (metrics["xent"] * share).detach(),
-                                     (metrics["aux"] / R).detach(), c.detach()]))
+        tot = _reduce(torch.stack([target.detach(), (metrics["xent"] * share).detach(),
+                                   (metrics["aux"] / R).detach(), c.detach()]), mesh, data_dims)
         return target, tot[0], {"xent": tot[1], "aux": tot[2], "tokens": tot[3]}
 
     compute_grads = make_grads_fn(local_cfg, train_cfg, objective)
@@ -269,41 +304,64 @@ def _sharded_train_step(cfg, opt_cfg, train_cfg, mesh, rules):
         return torch.cat([t[i * per + rank * part:i * per + (rank + 1) * part]
                           for i in range(n_mb)])
 
+    def compute_layout(p, is_split):
+        dims = gather_dims if is_split else gather_dims | {model_dim}
+        return tensor_parallel.gather(p, dims).detach().requires_grad_(True)
+
+    def storage_layout(g, p, is_split):
+        """A compute-layout gradient summed over the batch axes onto its
+        parameter's shard (a whole leaf stored split over ``model``: this
+        rank's chunk of it)."""
+        for i in data_dims:
+            pl = p.placements[i]
+            if mesh.size(i) > 1:
+                g = (reduce_scatter(g, mesh.get_group(i), pl.dim) if isinstance(pl, Shard)
+                     else all_reduce(g, mesh.get_group(i)))
+        pl = p.placements[model_dim] if model_dim is not None else None
+        if not is_split and isinstance(pl, Shard) and tp > 1:
+            g = g.chunk(tp, pl.dim)[mesh.get_local_rank(model_dim)]
+        return g
+
+    def grads(params, batch):
+        with torch.no_grad():
+            local = tree_map(compute_layout, params, split)
+        with axis_rules(rules):
+            loss, metrics, g = compute_grads(local, {k: local_rows(v) for k, v in batch.items()})
+        del local
+        return loss, metrics, tree_map(storage_layout, g, params, split)
+
+    return grads
+
+
+def _sharded_train_step(cfg, opt_cfg, train_cfg, mesh, rules):
+    grads_fn = _sharded_grads(cfg, train_cfg, mesh, rules)
+    every_dim = range(mesh.ndim)
+
     def sharded_sum(values, placements):
         """Each leaf's local value summed over the mesh dims it is sharded
         on (once per group of leaves sharded alike)."""
         out = list(values)
         groups = {}
         for i, pl in enumerate(placements):
-            groups.setdefault(tuple(isinstance(x, Shard) for x in pl), []).append(i)
-        for key, idx in groups.items():
-            if any(key):
-                pl = [Partial() if k else Replicate() for k in key]
-                tot = DTensor.from_local(torch.stack([values[i] for i in idx]), mesh, pl,
-                                         run_check=False).full_tensor()
+            groups.setdefault(tuple(j for j, x in enumerate(pl) if isinstance(x, Shard)),
+                              []).append(i)
+        for dims, idx in groups.items():
+            if dims:
+                tot = _reduce(torch.stack([values[i] for i in idx]), mesh, dims)
                 for j, i in enumerate(idx):
                     out[i] = tot[j]
         return out
 
     def train_step(state, batch):
         params = state["params"]
-        p_leaves = tree_leaves(params)
-        placements = [p.placements for p in p_leaves]
-        with torch.no_grad():
-            full = tree_map(lambda p: p.full_tensor().requires_grad_(True), params)
-        loss, metrics, grads = compute_grads(full, {k: local_rows(v) for k, v in batch.items()})
-        del full
-        partial = [Partial() if i in data_dims else Replicate() for i in range(len(names))]
-        grads = tree_map(lambda g, p: DTensor.from_local(g, mesh, partial, run_check=False)
-                         .redistribute(mesh, p.placements).to_local(), grads, params)
+        placements = [p.placements for p in tree_leaves(params)]
+        loss, metrics, grads = grads_fn(params, batch)
         if train_cfg.grad_compression:
-            everywhere = [Partial("max")] * len(names)
             with torch.no_grad():  # the feedback's shards, updated in place
                 local_e = tree_map(lambda e: e.to_local(), state["error_fb"])
             grads, _ = compression.quantize_dequantize(
                 grads, local_e,
-                reduce_max=lambda m: DTensor.from_local(torch.stack(m), mesh, everywhere,
-                                                        run_check=False).full_tensor())
+                reduce_max=lambda m: _reduce(torch.stack(m), mesh, every_dim, "max"))
         sums = sharded_sum([g.float().square().sum() for g in tree_leaves(grads)], placements)
         gnorm = torch.stack(sums).sum().sqrt()
         opt = state["opt"]

@@ -243,12 +243,22 @@ def test_make_mesh_needs_a_process_group():
         mesh.make_mesh((1, 1), ("data", "model"), device="cpu")
 
 
-def test_tensor_axis_raises(world1):
+@pytest.mark.parametrize("arch,over,size,error,match", [
+    ("recurrentgemma-2b", {}, 2, NotImplementedError, r"\['recurrent'\].*Queue A"),
+    ("xlstm-350m", {"pattern": ("mlstm",)}, 2, NotImplementedError, r"\['mlstm'\].*Queue A"),
+    ("xlstm-350m", {"pattern": ("slstm",)}, 2, NotImplementedError, r"\['slstm'\].*Queue A"),
+    ("llama3-8b", {"n_heads": 6, "n_kv_heads": 2}, 4, ValueError, "whole groups over 4"),
+    ("llama3-8b", {"n_heads": 8, "n_kv_heads": 8}, 3, ValueError, "whole groups over 3"),
+], ids=["recurrent", "mlstm", "slstm", "heads-6-over-4", "heads-8-over-3"])
+def test_tensor_axis_raises(world1, arch, over, size, error, match):
+    """A ``model`` axis above 1 runs the attention and MoE stacks; a block
+    kind it cannot split, or heads that do not split into whole groups,
+    raise before the step is built."""
     m = mesh.make_mesh((1, 1), ("data", "model"), device="cpu")
-    wide = types.SimpleNamespace(mesh_dim_names=("data", "model"), shape=(1, 2))
-    cfg = reduced("gemma-2b")
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
-        make_train_step(cfg, None, TrainConfig(), mesh=wide, rules=mesh.make_rules(m))
+    wide = types.SimpleNamespace(mesh_dim_names=("data", "model"), shape=(1, size))
+    with pytest.raises(error, match=match):
+        make_train_step(reduced(arch, **over), None, TrainConfig(), mesh=wide,
+                        rules=mesh.make_rules(m))
 
 
 def test_reshard_on_restore(tmp_path, world1):
