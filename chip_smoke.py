@@ -104,8 +104,9 @@ Phases (each passes or raises; any failure exits non-zero with no result):
    within 1.5x + 4e-5 of the plain version of the kernel's arithmetic's
    distance from the plain f32 backward; olmoe's bitwise the same twice.
 5. serve: a ``ServingEngine`` whose ``JitBackend`` hosts tier-s, tier-m
-   (reduced as served) and tier-l at the full qwen3-14b configuration
-   (bf16, seeded weights on the card), plus the zoo's measured hedge; then
+   (reduced as served) and tier-l, qwen3-14b at its full width cut to
+   ``TIER_L_LAYERS`` (10) of its 40 layers (bf16, seeded weights on the
+   card), plus the zoo's measured hedge; then
    ``measure_profiles``, an ``MDInferenceScheduler`` and
    ``ServingLoop.drain_trace`` over Poisson requests under sync and async
    dispatch.  Checks conservation, that tier-l served requests, finite
@@ -289,8 +290,8 @@ flight at once, at the peak), and (from the hybrid
 phase's release on) what is left after clearing PyTorch's cuBLAS
 workspaces; the serving phases' releases keep them, so their lines show
 whether one drain grows them over another.
-``--tier-l-layers`` cuts tier-l's depth (never its width) if a time limit
-forces it.
+``--tier-l-layers`` sets tier-l's depth (never its width): 10 of 40 by
+default, so that the run ends well within its time limit.
 """
 from __future__ import annotations
 
@@ -319,6 +320,12 @@ PROMPT = 128
 GEN = 16
 BATCH = 4
 SLA_MS = 2000.0
+# tier-l, qwen3-14b at its full width, is cut to 10 of its 40 layers: its
+# weights are built, served, copied to the host and sent to two worker
+# processes (twice to one of them), and at 40 layers those phases took
+# ~340 s of a 1011 s run on an H100 80GB HBM3 at 700 W, which must end
+# within 1200 s.
+TIER_L_LAYERS = 10
 # The continuous serve phase's geometry (its pool: 1 + 8 * 18 = 145 pages).
 PAGE = 8
 N_SLOTS = 8
@@ -342,10 +349,11 @@ PHI3_TRAIN_STEPS = 3
 # rejoin at three quarters need several ticks) and the heterogeneous pool.
 CLUSTER_REQUESTS = 32
 # Tracing's cost is read from p99 over this many requests of one seeded
-# trace (p99 of 128 interpolates below the largest), at a rate the pool
-# serves without the SLA capping the tail.
-TRACING_REQUESTS = 128
-TRACING_RATE = 4.0
+# trace (p99 of 64 interpolates below the largest), four runs of the trace
+# at 12 req/s.  A run lasts as long as the pool takes to serve its
+# requests, most of them on tier-l, not the trace's span.
+TRACING_REQUESTS = 64
+TRACING_RATE = 12.0
 CLUSTER_SPEC = "2:8:0.5,1"
 # The zoo phase: the MoE and xLSTM models of the zoo (their qualities are
 # ``repro_torch.serving.profiles.QUALITY``, the JAX package's).
@@ -693,6 +701,7 @@ def phase_kernels(torch, full):
                      dk.decode_attention_fwd(q, kc, vc, sp, pos),
                      ref.decode_attention_ref(q, kc, vc, sp, pos), f32)
             n += 1
+    n += _decode_lse_sweep(torch, gen)
     n += _long_ring_sweep(torch, gen)
     n += _paged_sweep(torch, gen)
     n += _paged_split_sweep(torch, gen)
@@ -718,7 +727,7 @@ def phase_kernels(torch, full):
     # decode, and its prefill (16 kv heads).
     olmoe = get_config(MOE_ARCH)
     pali, hubert = get_config(PALI_ARCH), get_config(HUBERT_ARCH)
-    phi3 = get_config(PHI3_ARCH)
+    phi3, llama = get_config(PHI3_ARCH), get_config("llama3-8b")
     olmoe_paged = _full_width_paged(torch, dict(full, n_heads=olmoe.n_heads,
                                                 n_kv_heads=olmoe.n_kv_heads,
                                                 head_dim=olmoe.head_dim), gen)
@@ -737,6 +746,13 @@ def phase_kernels(torch, full):
         _decode_row(torch, gen, full["batch"], hybrid.n_kv_heads,
                     hybrid.n_heads // hybrid.n_kv_heads, hybrid.head_dim,
                     min(hybrid.window, full["max_len"]), full["prompt"] + 1, "tier-rg"),
+        # The tensor-parallel serve phase's decode on one rank of llama3-8b's
+        # (1, 4) mesh: every head over the rank's slot slice, live up to its
+        # last step, without and with the LSE the ranks' rows are folded by.
+        *(_decode_row(torch, gen, TPS_BATCH, llama.n_kv_heads,
+                      llama.n_heads // llama.n_kv_heads, llama.head_dim, TPS_MAX_LEN // 4,
+                      TPS_PROMPT + TPS_STEPS, "llama3-8b tensor-parallel rank", lse=lse)
+          for lse in (False, True)),
         # The frontends: paligemma's prefill (256 patches and the prompt) and
         # its train shape (256 patches and TRAIN_SEQ tokens), prefix 256;
         # hubert's bidirectional encoder at D = 80 (16-wide feature boxes);
@@ -1698,11 +1714,53 @@ def _flash_row(torch, gen, B, NQ, NKV, S, D, window, lse, label, causal=True, pr
     )
 
 
-def _decode_row(torch, gen, B, NKV, G, D, S_cache, valid, label):
+def _decode_lse_sweep(torch, gen) -> int:
+    """The ring decode with its log-sum-exp (``return_lse``, what the
+    tensor-parallel decode folds the ranks' rows by) against the plain
+    version's, out and LSE, and out bitwise the call without it: a rank's
+    slot slice at llama3-8b's, gemma-2b's and recurrentgemma-2b's
+    tensor-parallel decode shapes with live slots and with none at all (an
+    LSE of -1e30, the mean of v), small ragged cases, a window, every
+    dtype.  (B, NKV, G, S, D, window, live): the first ``live`` slots valid,
+    the rest empty; ``pos`` the last live slot, or 527 with none."""
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import ref
+
+    cases = [(4, 8, 4, 2048, 128, 0, 528), (4, 8, 4, 2048, 128, 0, 0),
+             (4, 1, 2, 2048, 256, 0, 528), (4, 1, 2, 2048, 256, 0, 0),
+             (4, 1, 5, 1024, 256, 2048, 512), (4, 1, 5, 1024, 256, 2048, 0),
+             (2, 2, 2, 256, 64, 16, 200), (3, 2, 5, 33, 64, 0, 20), (2, 1, 10, 7, 80, 0, 0)]
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for B, NKV, G, S, D, window, live in cases:
+            q = _randn(torch, (B, NKV, G, D), dtype, gen)
+            kc = _randn(torch, (B, S, NKV, D), dtype, gen).transpose(1, 2)
+            vc = _randn(torch, (B, S, NKV, D), dtype, gen).transpose(1, 2)
+            sp = torch.where(torch.arange(S) < live, torch.arange(S), -1).to(torch.int32)
+            sp = sp.expand(B, S).contiguous().cuda()
+            pos = torch.full((B,), live - 1 if live else 527, dtype=torch.int32, device="cuda")
+            out, lse = dk.decode_attention_fwd(q, kc, vc, sp, pos, window=window,
+                                               return_lse=True)
+            want, want_lse = ref.decode_attention_ref(q, kc, vc, sp, pos, window=window,
+                                                      return_lse=True)
+            tag = f"decode{(B, NKV, G, S, D)} window={window} live={live} {dtype} +lse"
+            _compare(torch, tag, out, want, dtype)
+            _compare(torch, tag + " lse", lse, want_lse, torch.float32)
+            check(torch.equal(out, dk.decode_attention_fwd(q, kc, vc, sp, pos, window=window)),
+                  f"{tag}: out differs from the call without the LSE")
+            if not live:
+                check(bool((lse == -1e30).all()), f"{tag}: LSE {lse.flatten()[:4]} with no "
+                      "valid slot, want the -1e30 sentinel")
+            n += 1
+    return n
+
+
+def _decode_row(torch, gen, B, NKV, G, D, S_cache, valid, label, lse=False):
     """The ring decode at one decode step of a served batch: q (B, NKV, G, D)
     over a (B, S_cache, NKV, D) ring cache whose first ``valid`` slots are
     live; kernel vs plain vs SDPA vs bound, and the output bitwise the same
-    over five calls."""
+    over five calls.  With ``lse`` the kernel and the plain version also
+    return the rows' log-sum-exp."""
     from repro_torch.kernels import cost, ref
     from repro_torch.kernels import decode_attention as dk
 
@@ -1716,27 +1774,33 @@ def _decode_row(torch, gen, B, NKV, G, D, S_cache, valid, label):
     pos = torch.full((B,), valid - 1, dtype=torch.int32, device="cuda")
 
     def kernel():
-        return dk.decode_attention_fwd(qd, kc, vc, sp, pos)
+        return dk.decode_attention_fwd(qd, kc, vc, sp, pos, return_lse=lse)
 
-    got = kernel()
-    err = _compare(torch, f"decode full width ({label})", got,
-                   ref.decode_attention_ref(qd, kc, vc, sp, pos), bf16)
-    check(all(torch.equal(got, kernel()) for _ in range(5)),
+    def plain():
+        return ref.decode_attention_ref(qd, kc, vc, sp, pos, return_lse=lse)
+
+    got, want = kernel(), plain()
+    err = _compare(torch, f"decode full width ({label})", got[0] if lse else got,
+                   want[0] if lse else want, bf16)
+    if lse:
+        _compare(torch, f"decode full width ({label}) lse", got[1], want[1], torch.float32)
+    check(all(torch.equal(got[0] if lse else got, kernel()[0] if lse else kernel())
+              for _ in range(5)),
           f"decode full width ({label}): output differs from run to run")
     heads, n_split, chunk = dk.split_plan(B, NKV, G, S_cache, _sm_count(torch))
     blocks = n_split * B * NKV * -(-G // heads)
     mask = (sp >= 0) & (sp <= pos[:, None])
     bound_ms, bound_by = cost.decode_work(B, NQ, NKV, D, S_cache, qd.element_size(),
-                                          B * valid).bound()
+                                          B * valid, lse=lse).bound()
     return dict(
         name="decode_attention_fwd", route="cuda",
         source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:88", max_abs_err=err,
         shape=f"q {tuple(qd.shape)} cache {(B, S_cache, NKV, D)} {valid} live slots bf16 "
-              f"({label}: {blocks} blocks, {heads} heads x {n_split} chunks of {chunk}; "
-              "bitwise stable)",
+              f"{'+lse ' if lse else ''}({label}: {blocks} blocks, {heads} heads x {n_split} "
+              f"chunks of {chunk}; bitwise stable)",
         ms=time_ms(torch, kernel), eager_ms=time_ms(torch, kernel, graph=False),
-        plain_ms=time_ms(torch, lambda: ref.decode_attention_ref(qd, kc, vc, sp, pos)),
+        plain_ms=time_ms(torch, plain),
         library_ms=time_ms(torch, lambda: _sdpa(
             torch, qd.reshape(B, NQ, 1, D), kc, vc, attn_mask=mask[:, None, None, :])),
         bound_ms=bound_ms, bound_by=bound_by,
@@ -2713,7 +2777,8 @@ def phase_process(torch, host_variants, plain_tokens, card):
 
         def killer():
             # Kill worker 0 while a batch is in flight on it: rows in flight
-            # for 50 ms and still in flight (a tier-l batch takes ~0.5 s).
+            # for 50 ms and still in flight (a tier-l batch is a prefill and
+            # GEN decode steps).
             while not drained.is_set():
                 if victim.inflight_rows > 0:
                     time.sleep(0.05)
@@ -4192,18 +4257,26 @@ def _tp_state(torch, cfg, shardings, dtype):
 
 
 @contextlib.contextmanager
-def _counting_collectives(dist, last=True):
+def _counting_collectives(dist, last=True, seconds=None):
     """Within the block (when ``last``), the result bytes on this rank of
     every all-reduce, all-gather and reduce-scatter, by kind (the
-    convention of ``launch/roofline.py``), into the dict it yields."""
+    convention of ``launch/roofline.py``), into the dict it yields; with
+    a ``seconds`` dict, the host seconds spent in each call too, by kind
+    (a blocking call's: the wait for the kernels before it included)."""
     traffic, names = {}, {"all_reduce": "all-reduce", "all_gather_into_tensor": "all-gather",
                           "reduce_scatter_tensor": "reduce-scatter"}
     calls = {name: getattr(dist, name) for name in names}
 
     def counted(name):
         def call(out, *args, **kw):
-            traffic[names[name]] = traffic.get(names[name], 0) + out.numel() * out.element_size()
-            return calls[name](out, *args, **kw)
+            kind = names[name]
+            traffic[kind] = traffic.get(kind, 0) + out.numel() * out.element_size()
+            t0 = time.perf_counter()
+            try:
+                return calls[name](out, *args, **kw)
+            finally:
+                if seconds is not None:
+                    seconds[kind] = seconds.get(kind, 0.0) + time.perf_counter() - t0
         return call
 
     try:
@@ -4352,19 +4425,25 @@ def _tp_case(torch, rank, arch, shape, over):
     return out
 
 
-def _tp_rank(torch, rank, store, out_dir):
-    """One of the phase's ``TP_WORLD`` processes: a gloo group over a
-    FileStore, every case of ``TP_CASES`` in turn; writes its readings to
+def _tp_rank(torch, rank, world, store, out_dir, serve=False):
+    """One process of ``phase_tensor_parallel`` (every case of ``TP_CASES``)
+    or, with ``serve``, of ``phase_tensor_parallel_serve`` (the cases of
+    ``TPS_CASES`` whose mesh has ``world`` ranks): a gloo group over a
+    FileStore, the cases in turn; writes its readings to
     ``OUT_DIR/rank{rank}.json``."""
     import torch.distributed as dist
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.set_device(0)
-    dist.init_process_group("gloo", store=dist.FileStore(store, TP_WORLD), rank=rank,
-                            world_size=TP_WORLD)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
     try:
-        cases = [_tp_case(torch, rank, arch, shape, over) for arch, shape, over in TP_CASES]
+        if serve:
+            cases = [_tps_case(torch, rank, *case) for case in TPS_CASES
+                     if case[1][0] * case[1][1] == world]
+        else:
+            cases = [_tp_case(torch, rank, arch, shape, over) for arch, shape, over in TP_CASES]
     finally:
         dist.destroy_process_group()
     Path(out_dir, f"rank{rank}.json").write_text(json.dumps(cases))
@@ -4400,6 +4479,45 @@ def _tp_roofline(cfg, shape):
     return total, 1e3 * sum(total.values()) / rf.HW["link_bw"]
 
 
+def _run_ranks(world, extra, label):
+    """``world`` processes of this script (``--tp-rank``; ``extra`` more
+    arguments) over a gloo group on a FileStore; fails with their logs if
+    one fails or they outlast TP_RANK_TIMEOUT_S.  Returns (each rank's
+    JSON readings, wall seconds with start-up)."""
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        env = dict(os.environ, PYTHONUNBUFFERED="1",
+                   PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+        logs = [open(Path(d, f"rank{r}.log"), "w") for r in range(world)]
+        t0 = time.perf_counter()
+        for r in range(world):
+            _SPAWNED.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--tp-rank", str(r),
+                 "--tp-world", str(world), "--tp-store", str(Path(d, "store")), "--tp-out", d,
+                 *extra],
+                stdout=logs[r], stderr=subprocess.STDOUT, env=env, cwd=str(ROOT)))
+        procs, failed = list(_SPAWNED), None
+        while any(p.poll() is None for p in procs) and failed is None:
+            time.sleep(0.5)
+            failed = next((r for r, p in enumerate(procs) if p.poll() not in (None, 0)), None)
+            if time.perf_counter() - t0 > TP_RANK_TIMEOUT_S:
+                failed = "timeout"
+        for p in procs:
+            p.kill()
+            p.wait()
+        _SPAWNED.clear()
+        for f in logs:
+            f.close()
+        wall = time.perf_counter() - t0
+        texts = [Path(d, f"rank{r}.log").read_text() for r in range(world)]
+        if failed is not None:
+            fail(f"{label}: rank {failed} failed after {wall:.1f}s:\n"
+                 + "\n".join(f"--- rank {r}\n{t[-3000:]}" for r, t in enumerate(texts)))
+        return [json.loads(Path(d, f"rank{r}.json").read_text()) for r in range(world)], wall
+
+
 def phase_tensor_parallel(torch, card):
     """The attention and MoE stacks trained tensor-parallel: ``TP_WORLD``
     processes of this script on the one card, a gloo group over a
@@ -4421,39 +4539,9 @@ def phase_tensor_parallel(torch, card):
     step ms, GiB held and peak, and the bytes each rank's collectives
     returned in the last step beside ``launch/roofline.py``'s reckoning for
     that mesh.  Returns (launches summed over the ranks, readings)."""
-    import os
-    import tempfile
-
     import numpy as np
 
-    with tempfile.TemporaryDirectory() as d:
-        env = dict(os.environ, PYTHONUNBUFFERED="1",
-                   PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
-        logs = [open(Path(d, f"rank{r}.log"), "w") for r in range(TP_WORLD)]
-        t0 = time.perf_counter()
-        for r in range(TP_WORLD):
-            _SPAWNED.append(subprocess.Popen(
-                [sys.executable, str(Path(__file__).resolve()), "--tp-rank", str(r),
-                 "--tp-store", str(Path(d, "store")), "--tp-out", d],
-                stdout=logs[r], stderr=subprocess.STDOUT, env=env, cwd=str(ROOT)))
-        procs, failed = list(_SPAWNED), None
-        while any(p.poll() is None for p in procs) and failed is None:
-            time.sleep(0.5)
-            failed = next((r for r, p in enumerate(procs) if p.poll() not in (None, 0)), None)
-            if time.perf_counter() - t0 > TP_RANK_TIMEOUT_S:
-                failed = "timeout"
-        for p in procs:
-            p.kill()
-            p.wait()
-        _SPAWNED.clear()
-        for f in logs:
-            f.close()
-        wall = time.perf_counter() - t0
-        texts = [Path(d, f"rank{r}.log").read_text() for r in range(TP_WORLD)]
-        if failed is not None:
-            fail(f"tensor parallel: rank {failed} failed after {wall:.1f}s:\n"
-                 + "\n".join(f"--- rank {r}\n{t[-3000:]}" for r, t in enumerate(texts)))
-        ranks = [json.loads(Path(d, f"rank{r}.json").read_text()) for r in range(TP_WORLD)]
+    ranks, wall = _run_ranks(TP_WORLD, [], "tensor parallel")
     print(f"[tensor parallel] {TP_WORLD} ranks on one card over gloo (FileStore), "
           f"{wall:.1f}s with start-up; collectives: plain torch.distributed calls on the CUDA "
           "tensors, none staged through host memory by the port (gloo copies CUDA tensors "
@@ -4542,6 +4630,292 @@ def phase_tensor_parallel(torch, card):
               f"{m_tp['grad_norm']} are not its gradient's {norm}")
         readings[arch] = dict(mesh=list(shape), ranks=per_rank, roofline_bytes=reckoned,
                               roofline_collective_ms=coll_ms)
+    return counts, readings
+
+
+# ---------------------------------------------------------------------------
+# Phase 11b: tensor-parallel serving, the ranks on the one card.
+# ---------------------------------------------------------------------------
+# (arch, (data, model) mesh, rule table, layers): full width, depth cut as
+# the training phase cuts it (recurrentgemma-2b keeps one period of its
+# (recurrent, recurrent, local) pattern; its 10 heads split over 2 ranks,
+# not 4).  olmoe-1b-7b's one MoE group is whole on both data ranks
+# (RULES_2D_DEC leaves ``moe_groups`` unsplit).
+TPS_CASES = (("llama3-8b", (1, 4), "RULES_2D", SHARDED_LAYERS),
+             ("gemma-2b", (1, 4), "RULES_2D", SHARDED_LAYERS),
+             ("olmoe-1b-7b", (2, 2), "RULES_2D_DEC", SHARDED_LAYERS),
+             ("recurrentgemma-2b", (1, 2), "RULES_2D", 3))
+# Batch, prompt, max_len (the ring: 2048 slots a rank at 4 ranks, so ranks
+# 1-3 hold no valid slot while the prompt and the decoded tokens fill rank
+# 0's), decode steps.
+TPS_BATCH, TPS_PROMPT, TPS_MAX_LEN, TPS_STEPS = 4, 512, 8192, 16
+TPS_LOGIT_BOUND = 3.0  # times the unsharded bf16 run's whole-run error against float64
+
+
+def _tps_case(torch, rank, arch, shape, table, layers):
+    """One serving case on this rank of a (data, model) = ``shape`` mesh
+    under ``table``, the weights seed 0's bf16 ``init_params`` placed on
+    their shardings (DTensors, ``param_axes``), the prompt seeded, greedy
+    decoding teacher-forced where said:
+
+    1. rank 0 alone, float64 (the weights widened, the plain kernels),
+       unsharded: the reference tokens and logits;
+    2. every rank, float64 on the mesh: its greedy tokens;
+    3. every rank, bf16 on the mesh through the kernels, fed the reference
+       tokens: the launches, the prefill and step ms, the collectives' bytes
+       of the last decode step, the cache's GiB; then one more step whose
+       first decode-attention call (this rank's slots, every head, with the
+       LSE) is held to the plain version on the same inputs;
+    4. rank 0 alone, bf16 unsharded through the kernels, fed the reference
+       tokens; then each step's relative Frobenius distance of the logits
+       from float64, both bf16 runs."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from repro_torch.configs.archs import get_config
+    from repro_torch.distributed import api
+    from repro_torch.distributed import tensor_parallel as tpm
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.training import place_state
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    mesh = make_mesh(shape, ("data", "model"))
+    rules = api.AxisRules(mesh, getattr(api, table))
+    tp = shape[1]
+    B = TPS_BATCH
+    prompt = torch.randint(0, cfg.vocab_size, (B, TPS_PROMPT),
+                           generator=torch.Generator().manual_seed(1)).to("cuda", torch.int32)
+    base = init = None
+
+    def weights(dtype, placed):
+        nonlocal base
+        if base is None:
+            base = T.init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+        wide = (lambda p: p.to(torch.promote_types(p.dtype, getattr(torch, dtype))))
+        if not placed:
+            return tree_map(wide, base)
+        return tree_map(lambda p, ax: place_state(wide(p), api.named_sharding(mesh, rules, ax)),
+                        base, T.param_axes(cfg))
+
+    def serve(dtype, params, tokens=None, sharded=True, timed=False):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        ctx = api.axis_rules(rules) if sharded else contextlib.nullcontext()
+        ms, traffic, coll_s = [], {}, {}
+        with torch.no_grad(), ctx:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cache, logits = T.prefill(c, params, {"tokens": prompt}, TPS_MAX_LEN)
+            torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+            outs, toks = [logits], []
+            pos = torch.full((B,), TPS_PROMPT, dtype=torch.int32, device="cuda")
+            for i in range(TPS_STEPS):
+                toks.append(tokens[i] if tokens is not None
+                            else logits.argmax(-1).to(torch.int32))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                last = timed and i == TPS_STEPS - 1
+                with _counting_collectives(dist, last=last, seconds=coll_s) as t:
+                    logits, cache = T.decode_step(c, params, cache, toks[-1], pos + i)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                traffic.update(t)
+                outs.append(logits)
+        return dict(logits=torch.stack(outs), tokens=torch.stack(toks), cache=cache,
+                    prefill_ms=prefill_ms, step_ms=ms, traffic=traffic,
+                    coll_ms={k: v * 1e3 for k, v in coll_s.items()})
+
+    out = dict(arch=arch, mesh=list(shape), table=table, layers=layers,
+               heads=dataclasses.asdict(tpm.local_heads(cfg, mesh.get_local_rank("model"), tp)))
+    seconds, t_case = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t_case
+        seconds[name] = round(time.perf_counter() - t_case, 1)
+        t_case = time.perf_counter()
+
+    # 1. The float64 reference, rank 0 alone.
+    ref64 = torch.zeros((TPS_STEPS, B), dtype=torch.int32, device="cuda")
+    if rank == 0:
+        with plain_kernels():
+            exact = serve("float64", weights("float64", False), sharded=False)
+        ref64 = exact["tokens"]
+        del exact["cache"]
+        torch.cuda.empty_cache()
+    ref64 = tpm.all_reduce(ref64, dist.group.WORLD)  # rank 0's tokens on every rank
+    lap("float64 unsharded")
+    # 2. float64 on the mesh, greedy.
+    with plain_kernels():
+        run = serve("float64", weights("float64", True))
+    out["f64_tokens_equal"] = bool(torch.equal(run["tokens"], ref64))
+    out["f64_tokens"] = run["tokens"].tolist() if rank == 0 else None
+    del run
+    torch.cuda.empty_cache()
+    lap("float64 sharded")
+    # 3. bf16 on the mesh through the kernels, teacher-forced.
+    params = weights("bfloat16", True)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    run = serve("bfloat16", params, tokens=ref64, timed=True)
+    out["launches"] = ops.launch_counts()
+    out.update(prefill_ms=run["prefill_ms"], step_ms=run["step_ms"], traffic=run["traffic"],
+               coll_ms=run["coll_ms"],
+               cache_gib=sum(t.numel() * t.element_size() for t in tree_leaves(run["cache"]))
+               / 2**30, peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    calls, kernel = [], ops._decode.decode_attention_fwd
+
+    def recording(*args, **kw):
+        if not calls:
+            calls.append(([a.clone() for a in args], dict(kw)))
+        return kernel(*args, **kw)
+
+    ops._decode.decode_attention_fwd = recording
+    try:
+        with torch.no_grad(), api.axis_rules(rules):
+            T.decode_step(dataclasses.replace(cfg, dtype="bfloat16"), params, run["cache"],
+                          ref64[-1], torch.full((B,), TPS_PROMPT + TPS_STEPS, dtype=torch.int32,
+                                                device="cuda"))
+    finally:
+        ops._decode.decode_attention_fwd = kernel
+    if calls:  # a stack with attention layers
+        args, kw = calls[0]
+        check(kw.get("return_lse") is True, f"{arch}: the mesh's decode call {kw} lacks the LSE")
+        got, want = kernel(*args, **kw), ref.decode_attention_ref(*args, **kw)
+        tag = f"tensor-parallel decode {arch} rank {rank} q {tuple(args[0].shape)}"
+        # The LSE to the f32 dot products' rounding bound (D ulps of the
+        # largest sum of |q||k| a row's scores take): the model's scores
+        # reach magnitudes where an absolute 1e-4 is a few ulps.
+        D = args[0].shape[-1]
+        top = float(torch.einsum("bhgd,bhsd->bhgs", args[0].float().abs(),
+                                 args[1].float().abs()).amax()) * D**-0.5
+        lse_tol = 1e-4 + D * 2.0**-24 * top
+        lse_err = float((got[1] - want[1]).abs().max())
+        check(lse_err <= lse_tol, f"{tag}: LSE max |err| {lse_err:.3g} beyond {lse_tol:.3g}")
+        out["decode_check"] = dict(
+            q=list(args[0].shape), slots=args[1].shape[2],
+            live_slots=int((args[3] >= 0).sum()) // B,
+            out_err=_compare(torch, tag, got[0], want[0], torch.bfloat16),
+            lse_err=lse_err, lse_tol=lse_tol, lse_min=float(got[1].min()),
+            lse_max=float(got[1].max()))
+    tp_logits = run["logits"]
+    del run, params, calls
+    torch.cuda.empty_cache()
+    lap("bf16 sharded")
+    # 4. bf16 unsharded, rank 0 alone; the logit errors.
+    if rank == 0:
+        plain = serve("bfloat16", weights("bfloat16", False), tokens=ref64, sharded=False)
+
+        def rel(x):  # each step's, then the whole run's
+            want = exact["logits"]
+            return ([float((a.double() - b).norm() / b.norm()) for a, b in zip(x, want)],
+                    float((x.double() - want).norm() / want.norm()))
+
+        (err_tp, all_tp), (err_plain, all_plain) = rel(tp_logits), rel(plain["logits"])
+        out.update(err_tp=err_tp, err_plain=err_plain, err_tp_run=all_tp,
+                   err_plain_run=all_plain,
+                   plain_prefill_ms=plain["prefill_ms"], plain_step_ms=plain["step_ms"],
+                   argmax_agree=float((tp_logits.argmax(-1) == plain["logits"].argmax(-1))
+                                      .float().mean()))
+        del plain, exact
+    del tp_logits, base
+    torch.cuda.empty_cache()
+    dist.barrier()
+    lap("bf16 unsharded")
+    out["seconds"] = seconds
+    return out
+
+
+def phase_tensor_parallel_serve(torch, card):
+    """Serving on a split ``model`` axis: for each case of ``TPS_CASES``, its
+    mesh's ranks as processes of this script on the one card over gloo
+    (``_tps_case``): prefill of ``TPS_BATCH`` x ``TPS_PROMPT`` tokens into a
+    ``TPS_MAX_LEN`` ring split over the ranks' slots, then ``TPS_STEPS``
+    decode steps, each rank's decode kernel over its slots for every head
+    with the LSE, the rows folded across the ranks.  Checks: float64 tokens
+    on the mesh equal to the unsharded float64 tokens; the bf16 logits of
+    every step (teacher-forced by those tokens) within ``TPS_LOGIT_BOUND``
+    times the unsharded bf16 run's relative Frobenius distance from
+    float64 over the whole run, plus REL_FLOOR (per step, 4 rows, a MoE
+    router's near-tie that one run's rounding flips and the other's does
+    not moves a step's error 4x: olmoe-1b-7b's step 3, 0.254 against
+    0.058; the steps are printed); each rank's launches the path's (a flash forward per
+    attention layer and a scan per recurrent layer in the prefill, a decode
+    per attention layer and step, norms) and no plain version; each rank's
+    decode (out, lse) within tolerance of the plain version, ranks with no
+    valid slot included (LSE -1e30).  Prints each rank's launches, step ms,
+    cache GiB and the bytes its collectives returned in a decode step.
+    Returns (launches summed over the ranks, readings)."""
+    from repro_torch.configs.archs import get_config
+
+    counts, readings, walls = {}, {}, []
+    for world in sorted({m[0] * m[1] for _, m, _, _ in TPS_CASES}, reverse=True):
+        ranks, wall = _run_ranks(world, ["--tp-serve"], "tensor parallel serve")
+        walls.append(round(wall, 1))
+        cases = [c for c in TPS_CASES if c[1][0] * c[1][1] == world]
+        for i, (arch, shape, table, layers) in enumerate(cases):
+            import dataclasses
+
+            cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+            kinds = cfg.layer_kinds()
+            n_attn = sum(k in ("attn", "local", "moe") for k in kinds)
+            n_rec = kinds.count("recurrent")
+            want = dict(flash_attention_fwd=n_attn, decode_attention_fwd=n_attn * TPS_STEPS,
+                        rglru_scan_fwd=n_rec, decode_attention_paged_fwd=0)
+            per_rank = [r[i] for r in ranks]
+            head = per_rank[0]
+            for r, c in enumerate(per_rank):
+                for k, n in c["launches"].items():
+                    counts[k] = counts.get(k, 0) + n
+                check(all(c["launches"][k] == n for k, n in want.items())
+                      and c["launches"]["rms_norm_fwd"] > 0,
+                      f"tensor parallel serve {arch}: rank {r} launched {c['launches']}, want "
+                      f"{want} and the norm")
+                check(c["f64_tokens_equal"], f"tensor parallel serve {arch}: rank {r}'s float64 "
+                      "tokens on the mesh differ from the unsharded float64 tokens")
+            ratio = head["err_tp_run"] / max(head["err_plain_run"], REL_FLOOR)
+            print(f"[tensor parallel serve] {arch} on a (data, model) = {tuple(shape)} mesh, "
+                  f"{table}, full width, {layers} layers, batch {TPS_BATCH}, prompt {TPS_PROMPT}, "
+                  f"max_len {TPS_MAX_LEN}, {TPS_STEPS} decode steps: rank 0 heads "
+                  f"{head['heads']}; float64 tokens on the mesh == unsharded "
+                  f"({head['f64_tokens'][-1]} last); bf16 logits vs float64 (relative "
+                  f"Frobenius), the whole run sharded {head['err_tp_run']:.5f} vs unsharded "
+                  f"{head['err_plain_run']:.5f}, ratio {ratio:.3f} (bound {TPS_LOGIT_BOUND}x + "
+                  f"{REL_FLOOR}); per step sharded {[round(x, 5) for x in head['err_tp']]} vs "
+                  f"unsharded {[round(x, 5) for x in head['err_plain']]}; argmax agreement "
+                  f"{head['argmax_agree']:.4f}; card {card}", flush=True)
+            print(f"[tensor parallel serve] {arch}: launches per rank "
+                  f"{[{k: c['launches'][k] for k in HYBRID_PATH_KERNELS} for c in per_rank]}; "
+                  f"prefill ms per rank {[round(c['prefill_ms'], 1) for c in per_rank]} "
+                  f"(unsharded {head['plain_prefill_ms']:.1f}); decode step ms per rank, median "
+                  f"{[round(statistics.median(c['step_ms']), 2) for c in per_rank]} (unsharded "
+                  f"{statistics.median(head['plain_step_ms']):.2f}); cache GiB per rank "
+                  f"{[round(c['cache_gib'], 4) for c in per_rank]}, peak GiB "
+                  f"{[round(c['peak_gib'], 2) for c in per_rank]}; a decode step's collectives, "
+                  f"result bytes per rank {[c['traffic'] for c in per_rank]}; host ms inside "
+                  f"collectives over the {TPS_STEPS} steps, rank 0 "
+                  f"{ {k: round(v, 1) for k, v in head['coll_ms'].items()} } of "
+                  f"{sum(head['step_ms']):.1f}; rank 0's seconds "
+                  f"{head['seconds']}; card {card}", flush=True)
+            for r, c in enumerate(per_rank):
+                d = c.get("decode_check")
+                if d is not None:
+                    print(f"[tensor parallel serve] {arch} rank {r}: decode kernel q {d['q']} over "
+                          f"{d['slots']} slots ({d['live_slots']} live) with the LSE vs the plain "
+                          f"version, out max|err| {d['out_err']:.3g}, lse {d['lse_err']:.3g} "
+                          f"(bound {d['lse_tol']:.3g}), lse in [{d['lse_min']:.4g}, "
+                          f"{d['lse_max']:.4g}]", flush=True)
+            check(head["err_tp_run"] <= TPS_LOGIT_BOUND * head["err_plain_run"] + REL_FLOOR,
+                  f"tensor parallel serve {arch}: bf16 logits {head['err_tp_run']} (relative, "
+                  f"the whole run) from float64, beyond {TPS_LOGIT_BOUND}x the unsharded run's "
+                  f"{head['err_plain_run']} + {REL_FLOOR}")
+            readings[arch] = dict(mesh=list(shape), table=table, ranks=per_rank)
+    print(f"[tensor parallel serve] ranks on one card over gloo (FileStore), {walls} s with "
+          f"start-up per spawn; collectives are plain torch.distributed calls on the CUDA "
+          f"tensors (gloo stages them through host memory; none is NCCL's); card {card}",
+          flush=True)
     return counts, readings
 
 
@@ -4902,8 +5276,9 @@ def _release(torch, label, clear_workspaces=True):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--tier-l-layers", type=int, default=40,
-                    help="tier-l depth (qwen3-14b has 40); width is never cut")
+    ap.add_argument("--tier-l-layers", type=int, default=TIER_L_LAYERS,
+                    help=f"tier-l depth (qwen3-14b has 40; default {TIER_L_LAYERS}); width is "
+                    "never cut")
     ap.add_argument("--profile", action="store_true",
                     help="profile one tier-l generate per backend and batch 1 / 4 after "
                     "the serve phases and one tier-rg generate at batch 4 after the hybrid "
@@ -4913,6 +5288,8 @@ def main(argv=None) -> int:
     ap.add_argument("--tp-rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--tp-store", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--tp-out", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-world", type=int, default=TP_WORLD, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-serve", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -4920,9 +5297,9 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(SRC))
     import torch
 
-    if args.tp_rank is not None:  # one rank of phase_tensor_parallel
+    if args.tp_rank is not None:  # one rank of phase_tensor_parallel(_serve)
         _watchdog(TP_RANK_TIMEOUT_S)
-        _tp_rank(torch, args.tp_rank, args.tp_store, args.tp_out)
+        _tp_rank(torch, args.tp_rank, args.tp_world, args.tp_store, args.tp_out, args.tp_serve)
         return 0
     t_start = time.perf_counter()
 
@@ -5024,6 +5401,9 @@ def main(argv=None) -> int:
     tools.update(phase_train_tools(torch, card, train[gemma]["median_step_ms"]))
     mark("phase_tensor_parallel")
     phase_counts["tensor parallel"], tools["tensor_parallel"] = phase_tensor_parallel(torch, card)
+    mark("phase_tensor_parallel_serve")
+    phase_counts["tensor parallel serve"], serve_results["tensor parallel"] = (
+        phase_tensor_parallel_serve(torch, card))
     mark("phi3 command")
     phase_counts["train command phi3"], train["phi3 command"] = phase_train_cli(torch, card)
     mark(f"{MOE_ARCH} train")

@@ -125,10 +125,12 @@ def flash_bwd_work(B, NQ, NKV, S, D, itemsize, pairs) -> Work:
     return Work(flops=10 * NQ * D * pairs, bytes=nbytes)
 
 
-def decode_work(B, NQ, NKV, D, S_cache, itemsize, live) -> Work:
+def decode_work(B, NQ, NKV, D, S_cache, itemsize, live, lse: bool = False) -> Work:
     """One query per row against a ring of ``S_cache`` slots; ``live``: the
-    live keys summed over the rows.  int32 slot positions and positions."""
-    nbytes = itemsize * (2 * B * NQ * D + 2 * live * NKV * D) + 4 * B * S_cache + 4 * B
+    live keys summed over the rows.  int32 slot positions and positions;
+    with ``lse`` an f32 log-sum-exp per (row, query head) written too."""
+    nbytes = (itemsize * (2 * B * NQ * D + 2 * live * NKV * D) + 4 * B * S_cache + 4 * B
+              + (4 * B * NQ if lse else 0))
     return Work(flops=4 * NQ * D * live, bytes=nbytes)
 
 

@@ -68,6 +68,13 @@
 // merges to the uniform mean of v, as the Pallas kernels and the plain
 // versions give.
 //
+// The ring entry point can also write each row's log-sum-exp of its scaled
+// scores, M + log L from the merge it already does (no extra pass over the
+// cache): a tensor-parallel decode runs the kernel over each rank's slot
+// slice and folds the ranks' rows by it.  A slice with no valid slot gives
+// -1e30 (the sentinel's; the key count's log is lost to rounding), so its
+// weight in that fold is exactly 0.
+//
 // Semantics match the Pallas kernels: masked scores use the finite
 // sentinel -1e30 (a fully masked row is the mean of v), P.V stays in f32
 // and l is clamped at 1e-30.  Caches and pools are addressed through
@@ -97,6 +104,7 @@ struct Args {
   int heads, n_split, chunk;
   float *part_acc, *part_ml;
   int* tickets;
+  float* lse;  // (B, NKV, G) f32 log-sum-exp of each row's scaled scores, or null
 };
 
 // ===========================================================================
@@ -220,7 +228,8 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ index,
                     const int* __restrict__ pos, T* __restrict__ out,
                     float* __restrict__ part_acc, float* __restrict__ part_ml,
-                    int* __restrict__ tickets, int NKV, int G, int S, int page, int n_gz,
+                    int* __restrict__ tickets, float* __restrict__ lse, int NKV, int G, int S,
+                    int page, int n_gz,
                     int chunk, Strides3 qs, Strides3 ks, Strides3 vs, long long index_sb,
                     Strides3 os, int window, float scale) {
   using Gm = Geo<T, D>;
@@ -446,6 +455,10 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       L += __ldcg(ml + 1) * f;
     }
     l_s[g] = fmaxf(L, 1e-30f);
+    // The row's log-sum-exp from the same fold: -1e30 (+ log of the key
+    // count, lost to rounding) when no key is valid, as the plain version's
+    // logsumexp over the sentinel scores gives.
+    if (lse != nullptr) lse[((long long)b * NKV + h) * G + g0 + g] = M + logf(l_s[g]);
   }
   __syncthreads();
   // Four features per thread and step (16-byte loads), chunks in order.
@@ -498,7 +511,8 @@ cudaError_t launch(const Args& a) {
   return with_heads(a.heads, [&](auto gp) {
     decode_split_kernel<T, D, decltype(gp)::value, PAGED><<<grid, kThreads, 0, a.stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-        a.index, a.pos, static_cast<T*>(a.out), a.part_acc, a.part_ml, a.tickets, a.NKV, a.G,
+        a.index, a.pos, static_cast<T*>(a.out), a.part_acc, a.part_ml, a.tickets, a.lse, a.NKV,
+        a.G,
         a.S, a.page, n_gz, a.chunk, a.qs, a.ks, a.vs, a.index_sb, a.os, a.window, a.scale);
     return cudaGetLastError();
   });
@@ -574,7 +588,9 @@ using repro_torch::Strides3;
 // (B, NKV, n_split, G, 2) f32, uninitialised; tickets (B, NKV, ceil(G /
 // heads)) int32, zero before the launch and zero again after it (the last
 // block of each group resets its ticket), so one buffer serves every
-// launch on a stream.  Returns cudaGetLastError().
+// launch on a stream.  lse: null, or (B, NKV, G) f32 contiguous, which gets
+// each row's log-sum-exp of its scaled (sentinel-masked) scores, M + log L
+// of the chunk fold.  Returns cudaGetLastError().
 extern "C" int decode_attention_fwd(
     const void* q, const void* k, const void* v, const void* slot_pos, const void* pos,
     void* out, void* part_acc, void* part_ml, void* tickets, int heads, int n_split, int chunk,
@@ -584,7 +600,7 @@ extern "C" int decode_attention_fwd(
     long long v_sb, long long v_sh, long long v_ss,
     long long sp_sb,
     long long o_sb, long long o_sh, long long o_sg,
-    int window, float scale, void* stream) {
+    int window, float scale, void* stream, void* lse) {
   if (B <= 0 || NKV <= 0 || G <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, static_cast<const int*>(slot_pos), static_cast<const int*>(pos), out,
                B, NKV, G, S, 0,
@@ -592,7 +608,7 @@ extern "C" int decode_attention_fwd(
                sp_sb, Strides3{o_sb, o_sh, o_sg}, window, scale,
                static_cast<cudaStream_t>(stream), heads, n_split, chunk,
                static_cast<float*>(part_acc), static_cast<float*>(part_ml),
-               static_cast<int*>(tickets)};
+               static_cast<int*>(tickets), static_cast<float*>(lse)};
   return (int)repro_torch::with_type_and_dim(dtype, D, repro_torch::Launch{a, false});
 }
 
@@ -621,7 +637,7 @@ extern "C" int decode_attention_paged_fwd(
                tb_sb, Strides3{o_sb, o_sh, o_sg}, window, scale,
                static_cast<cudaStream_t>(stream), heads, n_split, 0,
                static_cast<float*>(part_acc), static_cast<float*>(part_ml),
-               static_cast<int*>(tickets)};
+               static_cast<int*>(tickets), nullptr};
   return (int)repro_torch::with_type_and_dim(dtype, D, repro_torch::Launch{a, true});
 }
 

@@ -5,8 +5,10 @@ plain C interface, loaded through :mod:`ctypes` (no PyTorch headers, so a
 build takes seconds).  Libraries land in ``build/repro_torch_kernels/``
 under the checkout, named by a hash of the sources and flags, so a stale
 library is never loaded.  :func:`build` compiles every missing library in
-parallel (one ``nvcc`` per source); :func:`library` builds on first use.
-Nothing is compiled or loaded at import time.
+parallel (one ``nvcc`` per source, each splitting its device code's
+optimisation over the host's cores, which the 126 template instantiations
+of ``decode_attention.cu`` need most); :func:`library` builds on first
+use.  Nothing is compiled or loaded at import time.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ SOURCES = ("flash_attention", "flash_attention_bwd", "decode_attention", "rglru_
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-split-compile=0",  # as many threads as the host has cores
 )
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -89,10 +92,20 @@ def build(names: Iterable[str] = SOURCES, ptxas_verbose: bool = False
         cmd = [_nvcc(), *NVCC_FLAGS, *extra, "-o", str(tmp), str(_CSRC / f"{name}.cu")]
         procs[name] = (time.perf_counter(), tmp, out, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    done = {}
+
+    def wait(name, t0, proc):  # each build's own seconds, whichever ends first
+        done[name] = (*proc.communicate(), time.perf_counter() - t0)
+
+    waiters = [threading.Thread(target=wait, args=(name, t0, proc))
+               for name, (t0, _, _, proc) in procs.items()]
+    for t in waiters:
+        t.start()
+    for t in waiters:
+        t.join()
     results, failures = {}, []
-    for name, (t0, tmp, out, proc) in procs.items():
-        stdout, stderr = proc.communicate()
-        seconds = time.perf_counter() - t0
+    for name, (_, tmp, out, proc) in procs.items():
+        stdout, stderr, seconds = done[name]
         if proc.returncode != 0:
             failures.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{stdout}{stderr}")
             continue

@@ -4,7 +4,9 @@ Replace the Pallas TPU kernels of ``repro/kernels/decode_attention.py``:
 
 * :func:`decode_attention_fwd` (``pallas_call`` at :88, ``_kernel`` at
   :26): one token against a ring cache.  The model passes (B, NKV, S, D)
-  transposed views of its (B, S, NKV, HD) ring cache.
+  transposed views of its (B, S, NKV, HD) ring cache.  With
+  ``return_lse`` it also returns each row's f32 log-sum-exp, which a
+  tensor-parallel decode folds the ranks' slot slices by.
 * :func:`decode_attention_paged_fwd` (``pallas_call`` at :207,
   ``_paged_kernel`` at :111): one token against a shared page pool through
   per-row page tables (the continuous tier).  The model passes
@@ -154,7 +156,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = library("decode_attention")
-    lib.decode_attention_fwd.argtypes = [_P] * 9 + [_I] * 9 + [_L] * 13 + [_I, _F, _P]
+    lib.decode_attention_fwd.argtypes = [_P] * 9 + [_I] * 9 + [_L] * 13 + [_I, _F, _P, _P]
     lib.decode_attention_fwd.restype = ctypes.c_int
     lib.decode_attention_paged_fwd.argtypes = [_P] * 9 + [_I] * 9 + [_L] * 13 + [_I, _F, _P]
     lib.decode_attention_paged_fwd.restype = ctypes.c_int
@@ -220,10 +222,13 @@ def _scratch(q, heads: int, n_split: int):
 
 
 def decode_attention_fwd(q, k_cache, v_cache, slot_pos, pos, *, window: int = 0,
-                         scale=None):
+                         scale=None, return_lse: bool = False):
     """q: (B, NKV, G, D); caches: (B, NKV, S, D); slot_pos: (B, S) int32
     (-1 = empty slot); pos: (B,) int32.  Returns (B, NKV, G, D) in q's
-    dtype.  Feature dims (and slot_pos's slot dim) must be contiguous."""
+    dtype; with ``return_lse`` also each row's f32 log-sum-exp of its
+    scaled scores (B, NKV, G), about -1e30 for a row with no valid slot
+    (the chunk fold's ``m + log l``; no extra pass over the cache).  Feature
+    dims (and slot_pos's slot dim) must be contiguous."""
     _check_operands("decode_attention_fwd", q, k_cache, v_cache, slot_pos, pos,
                     ("q", "k_cache", "v_cache", "slot_pos", "pos"))
     B, NKV, G, D = q.shape
@@ -236,6 +241,8 @@ def decode_attention_fwd(q, k_cache, v_cache, slot_pos, pos, *, window: int = 0,
                          f"pos {tuple(pos.shape)} do not match B={B}, S={S}")
     scale = _check_head(D, window, scale, "decode_attention_fwd")
     out = torch.empty((B, NKV, G, D), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, NKV, G), dtype=torch.float32, device=q.device) if return_lse
+           else None)
     if B * NKV * G * S:
         for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache), ("out", out)):
             check_16b("decode_attention_fwd", name, t)  # 16-byte vector loads
@@ -254,11 +261,11 @@ def decode_attention_fwd(q, k_cache, v_cache, slot_pos, pos, *, window: int = 0,
                 *(v_cache.stride(i) for i in range(3)),
                 slot_pos.stride(0),
                 *(out.stride(i) for i in range(3)),
-                int(window), float(scale), stream,
+                int(window), float(scale), stream, None if lse is None else lse.data_ptr(),
             )
         check_launch(lib, err, "decode_attention_fwd")
         launches.add()
-    return out
+    return (out, lse) if return_lse else out
 
 
 def decode_attention_paged_fwd(q, k_pool, v_pool, page_tables, pos, *, window: int = 0,

@@ -243,8 +243,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def decode_attention(q, k_cache, v_cache, slot_pos, pos, *, window: int = 0,
-                     scale=None):
-    """Kernel layout: q (B, NKV, G, D); caches (B, NKV, S, D)."""
+                     scale=None, return_lse: bool = False):
+    """Kernel layout: q (B, NKV, G, D); caches (B, NKV, S, D).  With
+    ``return_lse``: ``(out, lse)``, the rows' log-sum-exp (B, NKV, G), f32
+    (float64 on the plain route for a float64 q)."""
     B, NKV, G, D = q.shape
     S = k_cache.shape[2]
 
@@ -256,14 +258,16 @@ def decode_attention(q, k_cache, v_cache, slot_pos, pos, *, window: int = 0,
             if window:
                 ok &= slot_pos > (pos[:, None] - window)
             live = int(ok.sum())
-        return cost.decode_work(B, NKV * G, NKV, D, S, q.element_size(), live)
+        return cost.decode_work(B, NKV * G, NKV, D, S, q.element_size(), live, lse=return_lse)
 
     args = (q, k_cache, v_cache, slot_pos, pos)
+    kw = dict(window=window, scale=scale, return_lse=return_lse)
     return _dispatch(
         "decode_attention_fwd", q, work,
-        lambda: _decode.decode_attention_fwd(*args, window=window, scale=scale),
-        lambda: ref.decode_attention_ref(*args, window=window, scale=scale),
-        lambda: _empty(q.shape, q))
+        lambda: _decode.decode_attention_fwd(*args, **kw),
+        lambda: ref.decode_attention_ref(*args, **kw),
+        lambda: ((_empty(q.shape, q), _empty((B, NKV, G), q, torch.float32)) if return_lse
+                 else _empty(q.shape, q)))
 
 
 def decode_attention_paged(q, k_pool, v_pool, page_tables, pos, *, window: int = 0,

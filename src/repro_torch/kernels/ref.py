@@ -117,12 +117,15 @@ def attention_bsnd(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def decode_bsnd(q, k_cache, v_cache, slot_pos, pos, *, window: int = 0,
-                scale: Optional[float] = None):
+                scale: Optional[float] = None, return_lse: bool = False):
     """One query token per row against a ring cache, in the model layout.
 
     q: (B, 1, NQ, HD); caches: (B, S, NKV, HD); slot_pos: (B, S) absolute
     position per slot (-1 empty); pos: (B,).  Valid slots satisfy
-    ``0 <= slot_pos <= pos`` (and ``slot_pos > pos - window``).
+    ``0 <= slot_pos <= pos`` (and ``slot_pos > pos - window``).  With
+    ``return_lse`` also the log-sum-exp (B, NQ) of each row's scaled
+    scores, masked ones at the -1e30 sentinel (so about -1e30 for a row
+    with no valid slot), f32 at least.
     """
     B, _, NQ, HD = q.shape
     NKV = k_cache.shape[2]
@@ -139,7 +142,10 @@ def decode_bsnd(q, k_cache, v_cache, slot_pos, pos, *, window: int = 0,
     s = torch.where(ok[:, None, None, None, :], s, torch.full_like(s, _NEG_INF))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", p.to(v_cache.dtype), v_cache)
-    return out.reshape(B, 1, NQ, HD).to(q.dtype)
+    out = out.reshape(B, 1, NQ, HD).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(s, dim=-1).reshape(B, NQ)
+    return out
 
 
 def paged_decode_bsnd(q, k_pool, v_pool, page_tables, pos, *, window: int = 0,
@@ -188,13 +194,18 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def decode_attention_ref(q, k_cache, v_cache, slot_pos, pos, *, window: int = 0,
-                         scale: Optional[float] = None):
-    """Kernel layout: q (B, NKV, G, D); caches (B, NKV, S, D) -> (B, NKV, G, D)."""
+                         scale: Optional[float] = None, return_lse: bool = False):
+    """Kernel layout: q (B, NKV, G, D); caches (B, NKV, S, D) -> (B, NKV, G, D);
+    with ``return_lse`` also the rows' log-sum-exp (B, NKV, G) (see
+    :func:`decode_bsnd`)."""
     B, NKV, G, D = q.shape
     out = decode_bsnd(
         q.reshape(B, 1, NKV * G, D), k_cache.transpose(1, 2),
         v_cache.transpose(1, 2), slot_pos, pos, window=window, scale=scale,
+        return_lse=return_lse,
     )
+    if return_lse:
+        return out[0].reshape(B, NKV, G, D), out[1].reshape(B, NKV, G)
     return out.reshape(B, NKV, G, D)
 
 

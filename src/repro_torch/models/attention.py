@@ -44,18 +44,23 @@ def attention_reference(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def decode_attention(q, k_cache, v_cache, slot_pos, pos, *, window: int = 0,
-                     scale: Optional[float] = None):
+                     scale: Optional[float] = None, return_lse: bool = False):
     """Single-step attention over a ring cache.
 
     q: (B, 1, NQ, HD); caches: (B, S, NKV, HD); slot_pos: (B, S) absolute
-    position per slot (-1 empty); pos: (B,) query positions.
+    position per slot (-1 empty); pos: (B,) query positions.  With
+    ``return_lse`` also each head's log-sum-exp over the slots (B, NQ), f32
+    (about -1e30 where no slot is valid).
     """
     B, _, NQ, HD = q.shape
     NKV = k_cache.shape[2]
     out = ops.decode_attention(
         q.reshape(B, NKV, NQ // NKV, HD), k_cache.transpose(1, 2),
         v_cache.transpose(1, 2), slot_pos, pos, window=window, scale=scale,
+        return_lse=return_lse,
     )
+    if return_lse:
+        return out[0].reshape(B, 1, NQ, HD), out[1].reshape(B, NQ)
     return out.reshape(B, 1, NQ, HD)
 
 

@@ -19,6 +19,14 @@ conv1d (width 4) and the RG-LRU; branches merge multiplicatively and project
 back to d_model.  Parameters and caches keep the JAX package's names,
 shapes and dtypes; functions return new cache values (the model writes
 them into its cache in place).
+
+On a split tensor axis (``tp``) a rank runs its channels of the ``lru``
+width: ``wx`` / ``wy`` / ``conv_*`` / ``lamb`` / the gate biases are its
+columns, ``wo`` and the ``(w, w)`` gates ``gate_a`` / ``gate_x`` its rows.
+So the gate products are rank partial sums, summed over the axis before
+each rank keeps its columns (:meth:`TensorParallel.reduce_columns`), the
+scan runs on the rank's channels (its ``h`` and ``conv_tail`` too), and the
+output projection's partial sums leave the region summed.
 """
 from __future__ import annotations
 
@@ -81,11 +89,15 @@ def _depthwise_conv(x, conv_w, conv_b, tail=None):
     return out + conv_b, new_tail
 
 
-def _gates(params, x):
+def _gates(params, x, tp=None):
     """Decay a and gated input for the RG-LRU, f32.  x: (..., W) f32; the
-    gate weights are cast to f32, as JAX promotes ``f32 @ bf16``."""
-    r = torch.sigmoid(x @ params["gate_a"].float() + params["gate_a_b"])
-    i = torch.sigmoid(x @ params["gate_x"].float() + params["gate_x_b"])
+    gate weights are cast to f32, as JAX promotes ``f32 @ bf16``.  With
+    ``tp``, x is the rank's channels and the gates' rows too."""
+    ga, gx = x @ params["gate_a"].float(), x @ params["gate_x"].float()
+    if tp is not None:  # the rank's columns of the summed products
+        ga, gx = tp.reduce_columns(ga), tp.reduce_columns(gx)
+    r = torch.sigmoid(ga + params["gate_a_b"])
+    i = torch.sigmoid(gx + params["gate_x_b"])
     log_a = -C_CONST * F.softplus(params["lamb"]) * r
     a = torch.exp(log_a)
     # sqrt(1 - a^2) normalizer keeps the state norm bounded.
@@ -93,21 +105,24 @@ def _gates(params, x):
     return a, beta * (i * x)
 
 
-def rglru_apply(cfg, params, x, h0=None, conv_tail=None):
-    """Full-sequence recurrent block.  x: (B, S, D) -> (B, S, D).
+def rglru_apply(cfg, params, x, h0=None, conv_tail=None, tp=None):
+    """Full-sequence recurrent block.  x: (B, S, D) -> (B, S, D); ``tp``:
+    the split tensor axis (see the module docstring).
 
     Returns (out, (h_last, conv_tail)) so prefill can seed decode.
     """
     dtype = x.dtype
+    if tp is not None:
+        x = tp.enter(x)
     y = F.gelu((x @ params["wy"]).float(), approximate="tanh")
     u = x @ params["wx"]
     u, new_tail = _depthwise_conv(u, params["conv_w"], params["conv_b"], conv_tail)
-    a, bx = _gates(params, u.float())
+    a, bx = _gates(params, u.float(), tp)
     if h0 is None:
         h0 = torch.zeros((x.shape[0], a.shape[-1]), dtype=torch.float32, device=x.device)
     h = ops.rglru_scan(a, bx, h0)
     out = (h * y).to(dtype) @ params["wo"]
-    return out, (h[:, -1], new_tail)
+    return (out if tp is None else tp.leave(out)), (h[:, -1], new_tail)
 
 
 def rglru_init_cache(cfg, batch, dtype=torch.float32, device="cuda", lead=()):
@@ -121,14 +136,15 @@ def rglru_init_cache(cfg, batch, dtype=torch.float32, device="cuda", lead=()):
     }
 
 
-def rglru_decode_step(cfg, params, x, cache):
+def rglru_decode_step(cfg, params, x, cache, tp=None):
     """One token.  x: (B, 1, D) -> (B, 1, D); O(1) state update.  Returns
-    (out, {"h", "conv_tail"}) as new tensors."""
+    (out, {"h", "conv_tail"}) as new tensors; with ``tp`` the cache and the
+    new state are the rank's channels."""
     dtype = x.dtype
     y = F.gelu((x @ params["wy"]).float(), approximate="tanh")
     u = x @ params["wx"]
     u, new_tail = _depthwise_conv(u, params["conv_w"], params["conv_b"], cache["conv_tail"])
-    a, bx = _gates(params, u.float())
+    a, bx = _gates(params, u.float(), tp)
     h = a[:, 0] * cache["h"] + bx[:, 0]  # (B, W)
     out = (h[:, None] * y).to(dtype) @ params["wo"]
-    return out, {"h": h, "conv_tail": new_tail}
+    return (out if tp is None else tp.leave(out)), {"h": h, "conv_tail": new_tail}

@@ -53,6 +53,19 @@ order (the blocks of a period, then the periods, then the epilogue) and
 :func:`loss_fn` adds ``0.01 *`` that sum to the cross-entropy.  Serving
 does not sum it (a call with a cache), so a decode step costs what it did.
 
+Serving on a mesh: under ``axis_rules(AxisRules(device_mesh, table))``
+(``RULES_2D`` or ``RULES_2D_DEC``, the JAX package's ``build_cell``),
+:func:`prefill` and :func:`decode_step` take DTensor (or whole) weights
+and the global batch, run this rank's rows of it on this rank's heads,
+``ffn`` / ``expert_ffn`` / ``lru`` channels and vocab columns
+(:mod:`~repro_torch.distributed.tensor_parallel`), and return the global
+logits; the cache is this rank's slice of :func:`cache_axes`' layout: its
+rows, its slots of every ring (``seq_kv``, every kv head) and its channels
+of a recurrent state.  A decode step's attention gathers the new token's q
+and k / v over the heads, writes the ring slot on its owning rank, runs
+the decode kernel over the rank's slots with the log-sum-exp and folds the
+ranks' rows (:func:`_attention_split_cache`).
+
 ``cfg.kv_cache_quant`` keeps the ring caches in int8 with an f32 scale per
 (entry, kv head) (:func:`_kv_quant`: max-abs / 127, round half to even):
 every prefill and decode write is quantised, and a decode step dequantises
@@ -69,10 +82,12 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.distributed import tensor_parallel
+from repro_torch.distributed.api import mesh_axes
 from repro_torch.kernels.flash_attention import HEAD_DIMS
 from repro_torch.models import layers, moe, rglru, xlstm
 from repro_torch.models.attention import (
@@ -81,6 +96,7 @@ from repro_torch.models.attention import (
     paged_decode_attention,
 )
 from repro_torch.models.config import ModelConfig
+from repro_torch.tree import tree_map
 
 __all__ = [
     "check_supported",
@@ -104,6 +120,7 @@ __all__ = [
     "graft_prefill_batch",
     "prefill_cache_width",
     "paged_decode_step",
+    "local_params",
     "SeqContext",
 ]
 
@@ -409,6 +426,9 @@ class SeqContext:
     # here, not read per block, so a period's recompute under remat (on
     # autograd's thread) sees it too.
     tp: Optional[tensor_parallel.TensorParallel] = None
+    # Serving on a mesh (prefill or a ring decode step under the rules):
+    # the batch axes' split, which a MoE block's token groups follow.
+    layout: Optional[tensor_parallel.Layout] = None
 
 
 def _norm(cfg, w, x):
@@ -431,19 +451,28 @@ def _kv_dequant(q, scale, dtype):
     return (q.float() * scale[..., None]).to(dtype)
 
 
+def _qkv(cfg, p, x, ctx: SeqContext, nq: int):
+    """q (B, S, nq, HD) and k / v (B, S, as many kv heads as ``wk`` / ``wv``
+    hold, HD): projected, qk-normed where the config says, rotated."""
+    B, S, _ = x.shape
+    hd = cfg.head_dim
+    q = (x @ p["wq"]).reshape(B, S, nq, hd)
+    k = (x @ p["wk"]).reshape(B, S, -1, hd)
+    v = (x @ p["wv"]).reshape(B, S, -1, hd)
+    if cfg.qk_norm:
+        q = layers.rms_norm(q, p["q_norm"], eps=cfg.norm_eps)
+        k = layers.rms_norm(k, p["k_norm"], eps=cfg.norm_eps)
+    return layers.apply_rope(q, ctx.sin, ctx.cos), layers.apply_rope(k, ctx.sin, ctx.cos), v
+
+
 def _attention(cfg, p, x, ctx: SeqContext, kind: str, cache):
+    if ctx.tp is not None and cache is not None:
+        return _attention_split_cache(cfg, p, x, ctx, kind, cache)
     B, S, _ = x.shape
     hd, nq, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     if ctx.tp is not None:  # this rank's q heads and the kv heads they read
         x, p, nq, nkv = ctx.tp.attention_inputs(cfg, p, x)
-    q = (x @ p["wq"]).reshape(B, S, nq, hd)
-    k = (x @ p["wk"]).reshape(B, S, nkv, hd)
-    v = (x @ p["wv"]).reshape(B, S, nkv, hd)
-    if cfg.qk_norm:
-        q = layers.rms_norm(q, p["q_norm"], eps=cfg.norm_eps)
-        k = layers.rms_norm(k, p["k_norm"], eps=cfg.norm_eps)
-    q = layers.apply_rope(q, ctx.sin, ctx.cos)
-    k = layers.apply_rope(k, ctx.sin, ctx.cos)
+    q, k, v = _qkv(cfg, p, x, ctx, nq)
     window = cfg.window if kind == "local" else 0
 
     if ctx.decode:
@@ -480,21 +509,81 @@ def _attention(cfg, p, x, ctx: SeqContext, kind: str, cache):
         out = flash_attention(q, k, v, causal=cfg.causal, window=window,
                               prefix_len=ctx.prefix_len)
         if cache is not None:
-            # Prefill cache write: prompt positions 0..S-1 land in one or two
-            # static slices of the ring (the tail of the prompt if S > ring).
-            sc = cache["k"].shape[1]
-            keep = min(S, sc)
-            start = S - keep
-            slot0 = start % sc
-            first = min(keep, sc - slot0)
-            writes = _ring_writes(cfg, k, v)
-            writes["slot_pos"] = ctx.positions.to(cache["slot_pos"].dtype)
-            for key, t in writes.items():
-                cache[key][:, slot0:slot0 + first] = t[:, start:start + first]
-                if keep > first:  # wrapped remainder
-                    cache[key][:, :keep - first] = t[:, start + first:]
+            _prefill_ring(cfg, cache, k, v, ctx.positions, cache["k"].shape[1], 0)
     out = out.reshape(B, S, nq * hd) @ p["wo"]
     return out if ctx.tp is None else ctx.tp.leave(out)
+
+
+def _prefill_ring(cfg, cache, k, v, positions, ring: int, lo: int):
+    """The prefill's cache write: prompt positions 0..S-1 land in one or two
+    static slices of a ring of ``ring`` slots (the tail of the prompt if S
+    > ring); ``cache`` holds the ring's slots ``lo .. lo + its length``
+    (all of them on one rank), which take their part of each slice."""
+    S = k.shape[1]
+    keep = min(S, ring)
+    start = S - keep
+    slot0 = start % ring
+    first = min(keep, ring - slot0)
+    writes = _ring_writes(cfg, k, v)
+    writes["slot_pos"] = positions.to(cache["slot_pos"].dtype)
+    hi = lo + cache["slot_pos"].shape[1]
+    # (first slot, first prompt index, length): the slice, then the wrapped remainder.
+    for a, t0, n in ((slot0, start, first), (0, start + first, keep - first)):
+        g0, g1 = max(a, lo), min(a + n, hi)
+        if g0 < g1:
+            for key, t in writes.items():
+                cache[key][:, g0 - lo:g1 - lo] = t[:, t0 + g0 - a:t0 + g1 - a]
+
+
+def _attention_split_cache(cfg, p, x, ctx: SeqContext, kind: str, cache):
+    """Attention with a cache on the split tensor axis: this rank's q heads
+    (:func:`tensor_parallel.local_heads`), the ring's slots split over the
+    ranks (``seq_kv``), every kv head in each rank's slots.
+
+    Prefill: the flash kernel on the rank's q heads and the kv heads they
+    read (as training runs them); the prompt's k / v gathered over the kv
+    heads (each rank computes every kv head when they do not split), and
+    each rank writes its slots' part of the ring's slices.  Decode: the
+    token's q gathered over the heads and its k / v over the kv heads; the
+    slot ``pos % ring`` written by its owner alone (a select on the device,
+    no host read); the decode kernel over the rank's slots for every head,
+    with its log-sum-exp; the ranks' rows folded
+    (:meth:`TensorParallel.fold`); the rank's heads into its rows of ``wo``."""
+    tp = ctx.tp
+    B, S, _ = x.shape
+    h = tensor_parallel.local_heads(cfg, tp.rank, tp.size)
+    q, k, v = _qkv(cfg, p, x, ctx, h.nq)  # k / v: the rank's kv heads, or every one
+    window = cfg.window if kind == "local" else 0
+    if h.kv_split:
+        k_all, v_all = (tensor_parallel.all_gather(t, tp.group, 2) for t in (k, v))
+    else:
+        k_all, v_all = k, v
+        k, v = (t[:, :, h.kv0:h.kv0 + 1] for t in (k_all, v_all))
+    lo, n = tp.rank * cache["k"].shape[1], cache["k"].shape[1]
+    ring = n * tp.size
+    if not ctx.decode:
+        out = flash_attention(q, k, v, causal=cfg.causal, window=window,
+                              prefix_len=ctx.prefix_len)
+        _prefill_ring(cfg, cache, k_all, v_all, ctx.positions, ring, lo)
+    else:
+        pos = ctx.positions[:, 0]
+        slot = (pos[:1] % ring).long() - lo  # (1,): this rank's index of the slot
+        mine = (slot >= 0) & (slot < n)
+        slot = slot.clamp(0, n - 1)
+        writes = _ring_writes(cfg, k_all, v_all)
+        writes["slot_pos"] = pos[:, None]
+        for key, t in writes.items():
+            c = cache[key]
+            keep = c.index_select(1, slot)
+            c.index_copy_(1, slot, torch.where(mine.view((1,) * c.dim()), t.to(c.dtype), keep))
+        kc, vc = cache["k"], cache["v"]
+        if cfg.kv_cache_quant:
+            kc = _kv_dequant(kc, cache["k_scale"], k.dtype)
+            vc = _kv_dequant(vc, cache["v_scale"], v.dtype)
+        out, lse = decode_attention(tensor_parallel.all_gather(q, tp.group, 2), kc, vc,
+                                    cache["slot_pos"], pos, window=window, return_lse=True)
+        out = tp.fold(out, lse[:, None])[:, :, h.q0:h.q0 + h.nq]
+    return tp.leave(out.reshape(B, S, h.nq * cfg.head_dim) @ p["wo"])
 
 
 def _ring_writes(cfg, k, v):
@@ -511,11 +600,11 @@ def _recurrent(cfg, p, x, ctx: SeqContext, cache):
     """The RG-LRU branch; a cache's ``h`` and ``conv_tail`` are updated in
     place (prefill seeds them, each decode step advances them)."""
     if ctx.decode:
-        y, new = rglru.rglru_decode_step(cfg, p, x, cache)
+        y, new = rglru.rglru_decode_step(cfg, p, x, cache, tp=ctx.tp)
     else:
         h0 = cache["h"] if cache is not None else None
         tail = cache["conv_tail"] if cache is not None else None
-        y, (h_last, new_tail) = rglru.rglru_apply(cfg, p, x, h0=h0, conv_tail=tail)
+        y, (h_last, new_tail) = rglru.rglru_apply(cfg, p, x, h0=h0, conv_tail=tail, tp=ctx.tp)
         new = {"h": h_last, "conv_tail": new_tail}
     if cache is not None:
         cache["h"].copy_(new["h"])
@@ -543,6 +632,22 @@ def _xlstm_cell(cfg, kind, p, x, ctx: SeqContext, cache):
     return y
 
 
+def _moe(cfg, p, x, ctx: SeqContext):
+    """The MoE FFN.  Serving with the batch split over ``R`` data ranks, its
+    token groups are the global batch's: ``moe_groups / R`` of them on each
+    rank when they split (the rank's rows are whole groups), else every
+    rank gathers the batch, routes every group and keeps its rows (the
+    groups whole, as under ``RULES_2D_DEC``'s unsplit ``moe_groups``)."""
+    lay = ctx.layout
+    if lay is None or lay.data_size == 1:
+        return moe.moe_apply(cfg, p, x, ctx.tp)
+    if cfg.moe_groups % lay.data_size == 0:
+        local = dataclasses.replace(cfg, moe_groups=cfg.moe_groups // lay.data_size)
+        return moe.moe_apply(local, p, x, ctx.tp)
+    y, aux = moe.moe_apply(cfg, p, lay.gather_rows(x), ctx.tp)
+    return lay.local_rows(y), aux
+
+
 def apply_block(cfg, kind: str, p, x, ctx: SeqContext, cache):
     """Returns ``(x, cache, aux)``: the block's output, its cache (updated
     in place) and its load-balancing loss, an f32 scalar for a MoE block and
@@ -558,7 +663,7 @@ def apply_block(cfg, kind: str, p, x, ctx: SeqContext, cache):
         x = x + _attention(cfg, p["attn"], h, ctx, kind, cache)
     h2 = _norm(cfg, p["ln2"], x)
     if kind == "moe":
-        y, aux = moe.moe_apply(cfg, p["moe"], h2, ctx.tp)
+        y, aux = _moe(cfg, p["moe"], h2, ctx)
         return x + y, cache, aux
     return x + layers.mlp_apply(p["mlp"], h2, cfg.mlp_type, ctx.tp), cache, None
 
@@ -615,8 +720,29 @@ def cache_axes(cfg: ModelConfig):
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
+    """An empty cache for ``batch`` rows of up to ``max_len`` positions.
+    Under rules on a mesh (:func:`tensor_parallel.layout`) each leaf has
+    this rank's shape of :func:`cache_axes`' layout: its rows of the batch,
+    its slots of each ring (``seq_kv``), its channels of a recurrent state
+    (``lru``)."""
     dev = resolve_device(device)
     check_supported(cfg, dev, decode=True)
+    lay = tensor_parallel.layout()
+    if lay is None:
+        return _whole_cache(cfg, batch, max_len, dev)
+    if lay.tp is not None:
+        tensor_parallel.check_config(cfg, lay.tp.size)
+
+    def local(t, axes):  # empty slots hold position -1, everything else 0
+        fill = -1 if t.dtype == torch.int32 else 0
+        return torch.full(tensor_parallel.local_shape(t.shape, axes), fill, dtype=t.dtype,
+                          device=dev)
+
+    return tree_map(local, _whole_cache(cfg, batch, max_len, torch.device("meta")),
+                    cache_axes(cfg))
+
+
+def _whole_cache(cfg, batch, max_len, dev):
     dtype = getattr(torch, cfg.dtype)
     periods = tuple(
         _block_cache(cfg, k, batch, max_len, dtype, dev, lead=(cfg.n_periods,))
@@ -732,17 +858,18 @@ def forward_hidden(cfg, params, batch_inputs, cache=None, decode=False, position
     the stack's load-balancing loss (an f32 scalar, or None: see
     :func:`_run_stack`)."""
     tp = tensor_parallel.context()
-    if tp is not None and (cache is not None or decode):
+    if tp is not None and page_tables is not None:
         raise NotImplementedError(
-            "prefill and decode on a split tensor axis (kv_heads / seq_kv-sharded caches) are "
-            "not ported (ROADMAP.md Queue A); serve on one rank")
+            "the block-paged pool has no mesh axes (as in the JAX package): the continuous "
+            "tier serves on one rank")
     x, pos, prefix_len = _embed_inputs(cfg, params, batch_inputs)
     if positions is not None:
         pos = positions
     sin, cos = layers.rope(pos, cfg.head_dim, cfg.rope_theta,
                            dtype=torch.promote_types(x.dtype, torch.float32))
     ctx = SeqContext(positions=pos, sin=sin, cos=cos, decode=decode,
-                     page_tables=page_tables, page_size=page_size, prefix_len=prefix_len, tp=tp)
+                     page_tables=page_tables, page_size=page_size, prefix_len=prefix_len, tp=tp,
+                     layout=tensor_parallel.layout() if cache is not None else None)
     x, aux = _run_stack(cfg, params, x, ctx, cache=cache)
     return _norm(cfg, params["final_norm"], x), cache, aux
 
@@ -824,26 +951,91 @@ def loss_fn(cfg, params, batch):
     return loss, {"xent": xent, "aux": aux, "tokens": cnt}
 
 
+def local_params(cfg, params, mesh):
+    """The weights the model reads on this rank of ``mesh``: each leaf whole
+    over every mesh axis but the tensor axis, and there this rank's slice
+    of a leaf the model reads split (:func:`param_axes` with
+    :func:`tensor_parallel.whole_axes`: kv heads fewer than the ranks are
+    read whole).  A DTensor leaf (placed on its sharding) is gathered; a
+    plain tensor is taken as the whole leaf and cut (a view)."""
+    names, sizes = mesh_axes(mesh)
+    size = dict(zip(names, sizes)).get(tensor_parallel.TENSOR_AXIS, 1)
+    whole = tensor_parallel.whole_axes(cfg, size)
+    model_dim = (names.index(tensor_parallel.TENSOR_AXIS)
+                 if tensor_parallel.TENSOR_AXIS in names else None)
+
+    def read(p, axes):
+        split = not whole.intersection(axes)
+        if isinstance(p, DTensor):
+            return tensor_parallel.gather(
+                p, {i for i in range(len(names)) if not (split and i == model_dim)})
+        return tensor_parallel.local_slice(p, axes, only=(tensor_parallel.TENSOR_AXIS,)) \
+            if split else p
+
+    with torch.no_grad():
+        return tree_map(read, params, param_axes(cfg))
+
+
+def _serving(cfg, params, rows):
+    """``(layout, params, rows)`` for a prefill or decode step: under rules
+    on a mesh, this rank's weights (:func:`local_params`) and its rows of
+    each global-batch tensor in ``rows``; else None and the inputs."""
+    lay = tensor_parallel.layout()
+    if lay is None:
+        return None, params, rows
+    return lay, local_params(cfg, params, lay.mesh), {k: lay.local_rows(v) for k, v in rows.items()}
+
+
+def _serve_logits(cfg, params, x, lay):
+    """f32 logits (B, S, V) of the hidden states ``x`` for every row of the
+    global batch.  On a split tensor axis a head of ``VOCAB_SPLIT_MIN``
+    entries or more is split on the vocab: each rank scores its columns (a
+    tied table's rows) and the ranks' columns are gathered; the data ranks'
+    rows are gathered."""
+    tp = None if lay is None else lay.tp
+    if tp is None or cfg.vocab_size < tensor_parallel.VOCAB_SPLIT_MIN:
+        logits = _unembed(cfg, params, x)
+    else:
+        v0, v1 = tensor_parallel.vocab_range(cfg.vocab_size, tp.rank, tp.size)
+        if (v1 - v0) * tp.size != cfg.vocab_size:
+            raise ValueError(f"{cfg.name}: vocab {cfg.vocab_size} does not split evenly over "
+                             f"{tp.size} tensor-parallel ranks")
+        w = params["embed"]["tokens"][v0:v1].T if cfg.tie_embeddings else params["head"]
+        logits = tensor_parallel.all_gather(_logits(x, w), tp.group, -1)
+    return logits if lay is None else lay.gather_rows(logits)
+
+
 def prefill(cfg, params, batch_inputs, max_len: int):
     """Run the prompt, returning (cache, last-position logits (B, V) f32).
     The prompt is ``tokens``, with ``patches`` before them for a vision
     model (the cache then holds P + S positions, and decode continues at
     position P + S), or ``frames`` for audio (refused: an encoder-only
-    model has no decode cache)."""
+    model has no decode cache).
+
+    Under rules on a mesh (``axis_rules(AxisRules(device_mesh, table))``,
+    the JAX package's ``build_cell`` prefill): ``params`` are DTensors on
+    their shardings or whole tensors (:func:`local_params`), the prompt and
+    the logits are the global batch, and the cache is this rank's slice of
+    :func:`cache_axes`' layout (:func:`init_cache`), which
+    :func:`tensor_parallel.gather_tree` puts back together."""
     tokens = batch_inputs.get("tokens", batch_inputs.get("frames"))
+    lay, params, batch_inputs = _serving(cfg, params, batch_inputs)
     cache = init_cache(cfg, tokens.shape[0], max_len, device=tokens.device)
     x, _, _ = forward_hidden(cfg, params, batch_inputs, cache=cache)
-    return cache, _unembed(cfg, params, x[:, -1:])[:, 0]
+    return cache, _serve_logits(cfg, params, x[:, -1:], lay)[:, 0]
 
 
 def decode_step(cfg, params, cache, token, pos):
     """One decode step.  token: (B,) int; pos: (B,) int32 positions.
-    Returns (logits (B, V) f32, cache) — the same cache, updated in place."""
+    Returns (logits (B, V) f32, cache) — the same cache, updated in place.
+    Under rules on a mesh, as :func:`prefill`: ``token``, ``pos`` and the
+    logits the global batch, ``cache`` this rank's slice."""
+    lay, params, rows = _serving(cfg, params, {"token": token, "pos": pos})
     x, _, _ = forward_hidden(
-        cfg, params, {"tokens": token[:, None]}, cache=cache, decode=True,
-        positions=pos[:, None],
+        cfg, params, {"tokens": rows["token"][:, None]}, cache=cache, decode=True,
+        positions=rows["pos"][:, None],
     )
-    return _unembed(cfg, params, x)[:, 0], cache
+    return _serve_logits(cfg, params, x, lay)[:, 0], cache
 
 
 # ---------------------------------------------------------------------------

@@ -28,7 +28,7 @@ a compressed leaf's int8 scale is its whole gradient's, and microbatch
 collective is a plain ``torch.distributed`` call
 (:func:`~repro_torch.distributed.tensor_parallel.gather` and its
 siblings): DTensor's functional collectives fault on CUDA tensors over
-gloo.  Recurrent and xLSTM blocks on a ``model`` axis above 1 raise
+gloo.  xLSTM blocks on a ``model`` axis above 1 raise
 ``NotImplementedError`` (``ROADMAP.md`` Queue A).
 
 The train state is ``{"params", "opt": {"mu", "nu", "step"}}`` plus
@@ -263,16 +263,7 @@ def _sharded_grads(cfg, train_cfg, mesh, rules):
     tp = size.get(TENSOR_AXIS, 1)
     if tp > 1:
         tensor_parallel.check_config(cfg, tp)
-    batch_rule = rules.table["batch"]
-    batch_axes = (batch_rule,) if isinstance(batch_rule, str) else tuple(batch_rule or ())
-    data_dims = [names.index(ax) for ax in batch_axes]
-    R = 1
-    for d in data_dims:
-        R *= sizes[d]
-    coord = mesh.get_coordinate()
-    rank = 0  # this rank's index over the batch axes, major to minor
-    for d in data_dims:
-        rank = rank * sizes[d] + coord[d]
+    data_dims, R, rank = tensor_parallel.data_ranks(mesh, rules)
     local_cfg = cfg
     if "moe" in cfg.layer_kinds():  # MoE groups follow the batch sharding
         if cfg.moe_groups % R:
@@ -284,7 +275,6 @@ def _sharded_grads(cfg, train_cfg, mesh, rules):
     whole = tensor_parallel.whole_axes(cfg, tp)
     split = _map_axes(lambda ax: not whole.intersection(ax), transformer.param_axes(cfg))
     model_dim = names.index(TENSOR_AXIS) if TENSOR_AXIS in names else None
-    gather_dims = set(data_dims)
 
     def objective(loss, metrics):
         c = metrics["tokens"]
@@ -304,10 +294,6 @@ def _sharded_grads(cfg, train_cfg, mesh, rules):
         return torch.cat([t[i * per + rank * part:i * per + (rank + 1) * part]
                           for i in range(n_mb)])
 
-    def compute_layout(p, is_split):
-        dims = gather_dims if is_split else gather_dims | {model_dim}
-        return tensor_parallel.gather(p, dims).detach().requires_grad_(True)
-
     def storage_layout(g, p, is_split):
         """A compute-layout gradient summed over the batch axes onto its
         parameter's shard (a whole leaf stored split over ``model``: this
@@ -323,8 +309,8 @@ def _sharded_grads(cfg, train_cfg, mesh, rules):
         return g
 
     def grads(params, batch):
-        with torch.no_grad():
-            local = tree_map(compute_layout, params, split)
+        local = tree_map(lambda t: t.detach().requires_grad_(True),
+                         transformer.local_params(cfg, params, mesh))
         with axis_rules(rules):
             loss, metrics, g = compute_grads(local, {k: local_rows(v) for k, v in batch.items()})
         del local

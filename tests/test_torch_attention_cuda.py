@@ -156,3 +156,31 @@ def test_ring_decode_past_65536_slots(sm90, S):
         pos = torch.full((1,), p, dtype=torch.int32, device="cuda")
         _close(dk.decode_attention_fwd(q, kc, vc, sp, pos),
                ref.decode_attention_ref(q, kc, vc, sp, pos), "bfloat16")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", [(4, 8, 4, 2048, 128, 0, 528), (4, 8, 4, 2048, 128, 0, 0),
+                                  (4, 1, 5, 1024, 256, 2048, 512), (2, 2, 2, 33, 80, 16, 20)],
+                         ids=str)
+def test_ring_decode_log_sum_exp(sm90, case, dtype):
+    """``return_lse``: the out of the call without it, bitwise, and the rows'
+    log-sum-exp within f32 tolerance of the plain version's; a slot slice
+    with no valid slot (a tensor-parallel rank past the prompt) gives -1e30
+    and the mean of v.  (B, NKV, G, S, D, window, live slots)."""
+    from repro_torch.kernels import decode_attention as dk
+
+    B, NKV, G, S, D, window, live = case
+    q = _rn(sm90, (B, NKV, G, D), dtype)
+    kc, vc = (_rn(sm90, (B, S, NKV, D), dtype).transpose(1, 2) for _ in range(2))
+    sp = torch.where(torch.arange(S) < live, torch.arange(S), -1).to(torch.int32)
+    sp = sp.expand(B, S).contiguous().cuda()
+    pos = torch.full((B,), live - 1 if live else 527, dtype=torch.int32, device="cuda")
+    out, lse = dk.decode_attention_fwd(q, kc, vc, sp, pos, window=window, return_lse=True)
+    want, want_lse = ref.decode_attention_ref(q, kc, vc, sp, pos, window=window,
+                                              return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (B, NKV, G)
+    assert torch.equal(out, dk.decode_attention_fwd(q, kc, vc, sp, pos, window=window))
+    _close(out, want, dtype)
+    _close(lse, want_lse, "float32")
+    if not live:
+        assert bool((lse == -1e30).all())

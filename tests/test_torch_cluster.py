@@ -10,8 +10,9 @@ and the outcomes are compared:
 * a sync ``drain_trace`` over a pool of inline transports with fixed-wall
   stub backends (no sleep) with a kill, a rejoin and injected faults:
   replica ids, requeue counts, per-replica conservation;
-* process workers (``tests/transport_stubs.py`` factories, so the children
-  import neither torch nor jax): a kill mid-batch that surfaces
+* process workers (``tests/transport_stubs.py`` and
+  ``torch_transport_stubs.py`` factories, so the children import neither
+  torch nor jax): a kill mid-batch that surfaces
   ``ReplicaDied`` and a restart that re-registers, and the batch timeout
   that kills a hung worker;
 * greedy tokens of a 2-replica pool of reduced CPU tiers against the JAX
@@ -36,6 +37,7 @@ from transport_stubs import (  # noqa: E402
     SlowWorkerBackend,
     StubVariant,
 )
+from torch_transport_stubs import HoldingWorkerBackend  # noqa: E402
 
 PKGS = ("repro", "repro_torch")
 ROUTER_NAMES = ("round_robin", "least_inflight", "power_of_two")
@@ -460,14 +462,22 @@ def test_whole_pool_outage_degrades_then_rejoin_serves_twin():
 # Process workers (stub factories: the children import neither torch nor jax).
 # ---------------------------------------------------------------------------
 def _process_kill_restart(ns):
-    t = ns.transport.ProcessTransportBackend(SlowWorkerBackend, timeout_s=30.0)
+    # The worker holds the [[1, 0], ...] batch far past the kill, whenever
+    # it reads it, answers the others at once, and ignores the SIGTERM of
+    # kill(), which fails the held batch with its own reason; the SIGKILL
+    # after it is the worker's death.
+    t = ns.transport.ProcessTransportBackend(HoldingWorkerBackend, timeout_s=30.0)
     try:
         t.register(StubVariant("m"))
         out = [t.run_batch("m", np.array([[0, 0]]), 1)[0].tolist()]
         h = t.submit_batch("m", np.array([[1, 0], [2, 0]]), 2, sync=False)
-        time.sleep(0.05)  # the submit reaches the worker, which sleeps 0.2 s
         t.kill("fault injection")
         out.append(_outcome_of(_raises(h.wait, 10.0)))
+        t._proc.kill()
+        # The pump thread sees the pipe close before the scenario goes on:
+        # the JAX transport's pump marks the replica dead when it does, and
+        # would mark the restarted worker dead if that came later.
+        t._pump_thread.join(10.0)
         out.append((t.alive, t.inflight_rows))
         out.append(_outcome_of(_raises(t.run_batch, "m", np.array([[1, 0]]), 2)))
         t.restart()  # respawns and replays the registration

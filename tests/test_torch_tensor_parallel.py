@@ -16,8 +16,9 @@ head is split on it): gemma-2b (4 q heads over 1 kv head, a tied table),
 llama3-8b with 8 q heads over 2 kv heads (each kv head read whole by two
 ranks at tensor size 4) and over 4, qwen3-14b (qk-norm), olmoe-1b-7b (4
 experts top-2, qk-norm, 4 MoE groups so they split over 4 data ranks),
-paligemma-3b (8 patches before the tokens, tied) and hubert-xlarge (frames,
-its 256-entry head whole).
+paligemma-3b (8 patches before the tokens, tied), hubert-xlarge (frames,
+its 256-entry head whole) and recurrentgemma-2b (two RG-LRU blocks, their
+``lru`` width 64 split over the tensor axis, and a local-attention block).
 
 Tolerances, each with its reason (measured worst in brackets):
 
@@ -37,9 +38,17 @@ Tolerances, each with its reason (measured worst in brackets):
   sign(g)``, so an element whose gradient is within rounding of zero can
   step either way [4.2e-4; the port's unsharded step is 3.8e-4 from JAX's
   sharded one, and JAX's sharded step 3.5e-4 from its own unsharded one].
-  On the (4, 1) mesh, which has no tensor axis, the step stays within
-  ``SHARDED_ATOL``, the two-rank data-parallel tolerance of
-  ``test_torch_sharding.py`` [7.6e-7].
+* on the (4, 1) mesh, which has no tensor axis, the gradients are held to
+  the unsharded ones at ``GRAD_TOL`` like every mesh's, and the step to
+  the unsharded step at ``SHARDED_ATOL``, the two-rank data-parallel
+  tolerance of ``test_torch_sharding.py``, on every element whose
+  unsharded gradient is ``FIRM`` times farther from zero than the two
+  runs' gradient gap [5.8e-6]; the rest, whose gradient the gap can move
+  by more than 4 % where the step is still near ``lr * g / eps``
+  (olmoe-1b-7b's table: a gradient of -4.8e-7 against -5.3e-7 steps
+  7.08e-4 against 7.28e-4), are held to ``POST_ATOL``, and at most
+  ``LOOSE_MAX`` of a leaf's elements may step past ``SHARDED_ATOL`` [one
+  of olmoe-1b-7b's 65536 table entries, 2.1e-5].
 """
 import os
 import pickle
@@ -76,6 +85,7 @@ CASES = {
     "olmoe": ("olmoe-1b-7b", {"moe_groups": 4}),
     "paligemma": ("paligemma-3b", {}),
     "hubert": ("hubert-xlarge", {"vocab_size": 256}),
+    "recurrentgemma": ("recurrentgemma-2b", {}),
 }
 TP_MESHES = [(1, 4), (2, 2)]
 MESHES = TP_MESHES + [(4, 1)]
@@ -86,6 +96,12 @@ METRIC_RTOL = 1e-6
 NORM_RTOL = 1e-4
 POST_ATOL = 2 * worker.LR
 SHARDED_ATOL = 2e-5
+# The first AdamW step of an element is lr * c g / (c |g| + eps) (c the
+# clip's scale, the same in both runs to NORM_RTOL), which moves by at most
+# lr * gap / (4 |g|) when g moves by gap: within SHARDED_ATOL / 2 where |g|
+# is FIRM times the gap or more.
+FIRM = worker.LR / (2 * SHARDED_ATOL)
+LOOSE_MAX = 1e-3  # share of a leaf's elements that may step past SHARDED_ATOL
 
 
 def _over(over):
@@ -136,10 +152,13 @@ def runs(tmp_path_factory):
             cfg = reduced(arch, **over)
             batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
             state = train_state_from_numpy(cfg, state_np, device="cpu")
+            init = {f"init/{k}": p.detach().numpy().copy()
+                    for k, p in named_leaves(state["params"])}
             _, _, grads = make_grads_fn(cfg)(state["params"], batch)
             state, metrics = make_train_step(cfg, OptimizerConfig(**worker.opt_kwargs()))(
                 state, batch)
             res[("plain", name, None)] = {
+                **init,
                 **{f"grad/{k}": g.numpy() for k, g in named_leaves(grads)},
                 **{f"metric/{k}": v.numpy() for k, v in metrics.items()},
                 **{f"param/{k}": p.detach().numpy() for k, p in named_leaves(state["params"])}}
@@ -201,10 +220,26 @@ def test_step_matches_the_jax_sharded_step(runs, case, mesh):
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_data_axis_alone_stays_within_the_two_rank_tolerance(runs, case):
+    """The (4, 1) step against the unsharded one: ``SHARDED_ATOL`` where the
+    unsharded gradient is farther from zero than ``FIRM`` times the two
+    runs' gradient gap, ``POST_ATOL`` elsewhere, on at most ``LOOSE_MAX`` of
+    a leaf's elements (see the module docstring)."""
     got, want = runs[("torch", case, (4, 1))], runs[("plain", case, None)]
     for k in _keys(want, "param/"):
-        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=SHARDED_ATOL,
-                                   err_msg=f"{case} {k}")
+        path = k[len("param/"):]
+        g_got, g_want = got[f"grad/{path}"], want[f"grad/{path}"]
+        firm = np.abs(g_want) > FIRM * np.abs(g_got - g_want)
+        err = np.abs(got[k] - want[k])
+        bad = (firm & (err > SHARDED_ATOL)) | (err > POST_ATOL)
+        loose = ~firm & (err > SHARDED_ATOL)
+        if bad.any() or loose.sum() > LOOSE_MAX * err.size:
+            i = np.unravel_index(np.argmax(np.where(bad | loose, err, -1.0)), err.shape)
+            init = want[f"init/{path}"][i]
+            pytest.fail(
+                f"{case} {path}{list(i)}: gradients {g_got[i]!r} (4, 1) / {g_want[i]!r} "
+                f"unsharded, steps {got[k][i] - init!r} / {want[k][i] - init!r} "
+                f"({'firm' if firm[i] else 'loose'}; {int(bad.sum())} beyond their bound, "
+                f"{int(loose.sum())} of {err.size} loose past {SHARDED_ATOL})")
 
 
 @pytest.mark.parametrize("nq,nkv,size,want", [
