@@ -105,7 +105,7 @@ Phases (each passes or raises; any failure exits non-zero with no result):
    distance from the plain f32 backward; olmoe's bitwise the same twice.
 5. serve: a ``ServingEngine`` whose ``JitBackend`` hosts tier-s, tier-m
    (reduced as served) and tier-l, qwen3-14b at its full width cut to
-   ``TIER_L_LAYERS`` (10) of its 40 layers (bf16, seeded weights on the
+   ``TIER_L_LAYERS`` (3) of its 40 layers (bf16, seeded weights on the
    card), plus the zoo's measured hedge; then
    ``measure_profiles``, an ``MDInferenceScheduler`` and
    ``ServingLoop.drain_trace`` over Poisson requests under sync and async
@@ -268,13 +268,19 @@ Phases (each passes or raises; any failure exits non-zero with no result):
    from its JSON beside the analytic roofline mu and the zoo's measured
    ``mu_ms``.
 11. tensor parallel (after the tooling's sharded step): four processes of
-   this script on the one card, a gloo group over a FileStore; llama3-8b
-   and gemma-2b on a (1, 4) ("data", "model") mesh and olmoe-1b-7b on (2,
-   2), full width at 2 layers, batch 2 x 2048: bf16 train steps through
-   the kernels at each rank's heads (launches counted per rank), the
-   gradient in bf16 and in float64 against the unsharded ones (see
+   this script on the one card, a gloo group over a FileStore; llama3-8b,
+   gemma-2b and xlstm-350m on a (1, 4) ("data", "model") mesh and
+   olmoe-1b-7b on (2, 2), full width at 2 layers (xlstm-350m one period,
+   7 mLSTM + 1 sLSTM, at 8 x 128 tokens), batch 2 x 2048, then llama3-8b
+   again under ``RULES_2D_SP`` (sequence parallelism): bf16 train steps
+   through the kernels at each rank's heads (launches counted per rank),
+   the gradient in bf16 and in float64 against the unsharded ones (see
    ``phase_tensor_parallel``), per-rank step ms, memory and the bytes of
-   every collective beside ``launch/roofline.py``'s reckoning.
+   every collective held to ``launch/roofline.py``'s reckoning (the
+   xLSTM's cells teacher-forced: its whole-model gradient is chaotic);
+   then, in the same processes, the serving cases
+   (``phase_tensor_parallel_serve``: prefill and greedy decode, xlstm-350m
+   and llama3-8b under ``RULES_2D_SP`` among them).
 
 Every run measures every column of the kernels line: each serve phase (the
 zoo's serve paths included) and each train run set the launch counters to
@@ -290,7 +296,7 @@ flight at once, at the peak), and (from the hybrid
 phase's release on) what is left after clearing PyTorch's cuBLAS
 workspaces; the serving phases' releases keep them, so their lines show
 whether one drain grows them over another.
-``--tier-l-layers`` sets tier-l's depth (never its width): 10 of 40 by
+``--tier-l-layers`` sets tier-l's depth (never its width): 3 of 40 by
 default, so that the run ends well within its time limit.
 """
 from __future__ import annotations
@@ -320,12 +326,13 @@ PROMPT = 128
 GEN = 16
 BATCH = 4
 SLA_MS = 2000.0
-# tier-l, qwen3-14b at its full width, is cut to 10 of its 40 layers: its
+# tier-l, qwen3-14b at its full width, is cut to 3 of its 40 layers: its
 # weights are built, served, copied to the host and sent to two worker
 # processes (twice to one of them), and at 40 layers those phases took
 # ~340 s of a 1011 s run on an H100 80GB HBM3 at 700 W, which must end
-# within 1200 s.
-TIER_L_LAYERS = 10
+# within 1200 s; 10 layers left no room for the xLSTM and
+# sequence-parallel cases of the tensor-parallel phases (PERF.md, PR 28).
+TIER_L_LAYERS = 3
 # The continuous serve phase's geometry (its pool: 1 + 8 * 18 = 145 pages).
 PAGE = 8
 N_SLOTS = 8
@@ -4176,10 +4183,23 @@ def _sharded_world1(torch, card, cfg, opt_cfg, pipe):
 # Phase 11: tensor-parallel training, four ranks on the one card.
 # ---------------------------------------------------------------------------
 TP_WORLD = 4
-# (arch, (data, model) mesh, config overrides): full width, depth cut to
-# SHARDED_LAYERS; olmoe's MoE groups split over its two data ranks.
-TP_CASES = (("llama3-8b", (1, 4), {}), ("gemma-2b", (1, 4), {}),
-            ("olmoe-1b-7b", (2, 2), {"moe_groups": 2}))
+# (arch, (data, model) mesh, config overrides, rule table): full width, depth
+# cut to SHARDED_LAYERS, or to one period where a period is longer
+# (xlstm-350m's 7 mLSTM + 1 sLSTM blocks); olmoe's MoE groups split over its
+# two data ranks; llama3-8b a second time under RULES_2D_SP, its residual
+# stream split over the sequence (``distributed/tensor_parallel.py``).
+TP_CASES = (("llama3-8b", (1, 4), {}, "RULES_2D"), ("gemma-2b", (1, 4), {}, "RULES_2D"),
+            ("olmoe-1b-7b", (2, 2), {"moe_groups": 2}, "RULES_2D"),
+            ("xlstm-350m", (1, 4), {}, "RULES_2D"), ("llama3-8b", (1, 4), {}, "RULES_2D_SP"))
+# Each case's train batch: TRAIN_BATCH x TRAIN_SEQ, xlstm-350m at its train
+# command's 8 x 128 (ROADMAP.md Queue C item 5: its bf16 gradient is not
+# finite at 2048 tokens a row).
+TP_TRAIN_SHAPES = {XLSTM_ARCH: (XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ)}
+# The last step's collectives, result bytes on rank 0, within this share of
+# the roofline's reckoning on a mesh with one data rank (there the
+# reckoning's weight terms are nil; on (2, 2) it counts a weight gather per
+# forward pass where the step gathers once, so olmoe's is printed only).
+TP_BYTES_RTOL = 0.2
 TP_STEPS = 2
 TP_GRAD_BOUND = 3.0  # times the unsharded bf16 run's own error against float64
 # Relative floor of the bf16 loss and xent checks (a mean over 4096 tokens
@@ -4199,10 +4219,9 @@ TP_AUX_RTOL = 1e-5  # the router is f32 in every dtype, as in the JAX model
 # four ranks' float64 token tables and their gradients (4.2 GB each at
 # llama3-8b's 128256 x 4096, whole on every rank) do not fit one card
 # beside the rest, and gloo moves their float64 weights and gradients
-# through host memory: one layer, 8192 entries (still split over the
-# ranks).
+# through host memory: one period (one layer; xlstm-350m's 8 blocks, so the
+# sLSTM is held too), 8192 entries (still split over the ranks).
 TP_F64_VOCAB = 8192
-TP_F64_LAYERS = 1
 TP_RANK_TIMEOUT_S = 400.0
 _SPAWNED = []  # rank processes, killed by the watchdog too
 
@@ -4212,7 +4231,26 @@ def _tp_cfg(arch, over):
 
     from repro_torch.configs.archs import get_config
 
-    return dataclasses.replace(get_config(arch), n_layers=SHARDED_LAYERS, **over)
+    base = get_config(arch)
+    return dataclasses.replace(base, n_layers=max(SHARDED_LAYERS, len(base.pattern)), **over)
+
+
+def _tp_label(arch, table):
+    """A tensor-parallel case's name in the readings and the printed lines."""
+    return arch if not table.endswith("_SP") else f"{arch} {table}"
+
+
+def _tp_heads(cfg, rank, size):
+    """What rank ``rank`` of ``size`` computes: its attention heads, or its
+    xLSTM heads."""
+    import dataclasses
+
+    from repro_torch.distributed import tensor_parallel as tpm
+
+    if any(k in ("attn", "local", "moe") for k in cfg.layer_kinds()):
+        return dataclasses.asdict(tpm.local_heads(cfg, rank, size))
+    per = cfg.xlstm_heads // size
+    return {"xlstm_heads": [rank * per, (rank + 1) * per]}
 
 
 def _widen(torch, p, dtype):
@@ -4289,7 +4327,7 @@ def _counting_collectives(dist, last=True, seconds=None):
             setattr(dist, name, fn)
 
 
-def _tp_case(torch, rank, arch, shape, over):
+def _tp_case(torch, rank, world, arch, shape, over, table):
     """One case on this rank.  In bf16: the tensor-parallel gradients and
     ``TP_STEPS`` train steps on the mesh (the kernels' launches, step ms,
     memory, the collectives' bytes of the last step, the flash calls'
@@ -4302,9 +4340,10 @@ def _tp_case(torch, rank, arch, shape, over):
     import dataclasses
 
     import torch.distributed as dist
+    from repro_torch.distributed import api
     from repro_torch.distributed import tensor_parallel as tpm
     from repro_torch.kernels import ops
-    from repro_torch.launch.mesh import make_mesh, make_rules
+    from repro_torch.models import transformer as T
     from repro_torch.training import (
         DataConfig, OptimizerConfig, TrainConfig, make_grads_fn, make_pipeline, make_train_step,
         state_shardings,
@@ -4312,24 +4351,30 @@ def _tp_case(torch, rank, arch, shape, over):
     from repro_torch.tree import named_leaves
 
     cfg = _tp_cfg(arch, over)
-    mesh = make_mesh(shape, ("data", "model"))
-    rules = make_rules(mesh)
-    pipe = make_pipeline(DataConfig(batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=0), cfg)
+    mesh = _tp_mesh(shape, world)
+    rules = api.AxisRules(mesh, getattr(api, table))
+    B, S = TP_TRAIN_SHAPES.get(arch, (TRAIN_BATCH, TRAIN_SEQ))
+    pipe = make_pipeline(DataConfig(batch_size=B, seq_len=S, seed=0), cfg)
     batches = [{k: torch.from_numpy(v).to("cuda") for k, v in pipe.batch_at(i).items()}
                for i in range(TP_STEPS)]
-    out = dict(arch=arch, mesh=list(shape), heads=dataclasses.asdict(
-        tpm.local_heads(cfg, mesh.get_local_rank("model"), shape[1])))
+    out = dict(arch=arch, mesh=list(shape), table=table,
+               heads=_tp_heads(cfg, mesh.get_local_rank("model"), shape[1]))
     kernel, shapes = ops._flash.flash_attention_fwd, set()
+    apply_block, residual = T.apply_block, set()
 
     def recording(q, k, v, **kw):
         shapes.add((str(q.dtype), tuple(q.shape), tuple(k.shape)))
         return kernel(q, k, v, **kw)
 
-    # The float64 runs: cut to TP_F64_VOCAB and TP_F64_LAYERS, their own batch.
+    def reading(cfg, kind, p, x, ctx, cache):  # the residual stream a block reads
+        residual.add(tuple(x.shape))
+        return apply_block(cfg, kind, p, x, ctx, cache)
+
+    # The float64 runs: cut to TP_F64_VOCAB and one period, their own batch.
     cut = dataclasses.replace(cfg, vocab_size=min(cfg.vocab_size, TP_F64_VOCAB),
-                              n_layers=TP_F64_LAYERS)
+                              n_layers=len(cfg.pattern))
     cut_batch = {k: torch.from_numpy(v).to("cuda") for k, v in make_pipeline(
-        DataConfig(batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=0), cut).batch_at(0).items()}
+        DataConfig(batch_size=B, seq_len=S, seed=0), cut).batch_at(0).items()}
     seconds, t_case = {}, time.perf_counter()
 
     def lap(name):  # where the case's time goes
@@ -4337,22 +4382,27 @@ def _tp_case(torch, rank, arch, shape, over):
         seconds[name] = round(time.perf_counter() - t_case, 1)
         t_case = time.perf_counter()
 
+    # An xLSTM stack is chaotic at full width: its whole-model float64
+    # gradient does not hold the split (it parts from the unsharded one by
+    # more than its own size), so its cells are held instead (_tp_cells).
+    chaotic = bool({"mlstm", "slstm"} & set(cfg.layer_kinds()))
     ops.reset_launch_counts()
     grads, tp_metrics = {}, {}
-    for dtype, base, batch in (("bfloat16", cfg, batches[0]), ("float64", cut, cut_batch)):
+    runs = (("bfloat16", cfg, batches[0]),) + (() if chaotic else (("float64", cut, cut_batch),))
+    for dtype, base, batch in runs:
         c = dataclasses.replace(base, dtype=dtype)
         torch.cuda.reset_peak_memory_stats()
         state = _tp_state(torch, base, state_shardings(c, mesh, rules), dtype)
         torch.cuda.synchronize()
         held_gib = torch.cuda.memory_allocated() / 2**30
-        ops._flash.flash_attention_fwd = recording
+        ops._flash.flash_attention_fwd, T.apply_block = recording, reading
         try:
             with plain_kernels() if dtype == "float64" else contextlib.nullcontext():
                 loss, m, grads[dtype] = make_grads_fn(c, TrainConfig(), mesh=mesh, rules=rules)(
                     state["params"], batch)
             tp_metrics[dtype] = {"loss": float(loss), **{k: float(v) for k, v in m.items()}}
         finally:
-            ops._flash.flash_attention_fwd = kernel
+            ops._flash.flash_attention_fwd, T.apply_block = kernel, apply_block
         if dtype == "bfloat16":  # the train steps
             step_fn = make_train_step(c, OptimizerConfig(learning_rate=3e-4, warmup_steps=1,
                                                          total_steps=TP_STEPS),
@@ -4373,7 +4423,10 @@ def _tp_case(torch, rank, arch, shape, over):
         del state
         torch.cuda.empty_cache()
         lap(dtype)
-    out.update(flash_shapes=sorted(shapes), tp_metrics=tp_metrics)
+    out.update(flash_shapes=sorted(shapes), tp_metrics=tp_metrics, residual=sorted(residual))
+    if chaotic:
+        out["cells"] = _tp_cells(torch, cfg, rules, B, S)
+        lap("cells")
 
     def reference(base, dtype, batch):  # rank 0 alone, the others waiting
         ref = None
@@ -4398,13 +4451,15 @@ def _tp_case(torch, rank, arch, shape, over):
         torch.cuda.empty_cache()
         return found
 
-    ref = reference(cut, "float64", cut_batch)
-    exact64 = compare("float64", lambda path, full: float((full - ref[1][path]).norm())
-                      / float(ref[1][path].norm().clamp_min(1e-300)))
-    ref64 = ref and ref[0]
-    del ref
-    torch.cuda.empty_cache()
-    lap("float64 check")
+    exact64, ref64 = {}, None
+    if not chaotic:
+        ref = reference(cut, "float64", cut_batch)
+        exact64 = compare("float64", lambda path, full: float((full - ref[1][path]).norm())
+                          / float(ref[1][path].norm().clamp_min(1e-300)))
+        ref64 = ref and ref[0]
+        del ref
+        torch.cuda.empty_cache()
+        lap("float64 check")
     exact, plain = reference(cfg, "float64", batches[0]), reference(cfg, "bfloat16", batches[0])
     lap("references")
 
@@ -4425,12 +4480,115 @@ def _tp_case(torch, rank, arch, shape, over):
     return out
 
 
-def _tp_rank(torch, rank, world, store, out_dir, serve=False):
-    """One process of ``phase_tensor_parallel`` (every case of ``TP_CASES``)
-    or, with ``serve``, of ``phase_tensor_parallel_serve`` (the cases of
-    ``TPS_CASES`` whose mesh has ``world`` ranks): a gloo group over a
-    FileStore, the cases in turn; writes its readings to
-    ``OUT_DIR/rank{rank}.json``."""
+# The xLSTM cells on the mesh, teacher-forced (``_tp_cells``): float64
+# within this share of a leaf's largest entry of the unsharded cell's vjp,
+# as ``xlstm_block_grads`` holds the card against the CPU (the sLSTM's
+# recurrence amplifies the products' other summation order to ~5e-7).
+TP_CELL_F64_TOL = 1e-6
+
+
+def _tp_cells(torch, cfg, rules, B, S):
+    """The xLSTM stack's cells on the mesh against the unsharded cells, one
+    block at a time: at full width its forward is chaotic (a float64
+    difference in the last bits grows to 1e-7 of the loss over one period
+    at 8 x 128 tokens, and its gradient's leaves part by more than their
+    own size), so the whole model's gradient cannot hold the split.  Each
+    block's cell is teacher-forced: its input the unsharded float64 stack's
+    at that block (seeded tokens, seed 0's weights), normed in f32
+    (:func:`_f32_grid_norm`), and its vjp for a seeded cotangent is taken
+    on the mesh (this rank's heads, ``local_params``' slices, the tensor
+    axis of the rules) and unsharded, in float64 and in bf16.  Returns,
+    per block and leaf (the input ``h`` and every cell parameter): the
+    float64 split run's largest error over the leaf's largest entry, and
+    the bf16 runs' Frobenius distances from the unsharded float64 vjp over
+    its norm, split and unsharded (``bi`` of the sLSTM, whose exact
+    gradient is 0 as a bias shared by c and n cancels in c / n, over the
+    cell's largest entry and largest norm)."""
+    import dataclasses
+
+    from repro_torch.distributed import api
+    from repro_torch.distributed import tensor_parallel as tpm
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import named_leaves, tree_map
+
+    c64 = dataclasses.replace(cfg, dtype="float64")
+    base = T.init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+    host = tree_map(lambda t: t.detach().double(), base)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S),
+                           generator=torch.Generator().manual_seed(7)).cuda()
+    kinds = [(T._unstack(b, cfg.n_periods), T._unstack(w, cfg.n_periods))
+             for b, w in zip(base["periods"], host["periods"])]
+    blocks = [(kind, kinds[i][0][li]["cell"], kinds[i][1][li]) for li in range(cfg.n_periods)
+              for i, kind in enumerate(cfg.pattern)]
+    plain = T.SeqContext(positions=None, sin=None, cos=None)
+    gen = torch.Generator().manual_seed(8)
+    with torch.no_grad():
+        x = T._embed_inputs(c64, host, {"tokens": tokens})[0]
+    found = []
+    for j, (kind, cell, p) in enumerate(blocks):
+        with torch.no_grad():
+            h = _f32_grid_norm(T, c64, p["ln1"], x)
+        cot = torch.randn(x.shape, generator=gen, dtype=torch.float64).cuda()
+        axes = T.block_axes(cfg, kind)["cell"]
+        grads = {}
+        for dtype in ("float64", "bfloat16"):
+            c = dataclasses.replace(cfg, dtype=dtype)
+            wide = p["cell"] if dtype == "float64" else cell  # the bf16 model's own leaves
+            for split in (False, True):
+                with api.axis_rules(rules if split else None):
+                    tp = tpm.context() if split else None
+                    whole = tpm.reads_whole(cfg, tp.size) if split else None
+                    leaves = {k: (tpm.local_slice(t, axes[k], only=(tpm.TENSOR_AXIS,))
+                                  if split and not whole(k, axes[k]) else t)
+                              .detach().clone().requires_grad_(True) for k, t in wide.items()}
+                    hin = h.to(getattr(torch, dtype)).requires_grad_(True)
+                    ctx = dataclasses.replace(plain, tp=tp)
+                    out = T._xlstm_cell(c, kind, leaves, hin, ctx, None)
+                    named = [("h", hin)] + list(named_leaves(leaves))
+                    got = torch.autograd.grad(out, [t for _, t in named], cot.to(out.dtype))
+                    got = {name: (tpm.gather_axes(g, axes[name])
+                                  if split and name != "h" and not whole(name, axes[name])
+                                  else g).double()
+                           for (name, _), g in zip(named, got)}
+                grads[(dtype, split)] = got
+                if dtype == "float64" and not split:
+                    x = x + out.detach()
+        exact = grads[("float64", False)]
+        big = max(float(g.abs().max()) for g in exact.values())
+        big_norm = max(float(g.norm()) for g in exact.values())
+        for name, w in exact.items():
+            zero = kind == "slstm" and name == "bi"  # 0 in exact arithmetic: the cell's scale
+            scale = big if zero else float(w.abs().max())
+            n = big_norm if zero else float(w.norm().clamp_min(1e-300))
+            found.append(dict(
+                block=j, kind=kind, leaf=name,
+                f64=float((grads[("float64", True)][name] - w).abs().max()) / max(scale, 1e-300),
+                bf16=float((grads[("bfloat16", True)][name] - w).norm()) / n,
+                bf16_plain=float((grads[("bfloat16", False)][name] - w).norm()) / n,
+                finite=bool(all(torch.isfinite(g[name]).all() for g in grads.values()))))
+    return found
+
+
+def _tp_mesh(shape, world):
+    """The ("data", "model") mesh of ``shape`` over the ``world`` ranks, or,
+    when it has fewer ranks, over this rank's replica of a ("rep", "data",
+    "model") mesh (each replica runs the same case)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch.mesh import make_mesh
+
+    n = shape[0] * shape[1]
+    if n == world:
+        return make_mesh(shape, ("data", "model"))
+    return init_device_mesh("cuda", (world // n, *shape),
+                            mesh_dim_names=("rep", "data", "model"))["data", "model"]
+
+
+def _tp_rank(torch, rank, world, store, out_dir):
+    """One process of the tensor-parallel phases: a gloo group over a
+    FileStore, every case of ``TP_CASES`` then of ``TPS_CASES`` in turn
+    (one spawn: each spawn costs ~16 s of start-up); writes its readings,
+    ``{"train": [...], "serve": [...]}``, to ``OUT_DIR/rank{rank}.json``."""
     import torch.distributed as dist
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4439,43 +4597,44 @@ def _tp_rank(torch, rank, world, store, out_dir, serve=False):
     dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
                             world_size=world)
     try:
-        if serve:
-            cases = [_tps_case(torch, rank, *case) for case in TPS_CASES
-                     if case[1][0] * case[1][1] == world]
-        else:
-            cases = [_tp_case(torch, rank, arch, shape, over) for arch, shape, over in TP_CASES]
+        cases = {"train": [_tp_case(torch, rank, world, *case) for case in TP_CASES],
+                 "serve": [_tps_case(torch, rank, world, *case) for case in TPS_CASES]}
     finally:
         dist.destroy_process_group()
     Path(out_dir, f"rank{rank}.json").write_text(json.dumps(cases))
 
 
-def _tp_roofline(cfg, shape):
-    """``launch/roofline.py``'s reckoning of one train step's collectives per
-    device on a (data, model) mesh of ``shape`` at the phase's batch: bytes
-    by kind (the dry-run's components: each block kind times its count,
-    then the ends) and the collective term in ms."""
+def _tp_roofline(cfg, shape, table, tokens, train=True):
+    """``launch/roofline.py``'s reckoning of one train step's (or, not
+    ``train``, one prefill's) collectives per device on a (data, model)
+    mesh of ``shape`` under ``table`` at ``tokens`` a step: bytes by kind
+    (the dry-run's components: each block kind times its count, then the
+    ends) and the collective term in ms."""
     import dataclasses
 
     import torch
+    from repro_torch.distributed import api
+    from repro_torch.distributed.tensor_parallel import VOCAB_SPLIT_MIN
     from repro_torch.launch import dryrun
     from repro_torch.launch import roofline as rf
-    from repro_torch.launch.mesh import make_custom_mesh, make_rules
+    from repro_torch.launch.mesh import make_custom_mesh
 
     mesh = make_custom_mesh(*shape)
-    rules = make_rules(mesh)
-    tokens, itemsize = TRAIN_BATCH * TRAIN_SEQ, getattr(torch, cfg.dtype).itemsize
+    rules = api.AxisRules(mesh, getattr(api, table))
+    itemsize = getattr(torch, cfg.dtype).itemsize
     total = {}
 
-    def add(weights, n):
+    def add(weights, n, tied_vocab=False):
         coll, _ = rf.reckon_collectives(weights, rules, mesh, tokens=tokens, itemsize=itemsize,
-                                        train=True, top_k=cfg.top_k or 1)
+                                        train=train, top_k=cfg.top_k or 1, tied_vocab=tied_vocab)
         for kind, b in coll.items():
             total[kind] = total.get(kind, 0) + b * n
 
     for kind in set(cfg.layer_kinds()):
         add(dryrun._weights(cfg, kind), cfg.layer_kinds().count(kind))
     cfg0 = dataclasses.replace(cfg, n_layers=0)
-    add([w for w in dryrun._model_weights(cfg0) if w[0][0] not in ("periods", "epilogue")], 1)
+    add([w for w in dryrun._model_weights(cfg0) if w[0][0] not in ("periods", "epilogue")], 1,
+        cfg.tie_embeddings and cfg.vocab_size >= VOCAB_SPLIT_MIN)
     return total, 1e3 * sum(total.values()) / rf.HW["link_bw"]
 
 
@@ -4535,21 +4694,34 @@ def phase_tensor_parallel(torch, card):
     REL_FLOOR, loss and xent the same way plus ``TP_METRIC_FLOOR``, the
     norm within ``TP_GRAD_BOUND`` times the unsharded gradient's whole
     distance from float64 (which bounds that run's norm error); step 0's
-    loss and norm are the gradient's.  Prints the per-rank kernel shapes,
-    step ms, GiB held and peak, and the bytes each rank's collectives
-    returned in the last step beside ``launch/roofline.py``'s reckoning for
-    that mesh.  Returns (launches summed over the ranks, readings)."""
+    loss and norm are the gradient's.  An xLSTM stack's whole-model
+    gradient is chaotic at full width, so its per-leaf checks (float64 and
+    bf16) are made on its cells instead, teacher-forced (``_tp_cells``):
+    float64 within ``TP_CELL_F64_TOL`` of each leaf's largest entry, bf16
+    by the rule above applied to each cell's root mean square of its
+    leaves' errors.  Prints the per-rank kernel shapes,
+    step ms, GiB held and peak, the residual stream's shape a block reads,
+    and the bytes each rank's collectives returned in the last step beside
+    ``launch/roofline.py``'s reckoning for that mesh and table, within
+    ``TP_BYTES_RTOL`` of it on a mesh with one data rank; then each
+    ``RULES_2D_SP`` case beside its ``RULES_2D`` twin.  The same rank
+    processes run the serving cases next (``_tp_rank``).  Returns
+    (launches summed over the ranks, readings, each rank's serving
+    readings for :func:`phase_tensor_parallel_serve`)."""
     import numpy as np
 
     ranks, wall = _run_ranks(TP_WORLD, [], "tensor parallel")
+    serving = [r["serve"] for r in ranks]
+    ranks = [r["train"] for r in ranks]
     print(f"[tensor parallel] {TP_WORLD} ranks on one card over gloo (FileStore), "
           f"{wall:.1f}s with start-up; collectives: plain torch.distributed calls on the CUDA "
           "tensors, none staged through host memory by the port (gloo copies CUDA tensors "
           "through its own host buffers; no collective time here is NCCL's); card "
           f"{card}", flush=True)
     counts, readings = {}, {}
-    for i, (arch, shape, over) in enumerate(TP_CASES):
-        cfg = _tp_cfg(arch, over)
+    for i, (arch, shape, over, table) in enumerate(TP_CASES):
+        cfg, label = _tp_cfg(arch, over), _tp_label(arch, table)
+        B, S = TP_TRAIN_SHAPES.get(arch, (TRAIN_BATCH, TRAIN_SEQ))
         per_rank = [r[i] for r in ranks]
         head = per_rank[0]
         want = {k: (TP_STEPS + 1) * v for k, v in _train_launches(cfg).items()
@@ -4557,23 +4729,26 @@ def phase_tensor_parallel(torch, card):
         for c in per_rank:
             for k in TRAIN_PATH_KERNELS:
                 counts[k] = counts.get(k, 0) + c["launches"][k]
-        reckoned, coll_ms = _tp_roofline(cfg, shape)
+        reckoned, coll_ms = _tp_roofline(cfg, shape, table, B * S)
+        moved, reckon_all = sum(head["traffic"].values()), sum(reckoned.values())
         refs, tp = head["ref_metrics"], head["tp_metrics"]
         f64, m_tp = refs["float64"], head["metrics"][0]
-        bf, exact = head["bf16_leaves"], head["f64_leaves"]
+        bf, exact, cells = head["bf16_leaves"], head["f64_leaves"], head.get("cells")
         ratio = {k: v[0] / max(v[1], REL_FLOOR) for k, v in bf.items()}
-        worst, worst64 = max(bf, key=ratio.get), max(exact, key=exact.get)
+        worst = max(bf, key=ratio.get)
         # The bf16 norms: the gathered gradient's, and the unsharded run's
         # whole distance from float64, which bounds its norm's error.
         norm, norm64 = math.sqrt(sum(v[2] for v in bf.values())), math.sqrt(head["f64_sq"])
         dist_plain = math.sqrt(sum(v[3] for v in bf.values()))
-        print(f"[tensor parallel] {arch} {tuple(shape)} float64 (plain kernels, vocab "
-              f"{min(cfg.vocab_size, TP_F64_VOCAB)}, {TP_F64_LAYERS} layer): the tensor-parallel "
-              f"gradient against the "
-              f"unsharded one, {len(exact)} leaves, worst relative distance "
-              f"{exact[worst64]:.3g} at {worst64} (bound {TP_F64_LEAF_TOL}); loss "
-              f"{tp['float64']['loss']!r} vs {refs['float64 cut']['loss']!r}", flush=True)
-        print(f"[tensor parallel] {arch} {tuple(shape)} bf16 gradients against float64 "
+        if cells is None:
+            worst64 = max(exact, key=exact.get)
+            print(f"[tensor parallel] {label} {tuple(shape)} float64 (plain kernels, vocab "
+                  f"{min(cfg.vocab_size, TP_F64_VOCAB)}, one period, {len(cfg.pattern)} "
+                  f"layer(s)): the tensor-parallel gradient against the unsharded one, "
+                  f"{len(exact)} leaves, worst relative distance {exact[worst64]:.3g} at "
+                  f"{worst64} (bound {TP_F64_LEAF_TOL}); loss {tp['float64']['loss']!r} vs "
+                  f"{refs['float64 cut']['loss']!r}", flush=True)
+        print(f"[tensor parallel] {label} {tuple(shape)} bf16 gradients against float64 "
               f"(relative Frobenius): worst ratio {ratio[worst]:.3f} at {worst} "
               f"({bf[worst][0]:.4g} vs the unsharded run's {bf[worst][1]:.4g}; bound "
               f"{TP_GRAD_BOUND}x + {REL_FLOOR}); median {statistics.median(v[0] for v in bf.values()):.4g}"
@@ -4581,69 +4756,122 @@ def phase_tensor_parallel(torch, card):
               f"float64 {norm64:.6f} (the unsharded gradient {dist_plain:.4g} from it); loss "
               f"{tp['bfloat16']['loss']:.6f} / unsharded {refs['bfloat16']['loss']:.6f} / float64 "
               f"{f64['loss']:.6f}", flush=True)
-        print(f"[tensor parallel] {arch} on a (data, model) = {tuple(shape)} mesh, full width, "
-              f"{cfg.n_layers} layers, bf16 steps, batch {TRAIN_BATCH} x {TRAIN_SEQ}: rank 0 heads "
+        print(f"[tensor parallel] {label} on a (data, model) = {tuple(shape)} mesh, full width, "
+              f"{cfg.n_layers} layers, {table}, bf16 steps, batch {B} x {S}: rank 0 heads "
               f"{head['heads']}; flash (dtype, q, kv) per rank {head['flash_shapes']}; step 0 "
               f"loss {m_tp['loss']:.6f}, grad norm {m_tp['grad_norm']:.6f}; step ms per rank "
               f"{[[round(x, 1) for x in c['step_ms']] for c in per_rank]}; GiB held per rank "
               f"{[round(c['held_gib'], 2) for c in per_rank]}, peak "
               f"{[round(c['peak_gib'], 2) for c in per_rank]}; rank 0's seconds "
-              f"{head['seconds']}; launches per rank "
+              f"{head['seconds']}; a block reads the residual stream {head['residual']} on "
+              f"rank 0; launches per rank "
               f"{[{k: c['launches'][k] for k in TRAIN_PATH_KERNELS} for c in per_rank]}; "
               f"last step's collectives, result bytes on rank 0 {head['traffic']} (all "
-              f"{sum(head['traffic'].values()) / 1e9:.3f} GB) vs the roofline's reckoning "
-              f"{reckoned} ({sum(reckoned.values()) / 1e9:.3f} GB, {coll_ms:.3f} ms at 450 GB/s "
-              f"NVLink); card {card}", flush=True)
+              f"{moved / 1e9:.3f} GB) vs the roofline's reckoning {reckoned} "
+              f"({reckon_all / 1e9:.3f} GB, ratio {moved / reckon_all:.3f}, {coll_ms:.3f} ms at "
+              f"450 GB/s NVLink); card {card}", flush=True)
+        if shape[0] == 1:
+            check(abs(moved - reckon_all) <= TP_BYTES_RTOL * reckon_all,
+                  f"tensor parallel {label}: the last step's collectives returned {moved} bytes "
+                  f"on rank 0, beyond {TP_BYTES_RTOL} of the reckoning's {reckon_all}")
         for r, c in enumerate(per_rank):
             check(all(c["launches"][k] == n for k, n in want.items())
                   and c["launches"]["rms_norm_fwd"] > 0,
-                  f"tensor parallel {arch}: rank {r} launched {c['launches']}, want {want} "
+                  f"tensor parallel {label}: rank {r} launched {c['launches']}, want {want} "
                   "and the norm")
             check(all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
                       for m in c["metrics"]),
-                  f"tensor parallel {arch}: rank {r}'s steps {c['metrics']} not finite")
-        for path, d in exact.items():
+                  f"tensor parallel {label}: rank {r}'s steps {c['metrics']} not finite")
+        if cells is not None:  # chaotic: the cells teacher-forced hold the split
+            w64 = max(cells, key=lambda e: e["f64"])
+            cell_ratio = {(e["block"], e["leaf"]): e["bf16"] / max(e["bf16_plain"], REL_FLOOR)
+                          for e in cells}
+            wbf = max(cell_ratio, key=cell_ratio.get)
+            print(f"[tensor parallel] {label}: the whole model's gradient is chaotic at full "
+                  f"width (its float64 split run is not held); its "
+                  f"{len({e['block'] for e in cells})} "
+                  f"cells' vjps teacher-forced ({B} x {S}, input normed in f32), {len(cells)} "
+                  f"gradients, split vs unsharded: float64 worst {w64['f64']:.3g} of the leaf's "
+                  f"largest entry at block {w64['block']} ({w64['kind']}) d{w64['leaf']} (bound "
+                  f"{TP_CELL_F64_TOL}); bf16 against float64 worst leaf ratio "
+                  f"{cell_ratio[wbf]:.3f} at block {wbf[0]} d{wbf[1]}, per cell the rms of its "
+                  f"leaves' errors held to {TP_GRAD_BOUND}x the unsharded cell's + {REL_FLOOR}; "
+                  f"card {card}", flush=True)
+            for e in cells:
+                tag = f"tensor parallel {label} block {e['block']} ({e['kind']}) d{e['leaf']}"
+                check(e["finite"], f"{tag}: not finite")
+                check(e["f64"] <= TP_CELL_F64_TOL, f"{tag}: float64 split vs unsharded "
+                      f"{e['f64']:.3g} of the leaf's largest entry, beyond {TP_CELL_F64_TOL}")
+            # bf16 per cell: the root mean square of its leaves' relative
+            # errors (a leaf's alone is one sample of the recurrence's
+            # amplified rounding; the split run's and the unsharded one's
+            # part by up to 3x leaf by leaf at block 7, the sLSTM).
+            for j in sorted({e["block"] for e in cells}):
+                rms = [math.sqrt(statistics.fmean(e[k] ** 2 for e in cells if e["block"] == j))
+                       for k in ("bf16", "bf16_plain")]
+                check(rms[0] <= TP_GRAD_BOUND * rms[1] + REL_FLOOR,
+                      f"tensor parallel {label} block {j}: bf16 cell error {rms[0]:.4g} (rms of "
+                      f"its leaves' relative errors) beyond {TP_GRAD_BOUND}x the unsharded "
+                      f"cell's {rms[1]:.4g}")
+        for path, d in exact.items() if cells is None else ():
             check(d <= TP_F64_LEAF_TOL,
-                  f"tensor parallel {arch} {shape}: float64 gradient {path} {d:.3g} (relative) "
+                  f"tensor parallel {label} {shape}: float64 gradient {path} {d:.3g} (relative) "
                   f"from the unsharded one, beyond {TP_F64_LEAF_TOL}")
-        for k, tol in (("xent", TP_F64_METRIC_RTOL), ("aux", TP_AUX_RTOL)):
+        for k, tol in (("xent", TP_F64_METRIC_RTOL), ("aux", TP_AUX_RTOL)) if cells is None else ():
             cut = refs["float64 cut"][k]
             check(abs(tp["float64"][k] - cut) <= tol * abs(cut),
-                  f"tensor parallel {arch}: float64 {k} {tp['float64'][k]!r} vs the unsharded "
+                  f"tensor parallel {label}: float64 {k} {tp['float64'][k]!r} vs the unsharded "
                   f"{cut!r}, beyond rtol {tol}")
         for k in ("loss", "xent"):
             check(abs(tp["bfloat16"][k] - f64[k]) <= TP_GRAD_BOUND * abs(refs["bfloat16"][k]
                                                                          - f64[k])
                   + TP_METRIC_FLOOR * abs(f64[k]),
-                  f"tensor parallel {arch}: bf16 {k} {tp['bfloat16'][k]} beyond {TP_GRAD_BOUND}x "
+                  f"tensor parallel {label}: bf16 {k} {tp['bfloat16'][k]} beyond {TP_GRAD_BOUND}x "
                   f"the unsharded run's distance from float64 {f64[k]}")
-        for path, (ke, pe, *_) in bf.items():
+        for path, (ke, pe, *_) in bf.items() if cells is None else ():
             check(ke <= TP_GRAD_BOUND * pe + REL_FLOOR,
-                  f"tensor parallel {arch} {shape}: bf16 gradient {path} {ke:.4g} (relative) "
+                  f"tensor parallel {label} {shape}: bf16 gradient {path} {ke:.4g} (relative) "
                   f"from float64, beyond {TP_GRAD_BOUND}x the unsharded run's {pe:.4g}")
         check(abs(norm - norm64) <= TP_GRAD_BOUND * dist_plain,
-              f"tensor parallel {arch}: bf16 gradient norm {norm} vs float64 {norm64}, beyond "
+              f"tensor parallel {label}: bf16 gradient norm {norm} vs float64 {norm64}, beyond "
               f"{TP_GRAD_BOUND}x the unsharded gradient's distance {dist_plain}")
         check(abs(m_tp["grad_norm"] - norm) <= 1e-4 * norm
               and m_tp["loss"] == tp["bfloat16"]["loss"],
-              f"tensor parallel {arch}: step 0's loss {m_tp['loss']} and grad norm "
+              f"tensor parallel {label}: step 0's loss {m_tp['loss']} and grad norm "
               f"{m_tp['grad_norm']} are not its gradient's {norm}")
-        readings[arch] = dict(mesh=list(shape), ranks=per_rank, roofline_bytes=reckoned,
-                              roofline_collective_ms=coll_ms)
-    return counts, readings
+        readings[label] = dict(mesh=list(shape), table=table, ranks=per_rank,
+                               roofline_bytes=reckoned, roofline_collective_ms=coll_ms)
+    for arch, _, _, table in TP_CASES:  # each sequence-parallel case beside its twin
+        if table.endswith("_SP"):
+            sp, base = readings[_tp_label(arch, table)], readings[arch]
+            print(f"[tensor parallel] {arch} {table} vs RULES_2D, per rank: peak GiB "
+                  f"{[round(c['peak_gib'], 3) for c in sp['ranks']]} vs "
+                  f"{[round(c['peak_gib'], 3) for c in base['ranks']]}; GiB held "
+                  f"{[round(c['held_gib'], 3) for c in sp['ranks']]} vs "
+                  f"{[round(c['held_gib'], 3) for c in base['ranks']]}; residual stream "
+                  f"{sp['ranks'][0]['residual']} vs {base['ranks'][0]['residual']}; the last "
+                  f"step's collectives on rank 0 {sp['ranks'][0]['traffic']} vs "
+                  f"{base['ranks'][0]['traffic']}; step ms rank 0 "
+                  f"{[round(x, 1) for x in sp['ranks'][0]['step_ms']]} vs "
+                  f"{[round(x, 1) for x in base['ranks'][0]['step_ms']]}; card {card}",
+                  flush=True)
+    return counts, readings, serving
 
 
 # ---------------------------------------------------------------------------
 # Phase 11b: tensor-parallel serving, the ranks on the one card.
 # ---------------------------------------------------------------------------
 # (arch, (data, model) mesh, rule table, layers): full width, depth cut as
-# the training phase cuts it (recurrentgemma-2b keeps one period of its
-# (recurrent, recurrent, local) pattern; its 10 heads split over 2 ranks,
+# the training phase cuts it (recurrentgemma-2b and xlstm-350m keep one
+# period of their pattern; recurrentgemma-2b's 10 heads split over 2 ranks,
 # not 4).  olmoe-1b-7b's one MoE group is whole on both data ranks
-# (RULES_2D_DEC leaves ``moe_groups`` unsplit).
+# (RULES_2D_DEC leaves ``moe_groups`` unsplit).  llama3-8b a second time
+# under RULES_2D_SP: its prefill's residual stream split over the sequence.
 TPS_CASES = (("llama3-8b", (1, 4), "RULES_2D", SHARDED_LAYERS),
              ("gemma-2b", (1, 4), "RULES_2D", SHARDED_LAYERS),
              ("olmoe-1b-7b", (2, 2), "RULES_2D_DEC", SHARDED_LAYERS),
+             ("xlstm-350m", (1, 4), "RULES_2D", 8),
+             ("llama3-8b", (1, 4), "RULES_2D_SP", SHARDED_LAYERS),
              ("recurrentgemma-2b", (1, 2), "RULES_2D", 3))
 # Batch, prompt, max_len (the ring: 2048 slots a rank at 4 ranks, so ranks
 # 1-3 hold no valid slot while the prompt and the decoded tokens fill rank
@@ -4652,7 +4880,7 @@ TPS_BATCH, TPS_PROMPT, TPS_MAX_LEN, TPS_STEPS = 4, 512, 8192, 16
 TPS_LOGIT_BOUND = 3.0  # times the unsharded bf16 run's whole-run error against float64
 
 
-def _tps_case(torch, rank, arch, shape, table, layers):
+def _tps_case(torch, rank, world, arch, shape, table, layers):
     """One serving case on this rank of a (data, model) = ``shape`` mesh
     under ``table``, the weights seed 0's bf16 ``init_params`` placed on
     their shardings (DTensors, ``param_axes``), the prompt seeded, greedy
@@ -4676,13 +4904,12 @@ def _tps_case(torch, rank, arch, shape, table, layers):
     from repro_torch.distributed import api
     from repro_torch.distributed import tensor_parallel as tpm
     from repro_torch.kernels import ops, ref
-    from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import transformer as T
     from repro_torch.training import place_state
     from repro_torch.tree import tree_leaves, tree_map
 
     cfg = dataclasses.replace(get_config(arch), n_layers=layers)
-    mesh = make_mesh(shape, ("data", "model"))
+    mesh = _tp_mesh(shape, world)
     rules = api.AxisRules(mesh, getattr(api, table))
     tp = shape[1]
     B = TPS_BATCH
@@ -4707,7 +4934,8 @@ def _tps_case(torch, rank, arch, shape, table, layers):
         with torch.no_grad(), ctx:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            cache, logits = T.prefill(c, params, {"tokens": prompt}, TPS_MAX_LEN)
+            with _counting_collectives(dist, last=timed) as prefill_traffic:
+                cache, logits = T.prefill(c, params, {"tokens": prompt}, TPS_MAX_LEN)
             torch.cuda.synchronize()
             prefill_ms = (time.perf_counter() - t0) * 1e3
             outs, toks = [logits], []
@@ -4726,10 +4954,11 @@ def _tps_case(torch, rank, arch, shape, table, layers):
                 outs.append(logits)
         return dict(logits=torch.stack(outs), tokens=torch.stack(toks), cache=cache,
                     prefill_ms=prefill_ms, step_ms=ms, traffic=traffic,
+                    prefill_traffic=prefill_traffic,
                     coll_ms={k: v * 1e3 for k, v in coll_s.items()})
 
     out = dict(arch=arch, mesh=list(shape), table=table, layers=layers,
-               heads=dataclasses.asdict(tpm.local_heads(cfg, mesh.get_local_rank("model"), tp)))
+               heads=_tp_heads(cfg, mesh.get_local_rank("model"), tp))
     seconds, t_case = {}, time.perf_counter()
 
     def lap(name):
@@ -4762,7 +4991,7 @@ def _tps_case(torch, rank, arch, shape, table, layers):
     run = serve("bfloat16", params, tokens=ref64, timed=True)
     out["launches"] = ops.launch_counts()
     out.update(prefill_ms=run["prefill_ms"], step_ms=run["step_ms"], traffic=run["traffic"],
-               coll_ms=run["coll_ms"],
+               prefill_traffic=run["prefill_traffic"], coll_ms=run["coll_ms"],
                cache_gib=sum(t.numel() * t.element_size() for t in tree_leaves(run["cache"]))
                / 2**30, peak_gib=torch.cuda.max_memory_allocated() / 2**30)
     calls, kernel = [], ops._decode.decode_attention_fwd
@@ -4828,10 +5057,11 @@ def _tps_case(torch, rank, arch, shape, table, layers):
     return out
 
 
-def phase_tensor_parallel_serve(torch, card):
-    """Serving on a split ``model`` axis: for each case of ``TPS_CASES``, its
-    mesh's ranks as processes of this script on the one card over gloo
-    (``_tps_case``): prefill of ``TPS_BATCH`` x ``TPS_PROMPT`` tokens into a
+def phase_tensor_parallel_serve(torch, card, ranks):
+    """Serving on a split ``model`` axis: for each case of ``TPS_CASES``, the
+    readings ``ranks`` of the ``TP_WORLD`` rank processes of
+    :func:`phase_tensor_parallel` on the one card over gloo (``_tps_case``;
+    a mesh of fewer ranks as replicas of it): prefill of ``TPS_BATCH`` x ``TPS_PROMPT`` tokens into a
     ``TPS_MAX_LEN`` ring split over the ranks' slots, then ``TPS_STEPS``
     decode steps, each rank's decode kernel over its slots for every head
     with the LSE, the rows folded across the ranks.  Checks: float64 tokens
@@ -4846,74 +5076,88 @@ def phase_tensor_parallel_serve(torch, card):
     per attention layer and step, norms) and no plain version; each rank's
     decode (out, lse) within tolerance of the plain version, ranks with no
     valid slot included (LSE -1e30).  Prints each rank's launches, step ms,
-    cache GiB and the bytes its collectives returned in a decode step.
-    Returns (launches summed over the ranks, readings)."""
+    cache GiB and the bytes its collectives returned in the prefill (beside
+    ``launch/roofline.py``'s reckoning) and in a decode step; then each
+    ``RULES_2D_SP`` case beside its ``RULES_2D`` twin.  Returns (launches
+    summed over the ranks, readings)."""
     from repro_torch.configs.archs import get_config
 
-    counts, readings, walls = {}, {}, []
-    for world in sorted({m[0] * m[1] for _, m, _, _ in TPS_CASES}, reverse=True):
-        ranks, wall = _run_ranks(world, ["--tp-serve"], "tensor parallel serve")
-        walls.append(round(wall, 1))
-        cases = [c for c in TPS_CASES if c[1][0] * c[1][1] == world]
-        for i, (arch, shape, table, layers) in enumerate(cases):
-            import dataclasses
+    import dataclasses
 
-            cfg = dataclasses.replace(get_config(arch), n_layers=layers)
-            kinds = cfg.layer_kinds()
-            n_attn = sum(k in ("attn", "local", "moe") for k in kinds)
-            n_rec = kinds.count("recurrent")
-            want = dict(flash_attention_fwd=n_attn, decode_attention_fwd=n_attn * TPS_STEPS,
-                        rglru_scan_fwd=n_rec, decode_attention_paged_fwd=0)
-            per_rank = [r[i] for r in ranks]
-            head = per_rank[0]
-            for r, c in enumerate(per_rank):
-                for k, n in c["launches"].items():
-                    counts[k] = counts.get(k, 0) + n
-                check(all(c["launches"][k] == n for k, n in want.items())
-                      and c["launches"]["rms_norm_fwd"] > 0,
-                      f"tensor parallel serve {arch}: rank {r} launched {c['launches']}, want "
-                      f"{want} and the norm")
-                check(c["f64_tokens_equal"], f"tensor parallel serve {arch}: rank {r}'s float64 "
-                      "tokens on the mesh differ from the unsharded float64 tokens")
-            ratio = head["err_tp_run"] / max(head["err_plain_run"], REL_FLOOR)
-            print(f"[tensor parallel serve] {arch} on a (data, model) = {tuple(shape)} mesh, "
-                  f"{table}, full width, {layers} layers, batch {TPS_BATCH}, prompt {TPS_PROMPT}, "
-                  f"max_len {TPS_MAX_LEN}, {TPS_STEPS} decode steps: rank 0 heads "
-                  f"{head['heads']}; float64 tokens on the mesh == unsharded "
-                  f"({head['f64_tokens'][-1]} last); bf16 logits vs float64 (relative "
-                  f"Frobenius), the whole run sharded {head['err_tp_run']:.5f} vs unsharded "
-                  f"{head['err_plain_run']:.5f}, ratio {ratio:.3f} (bound {TPS_LOGIT_BOUND}x + "
-                  f"{REL_FLOOR}); per step sharded {[round(x, 5) for x in head['err_tp']]} vs "
-                  f"unsharded {[round(x, 5) for x in head['err_plain']]}; argmax agreement "
-                  f"{head['argmax_agree']:.4f}; card {card}", flush=True)
-            print(f"[tensor parallel serve] {arch}: launches per rank "
-                  f"{[{k: c['launches'][k] for k in HYBRID_PATH_KERNELS} for c in per_rank]}; "
-                  f"prefill ms per rank {[round(c['prefill_ms'], 1) for c in per_rank]} "
-                  f"(unsharded {head['plain_prefill_ms']:.1f}); decode step ms per rank, median "
-                  f"{[round(statistics.median(c['step_ms']), 2) for c in per_rank]} (unsharded "
-                  f"{statistics.median(head['plain_step_ms']):.2f}); cache GiB per rank "
-                  f"{[round(c['cache_gib'], 4) for c in per_rank]}, peak GiB "
-                  f"{[round(c['peak_gib'], 2) for c in per_rank]}; a decode step's collectives, "
-                  f"result bytes per rank {[c['traffic'] for c in per_rank]}; host ms inside "
-                  f"collectives over the {TPS_STEPS} steps, rank 0 "
-                  f"{ {k: round(v, 1) for k, v in head['coll_ms'].items()} } of "
-                  f"{sum(head['step_ms']):.1f}; rank 0's seconds "
-                  f"{head['seconds']}; card {card}", flush=True)
-            for r, c in enumerate(per_rank):
-                d = c.get("decode_check")
-                if d is not None:
-                    print(f"[tensor parallel serve] {arch} rank {r}: decode kernel q {d['q']} over "
-                          f"{d['slots']} slots ({d['live_slots']} live) with the LSE vs the plain "
-                          f"version, out max|err| {d['out_err']:.3g}, lse {d['lse_err']:.3g} "
-                          f"(bound {d['lse_tol']:.3g}), lse in [{d['lse_min']:.4g}, "
-                          f"{d['lse_max']:.4g}]", flush=True)
-            check(head["err_tp_run"] <= TPS_LOGIT_BOUND * head["err_plain_run"] + REL_FLOOR,
-                  f"tensor parallel serve {arch}: bf16 logits {head['err_tp_run']} (relative, "
-                  f"the whole run) from float64, beyond {TPS_LOGIT_BOUND}x the unsharded run's "
-                  f"{head['err_plain_run']} + {REL_FLOOR}")
-            readings[arch] = dict(mesh=list(shape), table=table, ranks=per_rank)
-    print(f"[tensor parallel serve] ranks on one card over gloo (FileStore), {walls} s with "
-          f"start-up per spawn; collectives are plain torch.distributed calls on the CUDA "
+    counts, readings = {}, {}
+    for i, (arch, shape, table, layers) in enumerate(TPS_CASES):
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        label = _tp_label(arch, table)
+        kinds = cfg.layer_kinds()
+        n_attn = sum(k in ("attn", "local", "moe") for k in kinds)
+        n_rec = kinds.count("recurrent")
+        want = dict(flash_attention_fwd=n_attn, decode_attention_fwd=n_attn * TPS_STEPS,
+                    rglru_scan_fwd=n_rec, decode_attention_paged_fwd=0)
+        per_rank = [r[i] for r in ranks]
+        head = per_rank[0]
+        for r, c in enumerate(per_rank):
+            for k, n in c["launches"].items():
+                counts[k] = counts.get(k, 0) + n
+            check(all(c["launches"][k] == n for k, n in want.items())
+                  and c["launches"]["rms_norm_fwd"] > 0,
+                  f"tensor parallel serve {label}: rank {r} launched {c['launches']}, want "
+                  f"{want} and the norm")
+            check(c["f64_tokens_equal"], f"tensor parallel serve {label}: rank {r}'s float64 "
+                  "tokens on the mesh differ from the unsharded float64 tokens")
+        ratio = head["err_tp_run"] / max(head["err_plain_run"], REL_FLOOR)
+        print(f"[tensor parallel serve] {label} on a (data, model) = {tuple(shape)} mesh, "
+              f"{table}, full width, {layers} layers, batch {TPS_BATCH}, prompt {TPS_PROMPT}, "
+              f"max_len {TPS_MAX_LEN}, {TPS_STEPS} decode steps: rank 0 heads "
+              f"{head['heads']}; float64 tokens on the mesh == unsharded "
+              f"({head['f64_tokens'][-1]} last); bf16 logits vs float64 (relative "
+              f"Frobenius), the whole run sharded {head['err_tp_run']:.5f} vs unsharded "
+              f"{head['err_plain_run']:.5f}, ratio {ratio:.3f} (bound {TPS_LOGIT_BOUND}x + "
+              f"{REL_FLOOR}); per step sharded {[round(x, 5) for x in head['err_tp']]} vs "
+              f"unsharded {[round(x, 5) for x in head['err_plain']]}; argmax agreement "
+              f"{head['argmax_agree']:.4f}; card {card}", flush=True)
+        print(f"[tensor parallel serve] {label}: launches per rank "
+              f"{[{k: c['launches'][k] for k in HYBRID_PATH_KERNELS} for c in per_rank]}; "
+              f"prefill ms per rank {[round(c['prefill_ms'], 1) for c in per_rank]} "
+              f"(unsharded {head['plain_prefill_ms']:.1f}); decode step ms per rank, median "
+              f"{[round(statistics.median(c['step_ms']), 2) for c in per_rank]} (unsharded "
+              f"{statistics.median(head['plain_step_ms']):.2f}); cache GiB per rank "
+              f"{[round(c['cache_gib'], 4) for c in per_rank]}, peak GiB "
+              f"{[round(c['peak_gib'], 2) for c in per_rank]}; the prefill's collectives, "
+              f"result bytes on rank 0 {head['prefill_traffic']} vs the roofline's reckoning "
+              f"{_tp_roofline(cfg, shape, table, TPS_BATCH * TPS_PROMPT, train=False)[0]}; "
+              f"a decode step's collectives, "
+              f"result bytes per rank {[c['traffic'] for c in per_rank]}; host ms inside "
+              f"collectives over the {TPS_STEPS} steps, rank 0 "
+              f"{ {k: round(v, 1) for k, v in head['coll_ms'].items()} } of "
+              f"{sum(head['step_ms']):.1f}; rank 0's seconds "
+              f"{head['seconds']}; card {card}", flush=True)
+        for r, c in enumerate(per_rank):
+            d = c.get("decode_check")
+            if d is not None:
+                print(f"[tensor parallel serve] {label} rank {r}: decode kernel q {d['q']} over "
+                      f"{d['slots']} slots ({d['live_slots']} live) with the LSE vs the plain "
+                      f"version, out max|err| {d['out_err']:.3g}, lse {d['lse_err']:.3g} "
+                      f"(bound {d['lse_tol']:.3g}), lse in [{d['lse_min']:.4g}, "
+                      f"{d['lse_max']:.4g}]", flush=True)
+        check(head["err_tp_run"] <= TPS_LOGIT_BOUND * head["err_plain_run"] + REL_FLOOR,
+              f"tensor parallel serve {label}: bf16 logits {head['err_tp_run']} (relative, "
+              f"the whole run) from float64, beyond {TPS_LOGIT_BOUND}x the unsharded run's "
+              f"{head['err_plain_run']} + {REL_FLOOR}")
+        readings[label] = dict(mesh=list(shape), table=table, ranks=per_rank)
+    for arch, _, table, _ in TPS_CASES:  # each sequence-parallel case beside its twin
+        if table.endswith("_SP"):
+            sp, base = readings[_tp_label(arch, table)]["ranks"], readings[arch]["ranks"]
+            print(f"[tensor parallel serve] {arch} {table} vs RULES_2D, per rank: prefill ms "
+                  f"{[round(c['prefill_ms'], 1) for c in sp]} vs "
+                  f"{[round(c['prefill_ms'], 1) for c in base]}; peak GiB "
+                  f"{[round(c['peak_gib'], 3) for c in sp]} vs "
+                  f"{[round(c['peak_gib'], 3) for c in base]}; the prefill's collectives on "
+                  f"rank 0 {sp[0]['prefill_traffic']} vs {base[0]['prefill_traffic']}; decode step "
+                  f"ms, median {[round(statistics.median(c['step_ms']), 2) for c in sp]} vs "
+                  f"{[round(statistics.median(c['step_ms']), 2) for c in base]}; card {card}",
+                  flush=True)
+    print(f"[tensor parallel serve] the ranks of the tensor-parallel phase, on one card over "
+          f"gloo (FileStore); collectives are plain torch.distributed calls on the CUDA "
           f"tensors (gloo stages them through host memory; none is NCCL's); card {card}",
           flush=True)
     return counts, readings
@@ -5289,7 +5533,6 @@ def main(argv=None) -> int:
     ap.add_argument("--tp-store", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--tp-out", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--tp-world", type=int, default=TP_WORLD, help=argparse.SUPPRESS)
-    ap.add_argument("--tp-serve", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -5299,7 +5542,7 @@ def main(argv=None) -> int:
 
     if args.tp_rank is not None:  # one rank of phase_tensor_parallel(_serve)
         _watchdog(TP_RANK_TIMEOUT_S)
-        _tp_rank(torch, args.tp_rank, args.tp_world, args.tp_store, args.tp_out, args.tp_serve)
+        _tp_rank(torch, args.tp_rank, args.tp_world, args.tp_store, args.tp_out)
         return 0
     t_start = time.perf_counter()
 
@@ -5400,10 +5643,11 @@ def main(argv=None) -> int:
     mark("phase_train_tools")
     tools.update(phase_train_tools(torch, card, train[gemma]["median_step_ms"]))
     mark("phase_tensor_parallel")
-    phase_counts["tensor parallel"], tools["tensor_parallel"] = phase_tensor_parallel(torch, card)
+    phase_counts["tensor parallel"], tools["tensor_parallel"], tp_serve = phase_tensor_parallel(
+        torch, card)
     mark("phase_tensor_parallel_serve")
     phase_counts["tensor parallel serve"], serve_results["tensor parallel"] = (
-        phase_tensor_parallel_serve(torch, card))
+        phase_tensor_parallel_serve(torch, card, tp_serve))
     mark("phi3 command")
     phase_counts["train command phi3"], train["phi3 command"] = phase_train_cli(torch, card)
     mark(f"{MOE_ARCH} train")

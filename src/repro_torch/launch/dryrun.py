@@ -53,6 +53,7 @@ import torch
 from repro_torch.configs.archs import ARCH_IDS, get_config
 from repro_torch.configs.shapes import SHAPES, input_specs, skip_reason
 from repro_torch.distributed.api import AxisRules, mesh_axes, named_sharding
+from repro_torch.distributed.tensor_parallel import VOCAB_SPLIT_MIN
 from repro_torch.kernels.cost import CostCounter
 from repro_torch.launch import roofline as rf
 from repro_torch.launch.mesh import make_custom_mesh, make_production_mesh, make_rules
@@ -389,11 +390,13 @@ def run_cell(arch, shape, mesh_kind, *, with_components=True, verbose=True,
             traces[key] = cost_components(cfg, shape)
         t_trace = time.perf_counter() - t0
         train = cell.kind == "train"
+        tied_vocab = cfg.tie_embeddings and cfg.vocab_size >= VOCAB_SPLIT_MIN
         comps, census = [], Counter()
         for name, counter, mult, weights, tokens in traces[key]:
             coll, count = rf.reckon_collectives(
                 weights, rules, mesh, tokens=tokens, itemsize=getattr(torch, cfg.dtype).itemsize,
-                train=train and name != "optimizer", top_k=cfg.top_k or 1)
+                train=train and name != "optimizer", top_k=cfg.top_k or 1,
+                decode=cell.kind == "decode", tied_vocab=name == "ends" and tied_vocab)
             for kind, n in count.items():
                 census[kind] += n * mult
             comps.append(rf.Component(name, counter.flops / chips, counter.bytes / chips, coll,

@@ -23,7 +23,8 @@ bytes are *reckoned from the rules* per component (:func:`reckon_collectives`),
 in the JAX package's convention: the result-shape bytes per device of
 each collective.  For a parameter ``W`` whose spec shards it over mesh
 axes ``S_W``, with the batch over axes ``S_B`` and ``k(A)`` the product of
-the sizes of axes ``A``:
+the sizes of axes ``A`` (a mesh axis of one rank is no axis: a collective
+over it moves nothing):
 
 * all-gather, per forward pass (twice in a train step: remat runs the
   forward again in the backward), of each weight sharded over a batch axis
@@ -33,10 +34,19 @@ the sizes of axes ``A``:
   the weight is not sharded on (``S_B - S_W``): result ``bytes(W) /
   k(S_W)``;
 * all-reduce of the activation after each matmul whose contraction dim
-  lies on a non-batch (tensor) axis, per forward pass: result
-  ``tokens / k(S_B) * N_out * itemsize``, ``N_out`` the matmul's output
-  width (for a MoE expert weight, its tokens are the assignments, tokens
-  times top-k).
+  lies on a non-batch (tensor) axis, per forward pass, and in a train step
+  once more for the gradient of the split region's input (Megatron's
+  ``f``, counted at the same size): result ``tokens / k(S_B) * N_out *
+  itemsize``, ``N_out`` the matmul's output width (for a MoE expert
+  weight, its tokens are the assignments, tokens times top-k).  Where the
+  rules put ``seq_act`` on those axes (sequence parallelism; not in a
+  decode step) each such all-reduce is one reduce-scatter, result that
+  size over ``k`` of the axes, and one all-gather of that size;
+* a tied token table read as a vocab-split head (``tied_vocab``; the
+  model splits a head of ``VOCAB_SPLIT_MIN`` entries or more on a tensor
+  axis): in a train step, an all-reduce of the table's gradient over that
+  axis (each rank's head rows beside every rank's lookup), result
+  ``bytes(W)``.
 
 A weight is a matmul operand when it has two dims or more, except the
 token table (a gather; a tied head is a matmul over it, contracting on
@@ -135,11 +145,13 @@ def _axes_of(entry):
 
 
 def reckon_collectives(weights, rules, mesh, *, tokens: int, itemsize: int, train: bool,
-                       top_k: int = 1):
+                       top_k: int = 1, decode: bool = False, tied_vocab: bool = False):
     """``(bytes by kind, count by kind)`` of one call of a component whose
     weights are ``weights``: ``[(path, shape, logical axes, bytes per
     element)]``; ``tokens``: the global tokens of the call; ``itemsize``:
-    the activations' bytes per element (see the module docstring)."""
+    the activations' bytes per element; ``decode``: a decode step, which
+    keeps whole rows under sequence parallelism; ``tied_vocab``: the token
+    table is the vocab-split head too (see the module docstring)."""
     names, sizes = mesh_axes(mesh)
     size = dict(zip(names, sizes))
 
@@ -149,7 +161,11 @@ def reckon_collectives(weights, rules, mesh, *, tokens: int, itemsize: int, trai
             n *= size[ax]
         return n
 
-    batch = set(_axes_of(rules.table.get("batch")))
+    def split(entry):  # the mesh axes of an entry that have more than one rank
+        return {ax for ax in _axes_of(entry) if size[ax] > 1}
+
+    batch = split(rules.table.get("batch"))
+    seq = set() if decode else split(rules.table.get("seq_act"))
     tok_local = -(-tokens // k(batch))
     passes = 2 if train else 1
     out: Dict[str, int] = {}
@@ -160,8 +176,7 @@ def reckon_collectives(weights, rules, mesh, *, tokens: int, itemsize: int, trai
         count[kind] = count.get(kind, 0) + n
 
     for path, shape, axes, elem in weights:
-        spec = rules.spec(axes)
-        dims = [set(_axes_of(e)) for e in spec]
+        dims = [split(e) for e in rules.spec(axes)]
         sharded = set().union(*dims) if dims else set()
         nbytes = elem
         for s in shape:
@@ -173,9 +188,17 @@ def reckon_collectives(weights, rules, mesh, *, tokens: int, itemsize: int, trai
         if train and batch - sharded:
             add("all-reduce", -(-nbytes // k(sharded)))
         name = path[-1]
+        if train and tied_vocab and name == "tokens" and split(rules.table.get("vocab")) - batch:
+            add("all-reduce", nbytes)
         if len(shape) >= 2 and name not in _NOT_MATMUL:
-            contraction = dims[-2]
-            if contraction - batch:
+            tensor = dims[-2] - batch
+            if tensor:
                 toks = tok_local * (top_k if len(shape) == 3 else 1)
-                add("all-reduce", toks * shape[-1] * itemsize, passes)
+                act = toks * shape[-1] * itemsize
+                n = passes + (1 if train else 0)
+                if tensor <= seq:
+                    add("reduce-scatter", -(-act // k(tensor)), n)
+                    add("all-gather", act, n)
+                else:
+                    add("all-reduce", act, n)
     return out, count

@@ -34,11 +34,10 @@ Under ``torchrun`` (``WORLD_SIZE`` > 1) the process group is initialized
 the step is built on ``make_elastic_mesh()`` with ``make_rules(mesh)``, as
 the JAX package's ``launch/train.py`` does on more than one device.  That
 mesh keeps a tensor axis of up to ``--model-parallel`` ranks (16, the JAX
-package's), every other rank data-parallel, and the attention and MoE
-stacks train tensor-parallel on it
-(:mod:`repro_torch.distributed.tensor_parallel`); recurrent and xLSTM
-blocks on a tensor axis above 1 raise ``NotImplementedError``, and heads
-that do not split into whole groups over it ``ValueError``.  A relaunch
+package's), every other rank data-parallel, and every block kind trains
+tensor-parallel on it (:mod:`repro_torch.distributed.tensor_parallel`);
+heads, an RG-LRU width or xLSTM heads that do not split over it raise
+``ValueError``.  A relaunch
 on another mesh (another world size or ``--model-parallel``) restores the
 checkpoint onto its shardings and goes on.  World size 1 is the plain
 path.
@@ -111,8 +110,8 @@ def main(argv=None):
                     help="under torchrun: the elastic mesh's tensor axis, at most this "
                     "many ranks")
     ap.epilog = ("Under torchrun (WORLD_SIZE > 1) the step runs on make_elastic_mesh() "
-                 "with make_rules(mesh): tensor-parallel over its model axis (attention "
-                 "and MoE stacks; recurrent and xLSTM blocks raise NotImplementedError), "
+                 "with make_rules(mesh): tensor-parallel over its model axis (every block "
+                 "kind; heads or widths that do not split over it raise ValueError), "
                  "data-parallel over the rest.")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)

@@ -23,9 +23,12 @@ Differences in form, not in result:
   dropped.  On a split tensor axis (``tp``) each rank runs its
   ``expert_ffn`` columns of every expert (``ffn`` of the shared ones) on
   the tokens that every rank routes alike (the router is whole), and the
-  combined outputs are summed over the axis.  The gates enter the split
-  region, so their gradient, the router's and the load-balancing loss's
-  are whole on every rank and the loss is not summed over the axis.
+  combined outputs are summed over the axis.  The gates are shared into
+  the split region, so their gradient, the router's and the
+  load-balancing loss's are whole on every rank and the loss is not summed
+  over the axis.  Under sequence parallelism the model hands the block
+  every row of the sequence (the router reads whole groups) and the
+  output leaves reduce-scattered to the rank's rows.
 """
 from __future__ import annotations
 
@@ -124,7 +127,7 @@ def _dispatch_group(cfg, params, x, xe, cap, tp=None):
     # Combine: each token's k weighted rows, summed in a fixed order.
     w = (top_gate.reshape(-1) * keep).to(out_buf.dtype)
     if tp is not None:
-        w = tp.enter(w)
+        w = tp.share(w)
     back = out_buf[slot] * w[:, None]
     return back.view(T_, k, D).sum(1), aux
 

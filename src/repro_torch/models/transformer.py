@@ -56,15 +56,26 @@ does not sum it (a call with a cache), so a decode step costs what it did.
 Serving on a mesh: under ``axis_rules(AxisRules(device_mesh, table))``
 (``RULES_2D`` or ``RULES_2D_DEC``, the JAX package's ``build_cell``),
 :func:`prefill` and :func:`decode_step` take DTensor (or whole) weights
-and the global batch, run this rank's rows of it on this rank's heads,
-``ffn`` / ``expert_ffn`` / ``lru`` channels and vocab columns
-(:mod:`~repro_torch.distributed.tensor_parallel`), and return the global
-logits; the cache is this rank's slice of :func:`cache_axes`' layout: its
-rows, its slots of every ring (``seq_kv``, every kv head) and its channels
-of a recurrent state.  A decode step's attention gathers the new token's q
-and k / v over the heads, writes the ring slot on its owning rank, runs
-the decode kernel over the rank's slots with the log-sum-exp and folds the
-ranks' rows (:func:`_attention_split_cache`).
+and the global batch, run this rank's rows of it on this rank's heads
+(attention and xLSTM), ``ffn`` / ``expert_ffn`` / ``lru`` channels and
+vocab columns (:mod:`~repro_torch.distributed.tensor_parallel`), and
+return the global logits; the cache is this rank's slice of
+:func:`cache_axes`' layout: its rows, its slots of every ring (``seq_kv``,
+every kv head), its channels of an RG-LRU or sLSTM state, and the whole
+mLSTM state.  A decode step's attention gathers the new token's q and k /
+v over the heads, writes the ring slot on its owning rank, runs the decode
+kernel over the rank's slots with the log-sum-exp and folds the ranks'
+rows (:func:`_attention_split_cache`); an mLSTM decode step gathers the
+token's k / v over the heads and advances the whole state on every rank.
+
+Sequence parallelism (rules that map ``seq_act`` to the tensor axis,
+``RULES_2D_SP`` / ``RULES_3D_SP``): a training or prefill step keeps the
+residual stream as this rank's rows of the sequence from the embedding on,
+as the JAX model's ``constrain(x, "batch", "seq_act", None)`` after the
+embedding and at every period boundary lays it out; every norm between
+blocks runs on those rows, and each block's region gathers the sequence
+on entry and reduce-scatters it on leaving (``enter`` / ``leave``).  A
+decode step keeps whole rows, as the JAX model's ``seq`` constraint does.
 
 ``cfg.kv_cache_quant`` keeps the ring caches in int8 with an f32 scale per
 (entry, kv head) (:func:`_kv_quant`: max-abs / 127, round half to even):
@@ -121,6 +132,7 @@ __all__ = [
     "prefill_cache_width",
     "paged_decode_step",
     "local_params",
+    "split_reads",
     "SeqContext",
 ]
 
@@ -431,7 +443,11 @@ class SeqContext:
     layout: Optional[tensor_parallel.Layout] = None
 
 
-def _norm(cfg, w, x):
+def _norm(cfg, w, x, tp=None):
+    """The block norm of ``x``; under sequence parallelism (``tp.seq``) x
+    is this rank's rows, so the weight is shared (its gradient summed)."""
+    if tp is not None and tp.seq:
+        w = tp.share(w)
     return layers.rms_norm(x, w, eps=cfg.norm_eps, offset=cfg.norm_offset)
 
 
@@ -468,10 +484,10 @@ def _qkv(cfg, p, x, ctx: SeqContext, nq: int):
 def _attention(cfg, p, x, ctx: SeqContext, kind: str, cache):
     if ctx.tp is not None and cache is not None:
         return _attention_split_cache(cfg, p, x, ctx, kind, cache)
-    B, S, _ = x.shape
     hd, nq, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     if ctx.tp is not None:  # this rank's q heads and the kv heads they read
         x, p, nq, nkv = ctx.tp.attention_inputs(cfg, p, x)
+    B, S, _ = x.shape
     q, k, v = _qkv(cfg, p, x, ctx, nq)
     window = cfg.window if kind == "local" else 0
 
@@ -550,6 +566,8 @@ def _attention_split_cache(cfg, p, x, ctx: SeqContext, kind: str, cache):
     with its log-sum-exp; the ranks' rows folded
     (:meth:`TensorParallel.fold`); the rank's heads into its rows of ``wo``."""
     tp = ctx.tp
+    if tp.seq:  # a prefill's rows of the sequence, gathered
+        x = tp.enter(x)
     B, S, _ = x.shape
     h = tensor_parallel.local_heads(cfg, tp.rank, tp.size)
     q, k, v = _qkv(cfg, p, x, ctx, h.nq)  # k / v: the rank's kv heads, or every one
@@ -614,18 +632,26 @@ def _recurrent(cfg, p, x, ctx: SeqContext, cache):
 
 def _xlstm_cell(cfg, kind, p, x, ctx: SeqContext, cache):
     """An mLSTM or sLSTM cell; a cache's state leaves are updated in place
-    (prefill seeds them, each decode step advances them)."""
+    (prefill seeds them, each decode step advances them).  On a split
+    tensor axis the mLSTM state is whole on every rank (``cache_axes``): a
+    prefill runs the rank's heads from their slice of it and gathers their
+    final state over the heads."""
+    tp = ctx.tp
     if kind == "mlstm":
         if ctx.decode:
-            y, new = xlstm.mlstm_decode_step(cfg, p, x, cache)
+            y, new = xlstm.mlstm_decode_step(cfg, p, x, cache, tp=tp)
         else:
             carry = (cache["C"], cache["n"]) if cache is not None else None
-            y, (C, n) = xlstm.mlstm_apply(cfg, p, x, carry=carry)
+            if carry is not None and tp is not None:
+                carry = tuple(t[:, tp.heads(cfg.xlstm_heads)] for t in carry)
+            y, (C, n) = xlstm.mlstm_apply(cfg, p, x, carry=carry, tp=tp)
+            if cache is not None and tp is not None:
+                C, n = (tensor_parallel.all_gather(t, tp.group, 1) for t in (C, n))
             new = {"C": C, "n": n}
     elif ctx.decode:
-        y, new = xlstm.slstm_decode_step(cfg, p, x, cache)
+        y, new = xlstm.slstm_decode_step(cfg, p, x, cache, tp=tp)
     else:
-        y, new = xlstm.slstm_apply(cfg, p, x, state=cache)
+        y, new = xlstm.slstm_apply(cfg, p, x, state=cache, tp=tp)
     if cache is not None:
         for key, t in new.items():
             cache[key].copy_(t)
@@ -637,14 +663,20 @@ def _moe(cfg, p, x, ctx: SeqContext):
     token groups are the global batch's: ``moe_groups / R`` of them on each
     rank when they split (the rank's rows are whole groups), else every
     rank gathers the batch, routes every group and keeps its rows (the
-    groups whole, as under ``RULES_2D_DEC``'s unsplit ``moe_groups``)."""
+    groups whole, as under ``RULES_2D_DEC``'s unsplit ``moe_groups``).
+    Under sequence parallelism the router reads whole groups: the block
+    takes every rank's rows of the sequence (``gather``) and its output
+    leaves reduce-scattered to this rank's rows."""
+    tp = ctx.tp
+    if tp is not None and tp.seq:
+        x, tp = tp.gather(x), dataclasses.replace(tp, seq_in=False)
     lay = ctx.layout
     if lay is None or lay.data_size == 1:
-        return moe.moe_apply(cfg, p, x, ctx.tp)
+        return moe.moe_apply(cfg, p, x, tp)
     if cfg.moe_groups % lay.data_size == 0:
         local = dataclasses.replace(cfg, moe_groups=cfg.moe_groups // lay.data_size)
-        return moe.moe_apply(local, p, x, ctx.tp)
-    y, aux = moe.moe_apply(cfg, p, lay.gather_rows(x), ctx.tp)
+        return moe.moe_apply(local, p, x, tp)
+    y, aux = moe.moe_apply(cfg, p, lay.gather_rows(x), tp)
     return lay.local_rows(y), aux
 
 
@@ -654,14 +686,14 @@ def apply_block(cfg, kind: str, p, x, ctx: SeqContext, cache):
     None (zero) for the others."""
     if kind not in _KINDS:
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
-    h = _norm(cfg, p["ln1"], x)
+    h = _norm(cfg, p["ln1"], x, ctx.tp)
     if kind in ("mlstm", "slstm"):
         return x + _xlstm_cell(cfg, kind, p["cell"], h, ctx, cache), cache, None
     if kind == "recurrent":
         x = x + _recurrent(cfg, p["rec"], h, ctx, cache)
     else:
         x = x + _attention(cfg, p["attn"], h, ctx, kind, cache)
-    h2 = _norm(cfg, p["ln2"], x)
+    h2 = _norm(cfg, p["ln2"], x, ctx.tp)
     if kind == "moe":
         y, aux = _moe(cfg, p["moe"], h2, ctx)
         return x + y, cache, aux
@@ -856,8 +888,9 @@ def forward_hidden(cfg, params, batch_inputs, cache=None, decode=False, position
     """``(x, cache, aux)``: final-normed hidden states (B, S, D), ``cache``
     (updated in place; with ``page_tables``, decode only, a paged pool) and
     the stack's load-balancing loss (an f32 scalar, or None: see
-    :func:`_run_stack`)."""
-    tp = tensor_parallel.context()
+    :func:`_run_stack`).  Under sequence parallelism x is this rank's rows
+    of the sequence, (B, S / size, D)."""
+    tp = tensor_parallel.context(decode=decode)
     if tp is not None and page_tables is not None:
         raise NotImplementedError(
             "the block-paged pool has no mesh axes (as in the JAX package): the continuous "
@@ -867,11 +900,13 @@ def forward_hidden(cfg, params, batch_inputs, cache=None, decode=False, position
         pos = positions
     sin, cos = layers.rope(pos, cfg.head_dim, cfg.rope_theta,
                            dtype=torch.promote_types(x.dtype, torch.float32))
+    if tp is not None and tp.seq:  # the residual stream: this rank's rows
+        x = tp.split(x)
     ctx = SeqContext(positions=pos, sin=sin, cos=cos, decode=decode,
                      page_tables=page_tables, page_size=page_size, prefix_len=prefix_len, tp=tp,
                      layout=tensor_parallel.layout() if cache is not None else None)
     x, aux = _run_stack(cfg, params, x, ctx, cache=cache)
-    return _norm(cfg, params["final_norm"], x), cache, aux
+    return _norm(cfg, params["final_norm"], x, tp), cache, aux
 
 
 def _head_weight(cfg, params):
@@ -914,24 +949,28 @@ def loss_fn(cfg, params, batch):
     checkpointed when autograd records, so the backward pass holds one
     chunk's logits at a time.  On a split tensor axis a head of
     ``VOCAB_SPLIT_MIN`` entries or more is split on the vocab: each rank
-    scores its columns (a tied table's rows, the table entered whole) and
-    the softmax's sums are reduced over the axis."""
+    scores its columns (a tied table's rows, the table shared whole) and
+    the softmax's sums are reduced over the axis; under sequence
+    parallelism the head reads the gathered rows."""
     x, _, aux = forward_hidden(cfg, params, batch)
     labels = batch["labels"].long()
     B, S = labels.shape
+    tp, v0 = tensor_parallel.context(), 0
+    split = tp is not None and cfg.vocab_size >= tensor_parallel.VOCAB_SPLIT_MIN
+    if tp is not None and tp.seq:  # the head reads every row of the sequence
+        x = tp.enter(x) if split else tp.gather(x)
     x = x[:, -S:]
     C = min(cfg.loss_chunk, S)
     while S % C:
         C -= 1
-    tp, v0 = tensor_parallel.context(), 0
-    if tp is not None and cfg.vocab_size < tensor_parallel.VOCAB_SPLIT_MIN:
+    if not split:
         tp = None  # a whole head: every rank scores every entry
-    if tp is None:
         w = _head_weight(cfg, params)
     else:
-        x = tp.enter(x)
+        if not tp.seq:
+            x = tp.enter(x)
         v0, v1 = tensor_parallel.vocab_range(cfg.vocab_size, tp.rank, tp.size)
-        w = (tp.enter(params["embed"]["tokens"])[v0:v1].T if cfg.tie_embeddings
+        w = (tp.share(params["embed"]["tokens"])[v0:v1].T if cfg.tie_embeddings
              else params["head"])
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -955,17 +994,16 @@ def local_params(cfg, params, mesh):
     """The weights the model reads on this rank of ``mesh``: each leaf whole
     over every mesh axis but the tensor axis, and there this rank's slice
     of a leaf the model reads split (:func:`param_axes` with
-    :func:`tensor_parallel.whole_axes`: kv heads fewer than the ranks are
-    read whole).  A DTensor leaf (placed on its sharding) is gathered; a
-    plain tensor is taken as the whole leaf and cut (a view)."""
+    :func:`tensor_parallel.reads_whole`: kv heads fewer than the ranks and
+    the sLSTM recurrence are read whole).  A DTensor leaf (placed on its
+    sharding) is gathered; a plain tensor is taken as the whole leaf and
+    cut (a view)."""
     names, sizes = mesh_axes(mesh)
     size = dict(zip(names, sizes)).get(tensor_parallel.TENSOR_AXIS, 1)
-    whole = tensor_parallel.whole_axes(cfg, size)
     model_dim = (names.index(tensor_parallel.TENSOR_AXIS)
                  if tensor_parallel.TENSOR_AXIS in names else None)
 
-    def read(p, axes):
-        split = not whole.intersection(axes)
+    def read(p, axes, split):
         if isinstance(p, DTensor):
             return tensor_parallel.gather(
                 p, {i for i in range(len(names)) if not (split and i == model_dim)})
@@ -973,7 +1011,15 @@ def local_params(cfg, params, mesh):
             if split else p
 
     with torch.no_grad():
-        return tree_map(read, params, param_axes(cfg))
+        return tree_map(read, params, param_axes(cfg), split_reads(cfg, size))
+
+
+def split_reads(cfg, size: int):
+    """A tree like :func:`param_axes`' of bools: whether a rank of a tensor
+    axis of ``size`` ranks reads the leaf as its storage splits it (False:
+    whole, :func:`tensor_parallel.reads_whole`)."""
+    whole = tensor_parallel.reads_whole(cfg, size)
+    return _walk_axes(model_spec(cfg), _model_axes(cfg), lambda path, _, ax: not whole(path[-1], ax))
 
 
 def _serving(cfg, params, rows):
@@ -1022,7 +1068,10 @@ def prefill(cfg, params, batch_inputs, max_len: int):
     lay, params, batch_inputs = _serving(cfg, params, batch_inputs)
     cache = init_cache(cfg, tokens.shape[0], max_len, device=tokens.device)
     x, _, _ = forward_hidden(cfg, params, batch_inputs, cache=cache)
-    return cache, _serve_logits(cfg, params, x[:, -1:], lay)[:, 0]
+    x = x[:, -1:]
+    if lay is not None and lay.tp is not None and lay.tp.seq:  # the last rank's last row
+        x = tensor_parallel.all_gather(x, lay.tp.group, 1)[:, -1:]
+    return cache, _serve_logits(cfg, params, x, lay)[:, 0]
 
 
 def decode_step(cfg, params, cache, token, pos):

@@ -24,11 +24,27 @@ entries' gradient is 0 where the reference's ``0 * inf`` can be NaN.
 
 Gates and states compute in f32 (:func:`_wide`: f32, or f64 for a float64
 model, which the card-vs-CPU checks use as their reference).
+
+On a split tensor axis (``tp``, :mod:`~repro_torch.distributed.tensor_parallel`)
+a rank runs its whole heads of either cell, the JAX package's ``lru``
+layout.  mLSTM: its columns of ``wq`` / ``wk`` / ``wv`` / ``wz`` and rows of
+``wo``; the per-head gates are whole (shared into the region), so every
+rank computes every head's gates; the key scale stays the global
+``dh ** -0.5``.  Training and prefill carry the rank's heads' ``(C, n)``;
+a decode step gathers the token's k / v over the heads and advances the
+whole state on every rank (the cache keeps it whole, as the JAX package's
+``cache_axes`` say), computing the output of the rank's heads only.
+sLSTM: its channels of ``w{g}`` / ``b{g}`` / the state and rows of
+``wo_proj``, and its heads of the block-diagonal recurrence ``r{g}``, which
+the rank reads whole and slices, so the time loop runs no collective.
+Either cell's output leaves the region summed over the axis.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed import tensor_parallel
 
 __all__ = [
     "mlstm_init_spec",
@@ -95,11 +111,13 @@ def mlstm_init_axes(cfg):
 
 
 def _mlstm_qkvg(cfg, params, x):
+    """q, k, v (B, S, heads, dh) of the heads ``wq`` / ``wk`` / ``wv`` hold
+    (every head, or a rank's), z, and every head's gates."""
     B, S, _ = x.shape
-    di, nh, dh = _dims(cfg)
-    q = (x @ params["wq"]).reshape(B, S, nh, dh)
-    k = (x @ params["wk"]).reshape(B, S, nh, dh) * (dh**-0.5)
-    v = (x @ params["wv"]).reshape(B, S, nh, dh)
+    _, _, dh = _dims(cfg)
+    q = (x @ params["wq"]).reshape(B, S, -1, dh)
+    k = (x @ params["wk"]).reshape(B, S, -1, dh) * (dh**-0.5)
+    v = (x @ params["wv"]).reshape(B, S, -1, dh)
     z = F.silu(x @ params["wz"])
     xf = _wide(x)
     log_f = F.logsigmoid(xf @ params["wf"].to(xf.dtype) + params["bf"])
@@ -140,25 +158,33 @@ def _mlstm_chunk(q, k, v, log_f, gate_i, carry):
     return out, (C_new, n_new)
 
 
-def mlstm_apply(cfg, params, x, carry=None):
-    """Chunkwise-parallel mLSTM.  x: (B, S, D) -> ((B, S, D), (C, n))."""
+def mlstm_apply(cfg, params, x, carry=None, tp=None):
+    """Chunkwise-parallel mLSTM.  x: (B, S, D) -> ((B, S, D), (C, n)).
+    With ``tp``: this rank's heads (``carry`` and the carry returned are
+    theirs)."""
+    _, nh, dh = _dims(cfg)
+    if tp is not None:
+        x = tp.enter(x)
+        params = dict(params, **{k: tp.share(params[k]) for k in ("wi", "wf", "bi", "bf")})
     B, S, _ = x.shape
-    di, nh, dh = _dims(cfg)
     L = min(cfg.xlstm_chunk, S)
     if S % L:
         raise ValueError(f"seq {S} not divisible by xlstm_chunk {L}")
     q, k, v, z, log_f, gate_i = _mlstm_qkvg(cfg, params, x)
+    if tp is not None:
+        log_f, gate_i = log_f[..., tp.heads(nh)], gate_i[..., tp.heads(nh)]
     if carry is None:
-        cache = mlstm_init_cache(cfg, B, x.device, dtype=log_f.dtype)
-        carry = (cache["C"], cache["n"])
+        carry = (torch.zeros((B, q.shape[2], dh, dh), dtype=log_f.dtype, device=x.device),
+                 torch.zeros((B, q.shape[2], dh), dtype=log_f.dtype, device=x.device))
     outs = []
     for c in range(S // L):
         sl = slice(c * L, (c + 1) * L)
         out, carry = _mlstm_chunk(q[:, sl], k[:, sl], v[:, sl], log_f[:, sl], gate_i[:, sl],
                                   carry)
         outs.append(out)
-    h = torch.cat(outs, dim=1).reshape(B, S, di)
-    return (h.to(x.dtype) * z) @ params["wo"], carry
+    h = torch.cat(outs, dim=1).reshape(B, S, -1)
+    out = (h.to(x.dtype) * z) @ params["wo"]
+    return (out if tp is None else tp.leave(out)), carry
 
 
 def mlstm_init_cache(cfg, batch, device="cuda", lead=(), dtype=torch.float32):
@@ -171,21 +197,27 @@ def mlstm_init_cache(cfg, batch, device="cuda", lead=(), dtype=torch.float32):
     }
 
 
-def mlstm_decode_step(cfg, params, x, cache):
+def mlstm_decode_step(cfg, params, x, cache, tp=None):
     """One token, O(1) state.  x: (B, 1, D).  Returns (out, {"C", "n"}) as
-    new tensors."""
+    new tensors.  With ``tp``: the cache and the new state hold every head
+    (the token's k / v gathered over the heads); the output is this rank's
+    heads', summed over the axis."""
     B = x.shape[0]
-    di, nh, dh = _dims(cfg)
+    _, nh, _ = _dims(cfg)
     q, k, v, z, log_f, gate_i = _mlstm_qkvg(cfg, params, x)
     qf, kf, vf = (_wide(t[:, 0]) for t in (q, k, v))  # (B, NH, dh)
+    if tp is not None:
+        kf, vf = (tensor_parallel.all_gather(t, tp.group, 1) for t in (kf, vf))
     f = torch.exp(log_f[:, 0])[..., None]  # (B, NH, 1)
     i = gate_i[:, 0][..., None]
     C = f[..., None] * cache["C"] + i[..., None] * torch.einsum("bhd,bhe->bhde", kf, vf)
     n = f * cache["n"] + i * kf
-    h = torch.einsum("bhd,bhde->bhe", qf, C)
-    denom = _floor(torch.abs(torch.einsum("bhd,bhd->bh", qf, n)), 1.0)
-    h = (h / denom[..., None]).reshape(B, 1, di)
-    return (h.to(x.dtype) * z) @ params["wo"], {"C": C, "n": n}
+    Cq, nq = (C, n) if tp is None else (C[:, tp.heads(nh)], n[:, tp.heads(nh)])
+    h = torch.einsum("bhd,bhde->bhe", qf, Cq)
+    denom = _floor(torch.abs(torch.einsum("bhd,bhd->bh", qf, nq)), 1.0)
+    h = (h / denom[..., None]).reshape(B, 1, -1)
+    out = (h.to(x.dtype) * z) @ params["wo"]
+    return (out if tp is None else tp.leave(out)), {"C": C, "n": n}
 
 
 # ---------------------------------------------------------------------------
@@ -223,12 +255,14 @@ def slstm_init_cache(cfg, batch, device="cuda", lead=(), dtype=torch.float32):
 
 
 def _slstm_scan(params, nh, xf, state):
-    """The recurrence over xf (B, S, D) f32 from ``state``: returns the
-    hidden states (B, S, D) f32 and the final state."""
-    B, S, d = xf.shape
-    dh = d // nh
+    """The recurrence of ``nh`` heads (the heads ``params`` hold: every
+    one, or a rank's) over xf (B, S, D) f32 from ``state``: returns their
+    hidden states (B, S, nh * dh) f32 and the final state."""
+    B, S = xf.shape[:2]
     # Per gate, the input projection of every step plus the bias.
     pre = [xf @ params[f"w{g}"].to(xf.dtype) for g in _GATES]
+    d = pre[0].shape[-1]
+    dh = d // nh
     bias = [params[f"b{g}"].to(xf.dtype) for g in _GATES]
     r = torch.cat([params[f"r{g}"].to(xf.dtype) for g in _GATES], dim=-1)  # (NH, dh, 4 dh)
     c, n, h, m = state["c"], state["n"], state["h"], state["m"]
@@ -250,15 +284,24 @@ def _slstm_scan(params, nh, xf, state):
     return torch.stack(hs, dim=1), {"c": c, "n": n, "h": h, "m": m}
 
 
-def slstm_apply(cfg, params, x, state=None):
-    """Sequential sLSTM over the sequence.  x: (B, S, D) -> ((B, S, D), state)."""
+def slstm_apply(cfg, params, x, state=None, tp=None):
+    """Sequential sLSTM over the sequence.  x: (B, S, D) -> ((B, S, D), state).
+    With ``tp``: this rank's heads (``state`` is their channels)."""
+    nh = cfg.xlstm_heads
+    if tp is not None:
+        x = tp.enter(x)
+        params = dict(params, **{f"r{g}": tp.share(params[f"r{g}"])[tp.heads(nh)]
+                                 for g in _GATES})
+        nh //= tp.size
     xf = _wide(x)
     if state is None:
-        state = slstm_init_cache(cfg, x.shape[0], device=x.device, dtype=xf.dtype)
-    hs, state = _slstm_scan(params, cfg.xlstm_heads, xf, state)
-    return hs.to(x.dtype) @ params["wo_proj"], state
+        state = {s: torch.zeros((x.shape[0], params["wi"].shape[1]), dtype=xf.dtype,
+                                device=x.device) for s in ("c", "n", "h", "m")}
+    hs, state = _slstm_scan(params, nh, xf, state)
+    out = hs.to(x.dtype) @ params["wo_proj"]
+    return (out if tp is None else tp.leave(out)), state
 
 
-def slstm_decode_step(cfg, params, x, state):
+def slstm_decode_step(cfg, params, x, state, tp=None):
     """One token.  x: (B, 1, D).  Returns (out, state) as new tensors."""
-    return slstm_apply(cfg, params, x, state)
+    return slstm_apply(cfg, params, x, state, tp)

@@ -12,7 +12,7 @@ With a mesh and axis rules the step is data-parallel over the mesh's
 batch axes and tensor-parallel over its ``model`` axis, with the state
 sharded as :func:`state_shardings` says (DTensors; the weights' ``embed``
 dim over ``data``, ``heads`` / ``kv_heads`` / ``ffn`` / ``expert_ffn`` /
-``vocab`` over ``model``, as in the JAX package).  Each step all-gathers
+``vocab`` / ``lru`` over ``model``, as in the JAX package).  Each step all-gathers
 every parameter over the batch axes into a plain tensor (so the kernels
 see plain tensors): the rank's slice over ``model`` where the model runs
 split (:mod:`repro_torch.distributed.tensor_parallel`), the whole leaf
@@ -28,8 +28,10 @@ a compressed leaf's int8 scale is its whole gradient's, and microbatch
 collective is a plain ``torch.distributed`` call
 (:func:`~repro_torch.distributed.tensor_parallel.gather` and its
 siblings): DTensor's functional collectives fault on CUDA tensors over
-gloo.  xLSTM blocks on a ``model`` axis above 1 raise
-``NotImplementedError`` (``ROADMAP.md`` Queue A).
+gloo.  Every block kind splits over the ``model`` axis; heads or widths
+that do not split over it raise ``ValueError``.  Under rules that map
+``seq_act`` to it (``make_rules(mesh, seq_parallel=True)``) the residual
+stream is each rank's rows of the sequence (sequence parallelism).
 
 The train state is ``{"params", "opt": {"mu", "nu", "step"}}`` plus
 ``"error_fb"`` under compression, the JAX package's tree; parameters are
@@ -271,14 +273,14 @@ def _sharded_grads(cfg, train_cfg, mesh, rules):
         local_cfg = dataclasses.replace(cfg, moe_groups=cfg.moe_groups // R)
     n_mb = max(train_cfg.microbatches, 1)
     # Which leaves the model reads split over the tensor axis (the rest it
-    # reads whole: a leaf replicated there, or kv heads fewer than ranks).
-    whole = tensor_parallel.whole_axes(cfg, tp)
-    split = _map_axes(lambda ax: not whole.intersection(ax), transformer.param_axes(cfg))
+    # reads whole: a leaf replicated there, kv heads fewer than ranks, the
+    # sLSTM recurrence).
+    split = transformer.split_reads(cfg, tp)
     model_dim = names.index(TENSOR_AXIS) if TENSOR_AXIS in names else None
 
     def objective(loss, metrics):
-        c = metrics["tokens"]
-        share = c / _reduce(c.detach(), mesh, data_dims)
+        c = metrics["tokens"]  # f32; the share in the loss's dtype (float64 stays exact)
+        share = c.to(loss.dtype) / _reduce(c.detach(), mesh, data_dims).to(loss.dtype)
         target = metrics["xent"] * share + 0.01 * metrics["aux"] / R
         tot = _reduce(torch.stack([target.detach(), (metrics["xent"] * share).detach(),
                                    (metrics["aux"] / R).detach(), c.detach()]), mesh, data_dims)

@@ -156,17 +156,73 @@ def test_reckoned_collectives_hand_count():
     gather = 2 * (256 // 4 + 256 // 4 + 32 + 512 // 4)
     # gradient reduce-scatter: the full shard; bi's all-reduce over data.
     scatter = 256 // 8 + 256 // 8 + 32 // 2 + 512 // 8
-    # activation all-reduce after a contraction on model, twice:
-    # wo 32 tokens x 8 x 2 bytes; the expert wo 32 x top-2 x 8 x 2.
-    reduce = 16 + 2 * (32 * 8 * 2 + 32 * 2 * 8 * 2)
+    # activation all-reduce after a contraction on model, twice, and once
+    # more for the region input's gradient: wo 32 tokens x 8 x 2 bytes; the
+    # expert wo 32 x top-2 x 8 x 2.
+    reduce = 16 + 3 * (32 * 8 * 2 + 32 * 2 * 8 * 2)
     assert out == {"all-gather": gather, "reduce-scatter": scatter, "all-reduce": reduce}
-    assert count == {"all-gather": 8, "reduce-scatter": 4, "all-reduce": 5}
+    assert count == {"all-gather": 8, "reduce-scatter": 4, "all-reduce": 7}
     out, count = rf.reckon_collectives(weights, rules, m, tokens=64, itemsize=2, train=False,
                                        top_k=2)
-    assert out == {"all-gather": gather // 2, "all-reduce": (reduce - 16) // 2}
+    assert out == {"all-gather": gather // 2, "all-reduce": (reduce - 16) // 3}
     dec = mesh.make_rules(m, decode_opt=True)  # weights not sharded over data
     out, _ = rf.reckon_collectives(weights, dec, m, tokens=64, itemsize=2, train=False, top_k=2)
     assert "all-gather" not in out
+
+
+_SP_WEIGHTS = [
+    (("attn", "wq"), (8, 16), ("embed", "heads"), 2),
+    (("attn", "wo"), (16, 8), ("heads", "embed"), 2),
+    (("moe", "wo"), (2, 16, 8), ("experts", "expert_ffn", "embed"), 2),
+]
+
+
+@pytest.mark.parametrize("train", [True, False], ids=["train", "prefill"])
+def test_reckoned_collectives_sequence_parallel(train):
+    """RULES_2D_SP on the (2, 4) mesh: each activation all-reduce of a
+    train step or a prefill becomes one reduce-scatter (its result over the
+    4 model ranks) and one all-gather of its size; the weights' collectives
+    are RULES_2D's; a decode step keeps the all-reduce."""
+    m = mesh.MeshShape((2, 4), ("data", "model"))
+    kw = dict(tokens=64, itemsize=2, train=train, top_k=2)
+    base, _ = rf.reckon_collectives(_SP_WEIGHTS, mesh.make_rules(m), m, **kw)
+    out, count = rf.reckon_collectives(_SP_WEIGHTS, mesh.make_rules(m, seq_parallel=True), m,
+                                       **kw)
+    n = 3 if train else 1  # forward, remat's forward, the input's gradient
+    act = n * (32 * 8 * 2 + 32 * 2 * 8 * 2)
+    assert base["all-reduce"] == act
+    assert out == {"all-gather": base["all-gather"] + act,
+                   "reduce-scatter": base.get("reduce-scatter", 0) + act // 4}
+    # three weights gathered over data per pass, two activations per call
+    assert count["all-gather"] == 3 * (2 if train else 1) + 2 * n
+    dec = rf.reckon_collectives(_SP_WEIGHTS, mesh.make_rules(m, seq_parallel=True), m,
+                                decode=True, **kw)
+    assert dec == rf.reckon_collectives(_SP_WEIGHTS, mesh.make_rules(m), m, decode=True, **kw)
+
+
+def test_reckoned_collectives_skip_one_rank_axes():
+    """On a (1, 4) mesh the data axis has one rank: no weight is gathered or
+    its gradient scattered over it; the activations' all-reduces remain."""
+    m = mesh.MeshShape((1, 4), ("data", "model"))
+    out, count = rf.reckon_collectives(_SP_WEIGHTS, mesh.make_rules(m), m, tokens=64,
+                                       itemsize=2, train=True, top_k=2)
+    assert out == {"all-reduce": 3 * (64 * 8 * 2 + 64 * 2 * 8 * 2)}
+    assert count == {"all-reduce": 6}
+
+
+@pytest.mark.parametrize("seq_parallel", [False, True], ids=["RULES_2D", "RULES_2D_SP"])
+def test_reckoned_collectives_tied_vocab(seq_parallel):
+    """A tied token table that the loss reads as its vocab-split head: a
+    train step all-reduces the table's gradient over the tensor axis (its
+    whole bytes); a prefill, or an untied table, adds nothing."""
+    m = mesh.MeshShape((1, 4), ("data", "model"))
+    rules = mesh.make_rules(m, seq_parallel=seq_parallel)
+    table = [(("embed", "tokens"), (2048, 8), (None, "embed"), 2)]
+    kw = dict(tokens=64, itemsize=2, top_k=1)
+    assert rf.reckon_collectives(table, rules, m, train=True, tied_vocab=True, **kw) == (
+        {"all-reduce": 2048 * 8 * 2}, {"all-reduce": 1})
+    assert rf.reckon_collectives(table, rules, m, train=False, tied_vocab=True, **kw) == ({}, {})
+    assert rf.reckon_collectives(table, rules, m, train=True, **kw) == ({}, {})
 
 
 # ---------------------------------------------------------------------------

@@ -245,15 +245,16 @@ def test_make_mesh_needs_a_process_group():
 
 @pytest.mark.parametrize("arch,over,size,error,match", [
     ("recurrentgemma-2b", {"lru_width": 66}, 4, ValueError, "lru width 66 does not split over 4"),
-    ("xlstm-350m", {"pattern": ("mlstm",)}, 2, NotImplementedError, r"\['mlstm'\].*Queue A"),
-    ("xlstm-350m", {"pattern": ("slstm",)}, 2, NotImplementedError, r"\['slstm'\].*Queue A"),
+    ("xlstm-350m", {"pattern": ("mlstm",)}, 3, ValueError, "4 xLSTM heads .* whole heads over 3"),
+    ("xlstm-350m", {"pattern": ("slstm",), "xlstm_heads": 2}, 4, ValueError,
+     "2 xLSTM heads .* whole heads over 4"),
     ("llama3-8b", {"n_heads": 6, "n_kv_heads": 2}, 4, ValueError, "whole groups over 4"),
     ("llama3-8b", {"n_heads": 8, "n_kv_heads": 8}, 3, ValueError, "whole groups over 3"),
 ], ids=["recurrent", "mlstm", "slstm", "heads-6-over-4", "heads-8-over-3"])
 def test_tensor_axis_raises(world1, arch, over, size, error, match):
-    """A ``model`` axis above 1 runs the attention, MoE and RG-LRU stacks; a
-    block kind it cannot split (xLSTM), an RG-LRU width or heads that do not
-    split into whole groups, raise before the step is built."""
+    """A ``model`` axis above 1 runs every block kind; an RG-LRU width,
+    attention heads that do not split into whole groups or xLSTM heads that
+    do not split into whole heads raise before the step is built."""
     m = mesh.make_mesh((1, 1), ("data", "model"), device="cpu")
     wide = types.SimpleNamespace(mesh_dim_names=("data", "model"), shape=(1, size))
     with pytest.raises(error, match=match):

@@ -1,11 +1,13 @@
-"""The processes of ``test_torch_tensor_parallel.py`` and
-``test_torch_tp_serve.py``: four gloo ranks of the port, or the JAX package
-on four forced host devices.
+"""The processes of ``test_torch_tensor_parallel.py``,
+``test_torch_tp_serve.py`` and ``test_torch_tp_xlstm_sp.py``: four gloo
+ranks of the port, or the JAX package on four forced host devices.
 
     python torch_tp_worker.py rank RANK WORLD STORE_FILE OUT_DIR
     python torch_tp_worker.py jax OUT_DIR
     python torch_tp_worker.py serve-rank RANK WORLD STORE_FILE OUT_DIR
     python torch_tp_worker.py serve-jax OUT_DIR
+    python torch_tp_worker.py xsp-rank RANK WORLD STORE_FILE OUT_DIR
+    python torch_tp_worker.py xsp-jax OUT_DIR
 
 Training (``rank`` / ``jax``):
 
@@ -45,10 +47,39 @@ Serving (``serve-rank`` / ``serve-jax``) reads ``OUT_DIR/serve.pkl``:
   ``OUT_DIR/serve_jax_{run}.npz``.
 
 ``{run}`` is ``{name}_{data}x{model}_{table}``.
+
+The xLSTM split and sequence parallelism (``xsp-rank`` / ``xsp-jax``) read
+``OUT_DIR/xsp.pkl``: ``{"train": {name: (arch, overrides, state, batch)},
+"serve": {name: (arch, overrides, params, prompt, max_len, steps)},
+"runs": [(kind, name, (data, model), table), ...], "jax_runs": [the runs
+the JAX process takes too], "f64": [names], "probe": (arch, overrides,
+state, batch)}``; ``kind`` is ``train`` or ``serve``, ``table`` a rule
+table of ``distributed/api.py``.  A case named
+in ``f64`` runs in float64 on both sides (every parameter widened; the
+JAX modules' ``jnp`` seen through ``jax_f64.Jnp64`` under
+``jax.enable_x64``).  A mesh of fewer ranks than the world runs as
+``WORLD / (data * model)`` replicas of it (a ("rep", "data", "model")
+mesh, each rank on its replica's submesh); JAX places it on the first
+devices.  Per run:
+
+* a port rank of a ``train`` run takes the sharded gradients
+  (``make_grads_fn(..., mesh=, rules=)``) and the unsharded ones, and
+  records the shape of every block's input (the residual stream between
+  blocks); rank 0 writes ``grad/PATH``, ``metric/NAME``, ``plain/PATH``,
+  ``plain_metric/NAME`` and ``residual`` (the distinct shapes) to
+  ``OUT_DIR/xsp_torch_train_{run}_r0.npz``; a ``serve`` run writes what
+  ``serve-rank`` writes, to ``OUT_DIR/xsp_torch_serve_{run}_r{rank}.npz``;
+* the JAX process writes ``grad/PATH`` and ``metric/NAME`` (``train``) or
+  ``logits`` and ``tokens`` (``serve``) to
+  ``OUT_DIR/xsp_jax_{kind}_{run}.npz``;
+* every port rank also runs the ``probe``'s gradients on (1, 4) under
+  ``RULES_2D_SP``, a sequence that does not split over the 4 ranks, and
+  rank 0 writes the ``ValueError``'s message to ``OUT_DIR/xsp_probe.txt``.
 """
 import os
 import pickle
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -278,6 +309,247 @@ def run_serve_jax(out):
                  logits=np.stack(outs), tokens=np.stack(toks))
 
 
+def _f64_tree(tree):
+    """Every floating leaf of a parameter / state tree widened to float64."""
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t: t.detach().double().requires_grad_(t.requires_grad)
+                    if t.is_floating_point() else t, tree)
+
+
+def _xsp_mesh(shape, world, cache):
+    """The port's ("data", "model") mesh of ``shape``: over the world, or
+    over this rank's replica of a ("rep", "data", "model") mesh."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch.mesh import make_mesh
+
+    if shape not in cache:
+        n = shape[0] * shape[1]
+        cache[shape] = (make_mesh(shape, ("data", "model"), device="cpu") if n == world else
+                        init_device_mesh("cpu", (world // n, *shape),
+                                         mesh_dim_names=("rep", "data", "model"))
+                        ["data", "model"])
+    return cache[shape]
+
+
+def run_xsp_ranks(rank, world, store, out):
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.archs import reduced
+    from repro_torch.distributed import api
+    from repro_torch.distributed.tensor_parallel import gather, gather_tree, shard_tree
+    from repro_torch.models import transformer as T
+    from repro_torch.training import (
+        TrainConfig, make_grads_fn, place_state, state_shardings, train_state_from_numpy,
+    )
+    from repro_torch.tree import named_leaves, tree_map
+
+    torch.set_num_threads(1)  # four ranks share the host's cores
+    spec = pickle.loads((Path(out) / "xsp.pkl").read_bytes())
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    meshes, shapes = {}, []
+    apply_block = T.apply_block
+
+    def recording(cfg, kind, p, x, ctx, cache):  # the residual stream a block reads
+        shapes.append(tuple(x.shape))
+        return apply_block(cfg, kind, p, x, ctx, cache)
+
+    def train_state(name):
+        arch, over, state_np, batch_np = spec["train"][name]
+        cfg = reduced(arch, **over)
+        state = train_state_from_numpy(cfg, state_np, device="cpu")
+        if name in spec["f64"]:
+            cfg, state = dataclasses.replace(cfg, dtype="float64"), _f64_tree(state)
+        return cfg, state, {k: torch.from_numpy(v) for k, v in batch_np.items()}
+
+    try:
+        for kind, name, shape, table in spec["runs"]:
+            t0 = time.perf_counter()
+            mesh = _xsp_mesh(shape, world, meshes)
+            rules = api.AxisRules(mesh, getattr(api, table))
+            tag = run_tag(name, shape, table)
+            if kind == "train":
+                cfg, state, batch = train_state(name)
+                placed = place_state(state, state_shardings(cfg, mesh, rules))
+                shapes.clear()
+                T.apply_block = recording
+                try:
+                    loss, metrics, grads = make_grads_fn(cfg, TrainConfig(), mesh=mesh,
+                                                         rules=rules)(placed["params"], batch)
+                finally:
+                    T.apply_block = apply_block
+                grads = {k: gather(g).numpy() for k, g in named_leaves(grads)}
+                ploss, pmetrics, pgrads = make_grads_fn(cfg)(state["params"], batch)
+                if rank == 0:
+                    np.savez(Path(out) / f"xsp_torch_train_{tag}_r0.npz",
+                             residual=np.array(sorted(set(shapes))),
+                             **{f"grad/{k}": v for k, v in grads.items()},
+                             **{f"metric/{k}": v.numpy() for k, v in
+                                {"loss": loss, **metrics}.items()},
+                             **{f"plain/{k}": v.numpy() for k, v in named_leaves(pgrads)},
+                             **{f"plain_metric/{k}": v.detach().numpy() for k, v in
+                                {"loss": ploss, **pmetrics}.items()})
+                print(f"{kind} {tag}: {time.perf_counter() - t0:.1f} s", flush=True)
+                continue
+            arch, over, params_np, prompt_np, max_len, steps = spec["serve"][name]
+            cfg = reduced(arch, **over)
+            params = T.params_from_numpy(cfg, params_np, device="cpu")
+            if name in spec["f64"]:
+                cfg, params = dataclasses.replace(cfg, dtype="float64"), _f64_tree(params)
+            prompt = torch.from_numpy(prompt_np)
+            with torch.no_grad():
+                plain = serve_port(T, cfg, params, prompt, max_len, steps)
+                if not table.endswith("_DEC"):  # placed on their shardings, as build_cell's
+                    params = place_state(params, tree_map(
+                        lambda p, ax, mesh=mesh, rules=rules: api.named_sharding(mesh, rules, ax),
+                        params, T.param_axes(cfg)))
+                axes = T.cache_axes(cfg)
+                with api.axis_rules(rules):
+                    logits, toks, cache = serve_port(T, cfg, params, prompt, max_len, steps)
+                    want = shard_tree(plain[2], axes)
+                    whole = gather_tree(cache, axes)
+            res = {**{f"local/{k}": v.numpy() for k, v in named_leaves(cache)},
+                   **{f"want/{k}": v.numpy() for k, v in named_leaves(want)}}
+            if rank == 0:
+                res.update({f"whole/{k}": v.numpy() for k, v in named_leaves(whole)})
+                res.update({f"plain/{k}": v.numpy() for k, v in named_leaves(plain[2])})
+                res.update(logits=logits.numpy(), tokens=toks.numpy(),
+                           plain_logits=plain[0].numpy(), plain_tokens=plain[1].numpy())
+            np.savez(Path(out) / f"xsp_torch_serve_{tag}_r{rank}.npz", **res)
+            print(f"{kind} {tag}: {time.perf_counter() - t0:.1f} s", flush=True)
+        # A sequence that does not split over the tensor axis.
+        arch, over, state_np, batch_np = spec["probe"]
+        cfg = reduced(arch, **over)
+        mesh = _xsp_mesh((1, 4), world, meshes)
+        rules = api.AxisRules(mesh, api.RULES_2D_SP)
+        state = place_state(train_state_from_numpy(cfg, state_np, device="cpu"),
+                            state_shardings(cfg, mesh, rules))
+        try:
+            make_grads_fn(cfg, TrainConfig(), mesh=mesh, rules=rules)(
+                state["params"], {k: torch.from_numpy(v) for k, v in batch_np.items()})
+            said = "no error"
+        except ValueError as e:
+            said = str(e)
+        if rank == 0:
+            (Path(out) / "xsp_probe.txt").write_text(said)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_xsp_jax(out):
+    # Four host devices, one thread each: the test shares the host's cores.
+    os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=4 "
+                               "--xla_cpu_multi_thread_eigen=false intra_op_parallelism_threads=1")
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    import contextlib
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    from jax_f64 import Jnp64
+    from repro.configs.archs import reduced
+    from repro.distributed import api
+    from repro.models import layers as jlayers
+    from repro.models import transformer as JT
+    from repro.models import xlstm as jxlstm
+
+    spec = pickle.loads((Path(out) / "xsp.pkl").read_bytes())
+
+    def is_axes(x):
+        return isinstance(x, tuple) and all(isinstance(e, (str, type(None))) for e in x)
+
+    def flat(tree):
+        return {"/".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path):
+                np.asarray(v) for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+    @contextlib.contextmanager
+    def float64(on):
+        if not on:
+            yield
+            return
+        mods = (jlayers, jxlstm, JT)
+        saved = [m.jnp for m in mods]
+        for m in mods:
+            m.jnp = Jnp64()
+        try:
+            with jax.enable_x64(True):
+                yield
+        finally:
+            for m, j in zip(mods, saved):
+                m.jnp = j
+
+    for kind, name, shape, table in spec["jax_runs"]:
+        t0 = time.perf_counter()
+        f64 = name in spec["f64"]
+        arch, over, tree_np = spec[kind][name][:3]
+        cfg = reduced(arch, **over)
+        n = shape[0] * shape[1]
+        mesh = jax.sharding.Mesh(np.array(jax.devices()[:n]).reshape(shape), ("data", "model"))
+        rules = api.AxisRules(mesh, getattr(api, table))
+
+        def sharding(axes, mesh=mesh, rules=rules):
+            return jax.tree.map(lambda ax: api.named_sharding(mesh, rules, ax), axes,
+                                is_leaf=is_axes)
+
+        p_sh = sharding(JT.param_axes(cfg))
+        b_sh = api.named_sharding(mesh, rules, ("batch",))
+        with float64(f64):
+            if f64:
+                cfg = dataclasses.replace(cfg, dtype="float64")
+            wide = (lambda a: np.asarray(a, np.float64)) if f64 else jnp.asarray
+            if kind == "train":
+                params = jax.device_put(jax.tree.map(wide, tree_np["params"]), p_sh)
+                batch_np = spec["train"][name][3]
+                batch = jax.device_put({k: jnp.asarray(v) for k, v in batch_np.items()}, b_sh)
+
+                def loss_grads(params, batch, cfg=cfg, rules=rules):
+                    with api.axis_rules(rules):
+                        return jax.value_and_grad(lambda p: JT.loss_fn(cfg, p, batch),
+                                                  has_aux=True)(params)
+
+                (loss, metrics), grads = jax.jit(loss_grads, in_shardings=(p_sh, b_sh))(
+                    params, batch)
+                np.savez(Path(out) / f"xsp_jax_train_{run_tag(name, shape, table)}.npz",
+                         **{f"grad/{k}": v for k, v in flat(grads).items()},
+                         **{f"metric/{k}": np.asarray(v) for k, v in
+                            {"loss": loss, **metrics}.items()})
+                print(f"{kind} {run_tag(name, shape, table)}: {time.perf_counter() - t0:.1f} s",
+                      flush=True)
+                continue
+            _, _, _, prompt_np, max_len, steps = spec["serve"][name]
+            c_sh = sharding(JT.cache_axes(cfg))
+
+            def prefill_fn(params, inputs, cfg=cfg, rules=rules, max_len=max_len):
+                with api.axis_rules(rules):
+                    return JT.prefill(cfg, params, inputs, max_len=max_len)
+
+            def decode_fn(params, cache, token, pos, cfg=cfg, rules=rules):
+                with api.axis_rules(rules):
+                    return JT.decode_step(cfg, params, cache, token, pos)
+
+            prefill = jax.jit(prefill_fn, in_shardings=(p_sh, b_sh))
+            decode = jax.jit(decode_fn, in_shardings=(p_sh, c_sh, b_sh, b_sh))
+            params = jax.device_put(jax.tree.map(wide, tree_np), p_sh)
+            cache, logits = prefill(params, {"tokens": jnp.asarray(prompt_np)})
+            outs, toks = [np.asarray(logits)], []
+            B, S = prompt_np.shape
+            for i in range(steps):
+                toks.append(np.asarray(logits).argmax(-1).astype(np.int32))
+                logits, cache = decode(params, jax.device_put(cache, c_sh),
+                                       jnp.asarray(toks[-1]), jnp.full((B,), S + i, jnp.int32))
+                outs.append(np.asarray(logits))
+            np.savez(Path(out) / f"xsp_jax_serve_{run_tag(name, shape, table)}.npz",
+                     logits=np.stack(outs), tokens=np.stack(toks))
+            print(f"{kind} {run_tag(name, shape, table)}: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+
+
 if __name__ == "__main__":
     if sys.argv[1] == "rank":
         run_ranks(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
@@ -285,5 +557,9 @@ if __name__ == "__main__":
         run_serve_ranks(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
     elif sys.argv[1] == "serve-jax":
         run_serve_jax(sys.argv[2])
+    elif sys.argv[1] == "xsp-rank":
+        run_xsp_ranks(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
+    elif sys.argv[1] == "xsp-jax":
+        run_xsp_jax(sys.argv[2])
     else:
         run_jax(sys.argv[2])
