@@ -272,15 +272,18 @@ Phases (each passes or raises; any failure exits non-zero with no result):
    gemma-2b and xlstm-350m on a (1, 4) ("data", "model") mesh and
    olmoe-1b-7b on (2, 2), full width at 2 layers (xlstm-350m one period,
    7 mLSTM + 1 sLSTM, at 8 x 128 tokens), batch 2 x 2048, then llama3-8b
-   again under ``RULES_2D_SP`` (sequence parallelism): bf16 train steps
+   again under ``RULES_2D_SP`` (sequence parallelism) and recurrentgemma-2b
+   on (1, 4), one period, its 10 heads 3 / 3 / 2 / 2 a rank: bf16 train steps
    through the kernels at each rank's heads (launches counted per rank),
    the gradient in bf16 and in float64 against the unsharded ones (see
    ``phase_tensor_parallel``), per-rank step ms, memory and the bytes of
    every collective held to ``launch/roofline.py``'s reckoning (the
    xLSTM's cells teacher-forced: its whole-model gradient is chaotic);
    then, in the same processes, the serving cases
-   (``phase_tensor_parallel_serve``: prefill and greedy decode, xlstm-350m
-   and llama3-8b under ``RULES_2D_SP`` among them).
+   (``phase_tensor_parallel_serve``: prefill and greedy decode, xlstm-350m,
+   recurrentgemma-2b on (1, 4) and llama3-8b under ``RULES_2D_SP`` among
+   them, the last also prefilling a prompt of ``TPS_ODD_PROMPT`` tokens,
+   which the four ranks do not split, against the unsharded prefill).
 
 Every run measures every column of the kernels line: each serve phase (the
 zoo's serve paths included) and each train run set the launch counters to
@@ -633,8 +636,10 @@ def phase_kernels(torch, full):
         (1, 10, 2, 100, 128, True, 0), (2, 2, 1, 37, 16, True, 0),
         (1, 8, 1, 70, 256, True, 0), (1, 4, 2, 200, 64, False, 48),
         (2, 40, 8, 128, 128, True, 0),
-        # recurrentgemma's local layers: G = 10, D = 256, windowed
+        # recurrentgemma's local layers: G = 10, D = 256, windowed; a
+        # tensor-parallel rank's 3 of its 10 heads over the one kv head
         (2, 10, 1, 256, 256, True, 0), (1, 10, 1, 300, 256, True, 128),
+        (2, 3, 1, 256, 256, True, 0), (1, 3, 1, 300, 256, True, 128),
         # long and ragged S at D = 128 / 256 (a wrong fragment order in the
         # tensor-core kernel passes at S <= 64 and fails here)
         (1, 4, 1, 1000, 128, True, 0), (1, 2, 1, 2047, 256, True, 0),
@@ -1312,6 +1317,9 @@ def _bwd_sweep(torch, gen) -> int:
         (1, 8, 8, 2047, 96, True, 0), (1, 10, 2, 2100, 80, True, 100),
         (2, 4, 4, 2100, 96, False, 65), (1, 10, 1, 1000, 96, True, 130),
         (1, 8, 2, 2047, 80, False, 0),
+        # a tensor-parallel rank of recurrentgemma-2b: 3 or 2 of its 10
+        # heads over the one kv head
+        (1, 3, 1, 1000, 256, True, 0), (2, 2, 1, 517, 256, True, 130),
     ]
     train_scale_cases = [
         (1, 8, 1, 2048, 256, True, 0), (1, 10, 1, 2048, 256, True, 1000),
@@ -4187,10 +4195,14 @@ TP_WORLD = 4
 # cut to SHARDED_LAYERS, or to one period where a period is longer
 # (xlstm-350m's 7 mLSTM + 1 sLSTM blocks); olmoe's MoE groups split over its
 # two data ranks; llama3-8b a second time under RULES_2D_SP, its residual
-# stream split over the sequence (``distributed/tensor_parallel.py``).
+# stream split over the sequence (``distributed/tensor_parallel.py``);
+# recurrentgemma-2b (one period: 2 RG-LRU + 1 local-attention blocks) with
+# its 10 heads over the four ranks, 3 / 3 / 2 / 2 a rank, cut from the whole
+# ``wq`` / ``wo`` (heads that GSPMD pads).
 TP_CASES = (("llama3-8b", (1, 4), {}, "RULES_2D"), ("gemma-2b", (1, 4), {}, "RULES_2D"),
             ("olmoe-1b-7b", (2, 2), {"moe_groups": 2}, "RULES_2D"),
-            ("xlstm-350m", (1, 4), {}, "RULES_2D"), ("llama3-8b", (1, 4), {}, "RULES_2D_SP"))
+            ("xlstm-350m", (1, 4), {}, "RULES_2D"), ("llama3-8b", (1, 4), {}, "RULES_2D_SP"),
+            ("recurrentgemma-2b", (1, 4), {}, "RULES_2D"))
 # Each case's train batch: TRAIN_BATCH x TRAIN_SEQ, xlstm-350m at its train
 # command's 8 x 128 (ROADMAP.md Queue C item 5: its bf16 gradient is not
 # finite at 2048 tokens a row).
@@ -4249,8 +4261,8 @@ def _tp_heads(cfg, rank, size):
 
     if any(k in ("attn", "local", "moe") for k in cfg.layer_kinds()):
         return dataclasses.asdict(tpm.local_heads(cfg, rank, size))
-    per = cfg.xlstm_heads // size
-    return {"xlstm_heads": [rank * per, (rank + 1) * per]}
+    start, count = tpm.head_range(cfg.xlstm_heads, rank, size)
+    return {"xlstm_heads": [start, start + count]}
 
 
 def _widen(torch, p, dtype):
@@ -4539,7 +4551,7 @@ def _tp_cells(torch, cfg, rules, B, S):
                     tp = tpm.context() if split else None
                     whole = tpm.reads_whole(cfg, tp.size) if split else None
                     leaves = {k: (tpm.local_slice(t, axes[k], only=(tpm.TENSOR_AXIS,))
-                                  if split and not whole(k, axes[k]) else t)
+                                  if split and not whole(("cell", k), axes[k]) else t)
                               .detach().clone().requires_grad_(True) for k, t in wide.items()}
                     hin = h.to(getattr(torch, dtype)).requires_grad_(True)
                     ctx = dataclasses.replace(plain, tp=tp)
@@ -4547,7 +4559,7 @@ def _tp_cells(torch, cfg, rules, B, S):
                     named = [("h", hin)] + list(named_leaves(leaves))
                     got = torch.autograd.grad(out, [t for _, t in named], cot.to(out.dtype))
                     got = {name: (tpm.gather_axes(g, axes[name])
-                                  if split and name != "h" and not whole(name, axes[name])
+                                  if split and name != "h" and not whole(("cell", name), axes[name])
                                   else g).double()
                            for (name, _), g in zip(named, got)}
                 grads[(dtype, split)] = got
@@ -4570,18 +4582,11 @@ def _tp_cells(torch, cfg, rules, B, S):
 
 
 def _tp_mesh(shape, world):
-    """The ("data", "model") mesh of ``shape`` over the ``world`` ranks, or,
-    when it has fewer ranks, over this rank's replica of a ("rep", "data",
-    "model") mesh (each replica runs the same case)."""
-    from torch.distributed.device_mesh import init_device_mesh
-
+    """The ("data", "model") mesh of ``shape`` over the ``world`` ranks."""
     from repro_torch.launch.mesh import make_mesh
 
-    n = shape[0] * shape[1]
-    if n == world:
-        return make_mesh(shape, ("data", "model"))
-    return init_device_mesh("cuda", (world // n, *shape),
-                            mesh_dim_names=("rep", "data", "model"))["data", "model"]
+    check(shape[0] * shape[1] == world, f"a {shape} mesh over {world} ranks")
+    return make_mesh(shape, ("data", "model"))
 
 
 def _tp_rank(torch, rank, world, store, out_dir):
@@ -4863,21 +4868,27 @@ def phase_tensor_parallel(torch, card):
 # ---------------------------------------------------------------------------
 # (arch, (data, model) mesh, rule table, layers): full width, depth cut as
 # the training phase cuts it (recurrentgemma-2b and xlstm-350m keep one
-# period of their pattern; recurrentgemma-2b's 10 heads split over 2 ranks,
-# not 4).  olmoe-1b-7b's one MoE group is whole on both data ranks
+# period of their pattern; recurrentgemma-2b's 10 heads over 4 ranks, 3 / 3
+# / 2 / 2 a rank).  olmoe-1b-7b's one MoE group is whole on both data ranks
 # (RULES_2D_DEC leaves ``moe_groups`` unsplit).  llama3-8b a second time
-# under RULES_2D_SP: its prefill's residual stream split over the sequence.
+# under RULES_2D_SP: its prefill's residual stream split over the sequence,
+# and a prefill of TPS_ODD_PROMPT tokens, which the four ranks do not split
+# (padded to 4 blocks of 128 rows), against the unsharded prefill.
 TPS_CASES = (("llama3-8b", (1, 4), "RULES_2D", SHARDED_LAYERS),
              ("gemma-2b", (1, 4), "RULES_2D", SHARDED_LAYERS),
              ("olmoe-1b-7b", (2, 2), "RULES_2D_DEC", SHARDED_LAYERS),
              ("xlstm-350m", (1, 4), "RULES_2D", 8),
              ("llama3-8b", (1, 4), "RULES_2D_SP", SHARDED_LAYERS),
-             ("recurrentgemma-2b", (1, 2), "RULES_2D", 3))
+             ("recurrentgemma-2b", (1, 4), "RULES_2D", 3))
 # Batch, prompt, max_len (the ring: 2048 slots a rank at 4 ranks, so ranks
 # 1-3 hold no valid slot while the prompt and the decoded tokens fill rank
 # 0's), decode steps.
 TPS_BATCH, TPS_PROMPT, TPS_MAX_LEN, TPS_STEPS = 4, 512, 8192, 16
 TPS_LOGIT_BOUND = 3.0  # times the unsharded bf16 run's whole-run error against float64
+TPS_ODD_PROMPT = 509  # a prompt the 4 ranks do not split (sequence parallelism)
+# The odd prompt's float64 prefill on the mesh against the unsharded one
+# (relative Frobenius of the logits): the same sums in another order.
+TPS_ODD_F64_RTOL = 1e-8
 
 
 def _tps_case(torch, rank, world, arch, shape, table, layers):
@@ -5049,19 +5060,74 @@ def _tps_case(torch, rank, world, arch, shape, table, layers):
                    argmax_agree=float((tp_logits.argmax(-1) == plain["logits"].argmax(-1))
                                       .float().mean()))
         del plain, exact
-    del tp_logits, base
+    del tp_logits
     torch.cuda.empty_cache()
     dist.barrier()
     lap("bf16 unsharded")
+    if table.endswith("_SP"):
+        out["odd"] = _tps_odd_prefill(torch, dist, T, cfg, rules, prompt[:, :TPS_ODD_PROMPT],
+                                      weights, rank)
+        lap("odd prompt")
+    del base
+    torch.cuda.empty_cache()
     out["seconds"] = seconds
     return out
+
+
+def _tps_odd_prefill(torch, dist, T, cfg, rules, prompt, weights, rank):
+    """A prefill of ``prompt``, whose length the tensor axis does not split
+    (sequence parallelism pads it), on the mesh and unsharded: float64 (the
+    plain kernels; rank 0 alone unsharded), and bf16 through the kernels
+    (the launches, ms and collective bytes on the mesh).  Rank 0 returns
+    the logits' relative Frobenius distances: float64 mesh vs unsharded,
+    and each bf16 run vs the unsharded float64."""
+    import dataclasses
+
+    from repro_torch.distributed import api
+    from repro_torch.kernels import ops
+
+    def prefill(dtype, params, sharded, timed=False):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        ctx = api.axis_rules(rules) if sharded else contextlib.nullcontext()
+        with torch.no_grad(), ctx, _counting_collectives(dist, last=timed) as traffic:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, logits = T.prefill(c, params, {"tokens": prompt}, TPS_MAX_LEN)
+            torch.cuda.synchronize()
+        return logits.double(), (time.perf_counter() - t0) * 1e3, traffic
+
+    found = dict(prompt=prompt.shape[1])
+    exact = plain = None
+    if rank == 0:
+        with plain_kernels():
+            exact = prefill("float64", weights("float64", False), False)[0]
+        plain = prefill("bfloat16", weights("bfloat16", False), False)
+        torch.cuda.empty_cache()
+    dist.barrier()
+    with plain_kernels():
+        mesh64 = prefill("float64", weights("float64", True), True)[0]
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    logits, ms, traffic = prefill("bfloat16", weights("bfloat16", True), True, timed=True)
+    found.update(launches=ops.launch_counts(), prefill_ms=ms, prefill_traffic=traffic)
+    if rank == 0:
+        def rel(x):
+            return float((x - exact).norm() / exact.norm())
+
+        found.update(f64_err=rel(mesh64), bf16_err=rel(logits), bf16_plain_err=rel(plain[0]),
+                     f64_argmax_equal=bool(torch.equal(mesh64.argmax(-1), exact.argmax(-1))),
+                     plain_prefill_ms=plain[1])
+    del exact, plain, mesh64, logits
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return found
 
 
 def phase_tensor_parallel_serve(torch, card, ranks):
     """Serving on a split ``model`` axis: for each case of ``TPS_CASES``, the
     readings ``ranks`` of the ``TP_WORLD`` rank processes of
-    :func:`phase_tensor_parallel` on the one card over gloo (``_tps_case``;
-    a mesh of fewer ranks as replicas of it): prefill of ``TPS_BATCH`` x ``TPS_PROMPT`` tokens into a
+    :func:`phase_tensor_parallel` on the one card over gloo (``_tps_case``):
+    prefill of ``TPS_BATCH`` x ``TPS_PROMPT`` tokens into a
     ``TPS_MAX_LEN`` ring split over the ranks' slots, then ``TPS_STEPS``
     decode steps, each rank's decode kernel over its slots for every head
     with the LSE, the rows folded across the ranks.  Checks: float64 tokens
@@ -5143,6 +5209,34 @@ def phase_tensor_parallel_serve(torch, card, ranks):
               f"tensor parallel serve {label}: bf16 logits {head['err_tp_run']} (relative, "
               f"the whole run) from float64, beyond {TPS_LOGIT_BOUND}x the unsharded run's "
               f"{head['err_plain_run']} + {REL_FLOOR}")
+        if "odd" in head:  # the prompt that the ranks do not split
+            odd = head["odd"]
+            print(f"[tensor parallel serve] {label} prefill of {odd['prompt']} tokens (not a "
+                  f"multiple of {shape[1]}: blocks of {-(-odd['prompt'] // shape[1])} rows, "
+                  f"padded): float64 on the mesh vs unsharded {odd['f64_err']:.3g} (relative "
+                  f"Frobenius, bound {TPS_ODD_F64_RTOL}), argmax equal "
+                  f"{odd['f64_argmax_equal']}; bf16 vs float64 sharded {odd['bf16_err']:.5f} vs "
+                  f"unsharded {odd['bf16_plain_err']:.5f}; prefill ms per rank "
+                  f"{[round(c['odd']['prefill_ms'], 1) for c in per_rank]} (unsharded "
+                  f"{odd['plain_prefill_ms']:.1f}); launches per rank "
+                  f"{[c['odd']['launches']['flash_attention_fwd'] for c in per_rank]} flash; "
+                  f"collectives, result bytes on rank 0 {odd['prefill_traffic']} vs the "
+                  f"{TPS_PROMPT}-token prompt's {head['prefill_traffic']}; card {card}",
+                  flush=True)
+            for r, c in enumerate(per_rank):
+                for k, n in c["odd"]["launches"].items():
+                    counts[k] = counts.get(k, 0) + n
+                check(c["odd"]["launches"]["flash_attention_fwd"] == n_attn,
+                      f"tensor parallel serve {label} odd prompt: rank {r} launched "
+                      f"{c['odd']['launches']}, want {n_attn} flash forwards")
+            check(odd["f64_argmax_equal"] and odd["f64_err"] <= TPS_ODD_F64_RTOL,
+                  f"tensor parallel serve {label}: the {odd['prompt']}-token prefill's float64 "
+                  f"logits on the mesh {odd['f64_err']:.3g} from the unsharded ones (bound "
+                  f"{TPS_ODD_F64_RTOL}, argmax equal {odd['f64_argmax_equal']})")
+            check(odd["bf16_err"] <= TPS_LOGIT_BOUND * odd["bf16_plain_err"] + REL_FLOOR,
+                  f"tensor parallel serve {label}: the {odd['prompt']}-token prefill's bf16 "
+                  f"logits {odd['bf16_err']} from float64, beyond {TPS_LOGIT_BOUND}x the "
+                  f"unsharded run's {odd['bf16_plain_err']} + {REL_FLOOR}")
         readings[label] = dict(mesh=list(shape), table=table, ranks=per_rank)
     for arch, _, table, _ in TPS_CASES:  # each sequence-parallel case beside its twin
         if table.endswith("_SP"):

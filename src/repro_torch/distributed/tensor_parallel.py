@@ -31,8 +31,19 @@ the weights that the rules split over ``model`` (``heads``, ``kv_heads``,
   the time loop;
 * the loss takes its vocab columns of the head (:func:`vocab_xent`).
 
-The xLSTM heads must split into whole heads over the axis
-(:func:`check_config`).
+Heads need not split evenly (GSPMD pads them; this module gives each rank
+a contiguous run of whole heads, :func:`local_heads`): where a head count
+does not split over the axis, a rank reads the leaves that hold those heads
+whole (:func:`reads_whole`: ``wq`` / ``wo`` for attention q heads, ``wk`` /
+``wv`` for kv heads, every ``lru`` leaf of an xLSTM cell), shared into the
+region, and cuts its heads' columns or rows from them.  A rank may hold no
+head at all; it then contributes zeros to the region's sum.  Serving
+gathers what is split by heads over the ranks padded to the largest count
+(:meth:`TensorParallel.gather_heads`): a decode step's q rows, the mLSTM's
+k / v and final state.  An sLSTM state stays stored as ``cache_axes`` split
+it, even channel chunks; with heads that do not split, a step all-gathers
+the chunks, each rank advances its heads' channels, and the ranks' new
+channels are gathered over the heads before each rank keeps its chunk.
 
 Serving (:func:`layout`: the rules' mesh as a prefill or decode step sees
 it) splits the batch over the batch axes and a cache as the model's
@@ -62,17 +73,20 @@ complete for the slice it was given.
 Sequence parallelism: where the active rules map ``seq_act`` to the tensor
 axis (``RULES_2D_SP`` / ``RULES_3D_SP``), a step that is not a decode step
 (training, prefill) keeps the residual stream as this rank's rows of the
-sequence, (B, S / size, D), from the embedding on (:meth:`~TensorParallel.split`),
-and runs every norm between blocks on those rows (their weights then go
-in through ``share``: each rank's gradient is its rows' part).
-``enter`` becomes an all-gather of the sequence (a reduce-scatter in the
-backward) and ``leave`` a reduce-scatter of it (an all-gather in the
-backward), so every region (attention with its whole-sequence rotary
-positions, ring writes and flash kernels; the RG-LRU and xLSTM scans; a
-MoE block, whose router reads the gathered rows through
-:meth:`~TensorParallel.gather`; the vocab head) sees the whole sequence.
-A decode step is unchanged (the JAX model constrains it on ``seq``, not
-``seq_act``).
+sequence, (B, ceil(S / size), D), from the embedding on
+(:meth:`~TensorParallel.split`), and runs every norm between blocks on those
+rows (their weights then go in through ``share``: each rank's gradient is
+its rows' part).  A sequence that does not split is padded, as GSPMD pads
+it: the last ranks' blocks end in zero rows, which stay zero through every
+norm and residual add and have zero gradients.
+``enter`` becomes an all-gather of the sequence with the padding dropped (a
+padded reduce-scatter in the backward) and ``leave`` a reduce-scatter of it,
+padded first (an all-gather in the backward), so every region (attention
+with its whole-sequence rotary positions, ring writes and flash kernels; the
+RG-LRU and xLSTM scans; a MoE block, whose router reads the gathered rows
+through :meth:`~TensorParallel.gather`; the vocab head) sees exactly the S
+rows of the sequence.  A decode step is unchanged (the JAX model constrains
+it on ``seq``, not ``seq_act``).
 
 Every collective is one ``torch.distributed`` call on the axis' group
 (:func:`all_reduce`, :func:`all_gather`, :func:`reduce_scatter`; the
@@ -80,10 +94,11 @@ train step's over the batch axes too).  These plain calls run on CUDA
 tensors over gloo as over NCCL; DTensor's functional collectives are not
 used for them (on a gloo group they fault on CUDA tensors).
 
-A head count that does not split into whole groups of q heads per kv head,
-xLSTM heads that do not split into whole heads, an RG-LRU width or a
-sequence under sequence parallelism that does not split evenly raise
-``ValueError``: GSPMD pads such axes, this package does not.
+What raises ``ValueError`` is what the JAX package's placement refuses
+(:func:`check_config`): a stored leaf (``param_axes``, or ``cache_axes``
+when serving) whose dim on the tensor axis does not divide over it, e.g. an
+RG-LRU width, an mLSTM width, ``d_model`` under an sLSTM, or attention
+columns ``n_heads * head_dim`` that do not split evenly.
 """
 from __future__ import annotations
 
@@ -95,9 +110,11 @@ import torch.distributed as dist
 from torch.distributed.tensor import Shard
 
 from repro_torch.distributed.api import _entry_axes, active_rules, mesh_axes
+from repro_torch.tree import tree_map
 
 __all__ = ["TENSOR_AXIS", "VOCAB_SPLIT_MIN", "RECURRENCE_LEAVES", "Heads", "TensorParallel",
-           "Layout", "context", "layout", "data_ranks", "local_heads", "check_config",
+           "Layout", "context", "layout", "data_ranks", "head_range", "local_heads",
+           "check_config",
            "reads_whole", "vocab_range",
            "vocab_xent", "all_reduce", "all_gather", "reduce_scatter", "gather", "local_slice",
            "local_shape", "gather_axes", "shard_tree", "gather_tree"]
@@ -115,64 +132,112 @@ RECURRENCE_LEAVES = ("ri", "rf", "rz", "ro")
 @dataclasses.dataclass(frozen=True)
 class Heads:
     """A rank's attention heads: q heads ``q0 .. q0 + nq``, kv heads ``kv0 ..
-    kv0 + nkv``; ``kv_split``: the kv heads are split over the ranks like the
-    q heads (else one kv head serves several ranks, each reading it whole)."""
+    kv0 + nkv`` (the ones those q heads read); ``kv_split``: the kv heads
+    are split over the ranks as storage splits them (else the rank cuts its
+    kv heads from the whole ``wk`` / ``wv``); ``expand``: the rank's q heads
+    are not whole groups of its kv heads (they span two or more kv heads,
+    the first or last group cut), so the kernel gets each q head's kv head
+    repeated for it (one q head per kv head) and its backward sums the
+    repeats' gradients."""
 
     q0: int
     nq: int
     kv0: int
     nkv: int
     kv_split: bool
+    expand: bool = False
+
+    def kv_index(self, group: int):
+        """Per q head of the rank, the index of its kv head among ``kv0 ..
+        kv0 + nkv`` (``group``: q heads per kv head in the model)."""
+        return [(self.q0 + i) // group - self.kv0 for i in range(self.nq)]
+
+
+def head_range(n: int, rank: int, size: int):
+    """``(start, count)``: rank ``rank``'s contiguous share of ``n`` heads
+    over ``size`` ranks, balanced: the first ``n % size`` ranks take one
+    more (10 heads over 4 ranks: 3 / 3 / 2 / 2; 2 over 4: 1 / 1 / 0 / 0)."""
+    base, rem = divmod(n, size)
+    return rank * base + min(rank, rem), base + (rank < rem)
 
 
 def local_heads(cfg, rank: int, size: int) -> Heads:
     """The q heads and kv heads that rank ``rank`` of ``size`` computes.  The
-    q heads split evenly; with at least as many kv heads as ranks the kv
-    heads split too, each kv head's group of q heads whole on one rank;
-    with fewer, each rank takes the kv head its q heads read."""
+    q heads split as :func:`head_range` says (balanced, not GSPMD's padded
+    blocks of ``ceil(n / size)``, which would leave the last rank 1 of 10);
+    with kv heads that split over the ranks each rank's q heads are whole
+    groups of its kv heads (storage's slices); otherwise each rank reads
+    the kv heads its q heads do, which may be fewer than one per rank or
+    span two groups (``expand``).  A rank may get no head."""
     nq, nkv = cfg.n_heads, cfg.n_kv_heads
-    if nq % size or (nkv % size if nkv >= size else size % nkv):
-        raise ValueError(
-            f"{cfg.name}: {nq} q heads over {nkv} kv heads do not split into whole groups over "
-            f"{size} tensor-parallel ranks (GSPMD pads such heads; this port does not)")
-    per = nq // size
-    if nkv >= size:
-        return Heads(rank * per, per, rank * (nkv // size), nkv // size, True)
-    return Heads(rank * per, per, rank * per // (nq // nkv), 1, False)
+    group = nq // nkv
+    q0, n = head_range(nq, rank, size)
+    if nkv % size == 0:
+        per = nkv // size
+        return Heads(q0, n, rank * per, per, True)
+    if n == 0:
+        return Heads(q0, 0, min(q0 // group, nkv), 0, False)
+    kv0, kv1 = q0 // group, (q0 + n - 1) // group + 1
+    return Heads(q0, n, kv0, kv1 - kv0, False,
+                 kv1 - kv0 > 1 and bool(q0 % group or n % group))
 
 
-def check_config(cfg, size: int) -> None:
-    """Raise ``ValueError`` for a config the tensor axis of ``size`` ranks
-    cannot split: q heads that do not make whole groups per kv head, an
-    RG-LRU width, or xLSTM heads that do not split into whole heads (the
-    mLSTM's ``di`` and the sLSTM's ``d_model`` channels are cut at head
-    boundaries).  Every block kind splits otherwise."""
-    kinds = tuple(cfg.pattern) + tuple(cfg.epilogue)
-    if "recurrent" in kinds and cfg.lru_width % size:
-        raise ValueError(f"{cfg.name}: lru width {cfg.lru_width} does not split over {size} "
-                         "tensor-parallel ranks")
-    if "mlstm" in kinds or "slstm" in kinds:
-        nh = cfg.xlstm_heads
-        di = int(cfg.d_model * cfg.xlstm_proj_factor)
-        if nh % size or cfg.d_model % nh or di % nh:
-            raise ValueError(
-                f"{cfg.name}: {nh} xLSTM heads (d_model {cfg.d_model}, mLSTM width {di}) do not "
-                f"split into whole heads over {size} tensor-parallel ranks (GSPMD pads such "
-                "heads; this port does not)")
-    if any(k in ("attn", "local", "moe") for k in kinds):
-        local_heads(cfg, 0, size)
+def _tensor_logical(table) -> frozenset:
+    """The logical axes that ``table`` maps onto the tensor axis."""
+    return frozenset(ax for ax, e in table.items() if TENSOR_AXIS in _entry_axes(e))
+
+
+def check_config(cfg, size: int, cache=None) -> None:
+    """Raise ``ValueError`` where the tensor axis of ``size`` ranks cannot
+    hold ``cfg``'s storage: a leaf of ``param_axes`` (and, with ``cache`` =
+    ``(batch, max_len)``, of ``cache_axes``) whose dim on the tensor axis
+    does not divide over it (the logical axes the active rules, else
+    ``RULES_2D``, map onto it), as the JAX package's placement refuses it
+    ("does not evenly divide").  Everything else splits: attention heads,
+    kv heads and xLSTM heads that do not split over the ranks (or are fewer
+    than them) are read whole and cut by rank (:func:`local_heads`), and a
+    sequence under sequence parallelism is padded."""
+    from repro_torch.distributed import api
+    from repro_torch.models import transformer  # which imports this module
+
+    rules = active_rules()
+    on_axis = _tensor_logical(api.RULES_2D if rules is None else rules.table)
+
+    def leaf(path, shape, axes):
+        for d, (n, ax) in enumerate(zip(shape, axes)):
+            if ax in on_axis and n % size:
+                raise ValueError(
+                    f"{cfg.name}: {'/'.join(path)} dim {d} ({ax}, {n}) does not evenly divide "
+                    f"over {size} tensor-parallel ranks (its storage cannot be split, as the JAX "
+                    "package's placement refuses it)")
+
+    transformer._walk_axes(transformer.model_spec(cfg), transformer._model_axes(cfg), leaf)
+    if cache is not None:
+        whole = transformer._whole_cache(cfg, *cache, torch.device("meta"))
+        transformer._walk_axes(tree_map(lambda t: tuple(t.shape), whole),
+                               transformer.cache_axes(cfg), leaf, ("cache",))
 
 
 def reads_whole(cfg, size: int):
-    """A predicate over a leaf's name and logical axes: whether a rank reads
-    the leaf whole although storage may split it over the tensor axis.  So
-    are kv heads fewer than the ranks (a head cut in pieces is no head)
-    and the sLSTM recurrence (:data:`RECURRENCE_LEAVES`, split on its
-    contracted ``dh``); every other leaf is read as its storage says."""
-    kv = cfg.n_kv_heads < size
+    """A predicate over a leaf's path (its keys, the leaf's name last) and
+    logical axes: whether a rank reads the leaf whole although storage may
+    split it over the tensor axis.  So are the attention leaves of heads
+    that do not split over the ranks (``heads``: ``wq`` / ``wo``;
+    ``kv_heads``: ``wk`` / ``wv``, kv heads fewer than the ranks included),
+    an xLSTM cell's ``lru`` leaves when its heads do not split, and the
+    sLSTM recurrence (:data:`RECURRENCE_LEAVES`, split on its contracted
+    ``dh``); every other leaf is read as its storage says."""
+    q, kv = cfg.n_heads % size != 0, cfg.n_kv_heads % size != 0
+    xl = bool(cfg.xlstm_heads) and cfg.xlstm_heads % size != 0
 
-    def whole(name, axes) -> bool:
-        return (kv and "kv_heads" in axes) or name in RECURRENCE_LEAVES
+    def whole(path, axes) -> bool:
+        if path[-1] in RECURRENCE_LEAVES:
+            return True
+        if "kv_heads" in axes:
+            return kv
+        if "heads" in axes:
+            return q
+        return xl and "lru" in axes and len(path) > 1 and path[-2] == "cell"
 
     return whole
 
@@ -250,49 +315,51 @@ class _Leave(torch.autograd.Function):
         return g, None
 
 
-# Sequence parallelism: the sequence is dim 1 of a (B, S, ...) activation.
+# Sequence parallelism: the sequence is dim 1 of a (B, S, ...) activation;
+# each rank holds ceil(S / size) rows of it, the last ranks' ending in zero
+# padding where S does not split (``TensorParallel.block``).
 class _SeqEnter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, tp):
         ctx.tp = tp
-        return all_gather(x, tp.group, 1)
+        return tp.unpad(all_gather(x, tp.group, 1))
 
     @staticmethod
     def backward(ctx, g):
-        return reduce_scatter(g, ctx.tp.group, 1), None
+        return reduce_scatter(ctx.tp.pad(g), ctx.tp.group, 1), None
 
 
 class _SeqLeave(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, tp):
         ctx.tp = tp
-        return reduce_scatter(x, tp.group, 1)
+        return reduce_scatter(tp.pad(x), tp.group, 1)
 
     @staticmethod
     def backward(ctx, g):
-        return all_gather(g, ctx.tp.group, 1), None
+        return ctx.tp.unpad(all_gather(g, ctx.tp.group, 1)), None
 
 
 class _SeqSplit(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, tp):
         ctx.tp = tp
-        return x.narrow(1, *tp.rows(x.shape[1])).contiguous()
+        return tp.pad(x).narrow(1, *tp.block()).contiguous()
 
     @staticmethod
     def backward(ctx, g):
-        return all_gather(g, ctx.tp.group, 1), None
+        return ctx.tp.unpad(all_gather(g, ctx.tp.group, 1)), None
 
 
 class _SeqGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, tp):
         ctx.tp = tp
-        return all_gather(x, tp.group, 1)
+        return tp.unpad(all_gather(x, tp.group, 1))
 
     @staticmethod
     def backward(ctx, g):
-        return g.narrow(1, *ctx.tp.rows(g.shape[1])).contiguous(), None
+        return ctx.tp.pad(g).narrow(1, *ctx.tp.block()).contiguous(), None
 
 
 class _ReduceColumns(torch.autograd.Function):
@@ -312,33 +379,90 @@ class TensorParallel:
     ``rank`` on it and its ``size``; under sequence parallelism ``seq_in``
     (a region's input is this rank's rows of the sequence: :meth:`enter`
     gathers them) and ``seq_out`` (its output is: :meth:`leave` scatters
-    it).  Both are set together by :func:`context`; a region whose input
-    is already whole (a MoE block, its rows gathered for the router) runs
-    with ``seq_in`` off."""
+    it), and ``seq_len``, the sequence's S (its rows before padding).  The
+    flags are set together by :func:`context`; a region whose input is
+    already whole (a MoE block, its rows gathered for the router) runs with
+    ``seq_in`` off."""
 
     group: object
     rank: int
     size: int
     seq_in: bool = False
     seq_out: bool = False
+    seq_len: Optional[int] = None
 
     @property
     def seq(self) -> bool:
         """Whether the residual stream between blocks is this rank's rows."""
         return self.seq_out
 
-    def rows(self, n: int):
-        """``(start, length)`` of this rank's rows of a sequence of ``n``."""
-        if n % self.size:
-            raise ValueError(f"sequence {n} does not split over {self.size} tensor-parallel "
-                             "ranks (sequence parallelism)")
-        per = n // self.size
+    def block(self):
+        """``(start, length)`` of this rank's block of the padded sequence
+        of ``seq_len`` rows (``ceil(seq_len / size)`` rows a rank; the last
+        ranks' blocks end in padding, or are all padding)."""
+        per = -(-self._len() // self.size)
         return self.rank * per, per
 
+    def _len(self) -> int:
+        if self.seq_len is None:
+            raise ValueError("sequence parallelism needs the sequence's length (seq_len)")
+        return self.seq_len
+
+    def pad(self, x):
+        """``x`` (B, seq_len, ...) with zero rows after it to ``size`` equal
+        blocks (``x`` itself when the sequence splits)."""
+        n = x.shape[1]
+        extra = -(-n // self.size) * self.size - n
+        if not extra:
+            return x
+        return torch.cat([x, x.new_zeros((x.shape[0], extra, *x.shape[2:]))], 1)
+
+    def unpad(self, x):
+        """The first ``seq_len`` rows of the padded sequence ``x`` (``x``
+        itself when nothing was padded)."""
+        n = self._len()
+        return x if x.shape[1] == n else x[:, :n].contiguous()
+
     def heads(self, n: int) -> slice:
-        """This rank's heads of ``n`` (which split evenly: :func:`check_config`)."""
-        per = n // self.size
-        return slice(self.rank * per, (self.rank + 1) * per)
+        """This rank's heads of ``n`` (:func:`head_range`)."""
+        start, count = head_range(n, self.rank, self.size)
+        return slice(start, start + count)
+
+    def head_slices(self, p, n: int, width: int, cols=(), rows=()):
+        """``p`` with, where ``n`` heads do not split over the axis, the
+        leaves ``cols`` cut to this rank's heads' columns (the last dim) and
+        ``rows`` to their rows (the first), ``width`` entries a head, each
+        leaf read whole and shared (its gradient summed over the axis, so
+        complete on every rank); ``p`` as given where the heads split
+        (storage's slices are then the rank's heads)."""
+        if n % self.size == 0:
+            return p
+        h = self.heads(n)
+        cut = slice(h.start * width, h.stop * width)
+        p = dict(p)
+        for k in cols:
+            p[k] = self.share(p[k])[..., cut]
+        for k in rows:
+            p[k] = self.share(p[k])[cut]
+        return p
+
+    def gather_heads(self, t, n: int, dim: int, width: int = 1):
+        """Every rank's heads of ``n`` from each rank's ``t``, whose ``dim``
+        holds its heads (:meth:`heads`), ``width`` entries each: one
+        all-gather, each rank's part padded to the largest count first
+        where the heads do not split; no gradient (serving)."""
+        base, rem = divmod(n, self.size)
+        if not rem:
+            return all_gather(t, self.group, dim)
+        dim %= t.dim()
+        most = (base + 1) * width
+        if t.shape[dim] < most:
+            shape = list(t.shape)
+            shape[dim] = most - t.shape[dim]
+            t = torch.cat([t, t.new_zeros(shape)], dim)
+        parts = all_gather(t, self.group, dim).split(most, dim)
+        return torch.cat([part.narrow(dim, 0, head_range(n, r, self.size)[1] * width)
+                          for r, part in enumerate(parts)], dim)
 
     def enter(self, x):
         """``x`` into a split region: identity, its gradient summed over the
@@ -391,27 +515,32 @@ class TensorParallel:
         return (num[..., :-1] / num[..., -1:]).to(out.dtype)
 
     def attention_inputs(self, cfg, p, x):
-        """``(x, p, nq, nkv)`` for this rank's heads: the block input entered;
-        ``p`` with ``wq`` / ``wo`` (its slices already) as given, ``wk`` /
-        ``wv`` shared and cut to its kv head where the ranks share kv heads,
-        and the whole ``q_norm`` / ``k_norm`` shared; the local head counts."""
+        """``(x, p, heads)`` for this rank's heads (:func:`local_heads`): the
+        block input entered; ``p`` with this rank's q heads' ``wq`` columns
+        and ``wo`` rows (storage's slices as given, or cut from the whole
+        leaves, shared, where the q heads do not split), its kv heads' ``wk``
+        / ``wv`` columns (cut the same way where the kv heads do not split),
+        and the whole ``q_norm`` / ``k_norm`` shared."""
         h = local_heads(cfg, self.rank, self.size)
-        p = dict(p)
+        hd = cfg.head_dim
+        p = dict(self.head_slices(p, cfg.n_heads, hd, cols=("wq",), rows=("wo",)))
         if not h.kv_split:
-            cols = slice(h.kv0 * cfg.head_dim, (h.kv0 + 1) * cfg.head_dim)
+            cols = slice(h.kv0 * hd, (h.kv0 + h.nkv) * hd)
             for key in ("wk", "wv"):
                 p[key] = self.share(p[key])[:, cols]
         for key in ("q_norm", "k_norm"):
             if key in p:
                 p[key] = self.share(p[key])
-        return self.enter(x), p, h.nq, h.nkv
+        return self.enter(x), p, h
 
 
-def context(decode: bool = False) -> Optional[TensorParallel]:
+def context(decode: bool = False, seq_len: Optional[int] = None) -> Optional[TensorParallel]:
     """The tensor axis of the active rules, or None: no rules, a mesh that
     is only a shape (the dry-run's), no ``model`` axis, or one of size 1.
     Sequence-parallel (``seq_in`` / ``seq_out``) where the rules map
-    ``seq_act`` to the tensor axis, unless ``decode``."""
+    ``seq_act`` to the tensor axis, unless ``decode``; ``seq_len``: the
+    sequence's length (rows before padding), which the sequence-parallel
+    collectives need."""
     rules = active_rules()
     mesh = None if rules is None else rules.mesh
     if mesh is None or not hasattr(mesh, "get_group"):
@@ -421,7 +550,8 @@ def context(decode: bool = False) -> Optional[TensorParallel]:
         return None
     seq = not decode and TENSOR_AXIS in _entry_axes(rules.table.get("seq_act"))
     return TensorParallel(mesh.get_group(TENSOR_AXIS), mesh.get_local_rank(TENSOR_AXIS),
-                          sizes[names.index(TENSOR_AXIS)], seq_in=seq, seq_out=seq)
+                          sizes[names.index(TENSOR_AXIS)], seq_in=seq, seq_out=seq,
+                          seq_len=seq_len if seq else None)
 
 
 def data_ranks(mesh, rules):

@@ -6,7 +6,9 @@ The model calls these.  A CPU tensor goes to the plain PyTorch version in
 which the dry-run traces) gets empty outputs in the kernel's memory
 layout, with no computation; any other tensor goes to the kernel, whose
 wrapper launches it or raises (a meta tensor there raises too).  There is
-no fallback: a kernel that fails to build or launch raises.
+no fallback: a kernel that fails to build or launch raises.  A call with
+nothing to compute (no q heads or no rows: a tensor-parallel rank that
+holds no head) returns its empty outputs and launches nothing.
 
 Under an active :class:`~repro_torch.kernels.cost.CostCounter` every call
 reports its function-level work (the formulas of
@@ -107,6 +109,9 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse, prefix_len = ctx.saved_tensors
+        if q.shape[1] == 0:  # no q heads (a tensor-parallel rank with none): nothing to do
+            return q.new_zeros(q.shape), k.new_zeros(k.shape), v.new_zeros(v.shape), \
+                None, None, None, None
         if dout.stride(-1) != 1:
             dout = dout.contiguous()
         B, NQ, S, D = q.shape
@@ -202,6 +207,8 @@ def _pairs(B, S, causal, window, prefix_len) -> int:
 
 
 def _rms_norm_fwd(x, w, *, eps, offset):
+    if x.numel() == 0:  # no rows (a tensor-parallel rank with no head): no launch
+        return torch.empty_like(x)
     return _dispatch(
         "rms_norm_fwd", x,
         lambda: cost.rms_norm_work(x.numel(), x.element_size(), w.numel(), w.element_size()),
@@ -212,6 +219,9 @@ def _rms_norm_fwd(x, w, *, eps, offset):
 
 def _flash_fwd(q, k, v, *, causal, window, scale, return_lse, prefix_len=None):
     B, NQ, S, D = q.shape
+    if NQ == 0:  # no q heads (a tensor-parallel rank with none): no launch
+        out = _bsnd_empty(q)
+        return (out, _empty((B, 0, S), q, torch.float32)) if return_lse else out
     kw = dict(causal=causal, window=window, scale=scale, return_lse=return_lse,
               prefix_len=prefix_len)
     return _dispatch(

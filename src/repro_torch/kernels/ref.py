@@ -316,7 +316,8 @@ def flash_attention_bwd_ref(q, k, v, out, dout, lse, *, causal: bool = True,
 
     Kernel layout: q, out, dout (B, NQ, S, D); k, v (B, NKV, S, D); lse
     (B, NQ, S) f32 from the forward.  The math of the Pallas backward
-    (``repro/kernels/flash_attention_bwd.py``), all in f32:
+    (``repro/kernels/flash_attention_bwd.py``), all in f32 (in float64 for
+    float64 inputs, as the forward keeps them):
     ``delta = rowsum(dout * out)``, ``p = exp(s - lse)`` with masked
     scores at the finite sentinel -1e30, ``ds = p * (dp - delta) * scale``;
     dk and dv are summed over each kv head's GQA group.  Returns
@@ -327,15 +328,15 @@ def flash_attention_bwd_ref(q, k, v, out, dout, lse, *, causal: bool = True,
     G = NQ // NKV
     if scale is None:
         scale = D**-0.5
-    qf = q.float().reshape(B, NKV, G, S, D)
-    dof = dout.float().reshape(B, NKV, G, S, D)
-    kf, vf = k.float(), v.float()
-    delta = (dout.float() * out.float()).sum(-1).reshape(B, NKV, G, S, 1)
+    qf = _f32_at_least(q).reshape(B, NKV, G, S, D)
+    dof = _f32_at_least(dout).reshape(B, NKV, G, S, D)
+    kf, vf = _f32_at_least(k), _f32_at_least(v)
+    delta = (_f32_at_least(dout) * _f32_at_least(out)).sum(-1).reshape(B, NKV, G, S, 1)
     s = torch.einsum("bkgqd,bksd->bkgqs", qf, kf) * scale
     ok = _scores_mask(S, S, causal=causal, window=window, device=q.device,
                       prefix_len=prefix_len)
     s = torch.where(ok, s, torch.full_like(s, _NEG_INF))
-    p = torch.exp(s - lse.float().reshape(B, NKV, G, S, 1))
+    p = torch.exp(s - _f32_at_least(lse).reshape(B, NKV, G, S, 1))
     dp = torch.einsum("bkgqd,bksd->bkgqs", dof, vf)
     ds = p * (dp - delta) * scale
     dq = torch.einsum("bkgqs,bksd->bkgqd", ds, kf).reshape(B, NQ, S, D)
@@ -450,11 +451,12 @@ def flash_attention_bwd_tiled_ref(q, k, v, out, dout, lse, *, causal: bool = Tru
 
 def rglru_scan_ref(a, b, h0):
     """``h_t = a_t * h_{t-1} + b_t`` (``h_{-1} = h0``).  a, b: (B, S, W); h0:
-    (B, W).  Accumulates in f32 (a rounded multiply, then a rounded add, step
-    by step) and returns h in a's dtype, as ``repro.kernels.ref``'s
-    associative-scan version does up to summation order."""
-    af, bf = a.float(), b.float()
-    h = h0.float()
+    (B, W).  Accumulates in f32 (float64 for float64 operands; a rounded
+    multiply, then a rounded add, step by step) and returns h in a's dtype,
+    as ``repro.kernels.ref``'s associative-scan version does up to summation
+    order."""
+    af, bf = _f32_at_least(a), _f32_at_least(b)
+    h = _f32_at_least(h0)
     out = torch.empty_like(af)
     for t in range(a.shape[1]):
         h = af[:, t] * h + bf[:, t]
@@ -467,15 +469,16 @@ def rglru_scan_bwd_ref(a, h, h0, dh):
     cotangent ``dh``, from ``a``, the output ``h`` and ``h0``: the adjoint
     recurrence ``g_{S-1} = dh_{S-1}``, ``g_t = dh_t + a_{t+1} g_{t+1}``,
     then ``db = g``, ``da_t = g_t h_{t-1}`` (``h_{-1} = h0``) and ``dh0 =
-    a_0 g_0``, all in f32, returned in the dtypes of a, a and h0."""
-    af, dhf = a.float(), dh.float()
+    a_0 g_0``, all in f32 (float64 for float64 operands), returned in the
+    dtypes of a, a and h0."""
+    af, dhf = _f32_at_least(a), _f32_at_least(dh)
     S = a.shape[1]
     g = torch.empty_like(dhf)
     carry = torch.zeros_like(dhf[:, 0])
     for t in range(S - 1, -1, -1):
         carry = (af[:, t + 1] * carry + dhf[:, t]) if t + 1 < S else dhf[:, t]
         g[:, t] = carry
-    h_prev = torch.cat([h0.float()[:, None], h[:, :-1].float()], dim=1)
+    h_prev = torch.cat([_f32_at_least(h0)[:, None], _f32_at_least(h[:, :-1])], dim=1)
     da = g * h_prev
     dh0 = af[:, 0] * g[:, 0]
     return da.to(a.dtype), g.to(a.dtype), dh0.to(h0.dtype)

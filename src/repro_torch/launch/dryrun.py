@@ -166,7 +166,7 @@ def cost_components(cfg, shape):
             xt = _meta((B, 1, cfgu.d_model), torch.float32)
 
             def slstm_one(bp=bp, st=st, xt=xt):
-                _, st2 = xlstm._slstm_scan(bp["cell"], cfgu.xlstm_heads, xt, st)
+                _, st2 = xlstm._slstm_scan(bp["cell"], cfgu.d_model // cfgu.xlstm_heads, xt, st)
                 obj = sum((v * v).sum() for v in st2.values())
                 if train:
                     _grad(obj, tree_leaves(bp))

@@ -35,9 +35,11 @@ the step is built on ``make_elastic_mesh()`` with ``make_rules(mesh)``, as
 the JAX package's ``launch/train.py`` does on more than one device.  That
 mesh keeps a tensor axis of up to ``--model-parallel`` ranks (16, the JAX
 package's), every other rank data-parallel, and every block kind trains
-tensor-parallel on it (:mod:`repro_torch.distributed.tensor_parallel`);
-heads, an RG-LRU width or xLSTM heads that do not split over it raise
-``ValueError``.  A relaunch
+tensor-parallel on it (:mod:`repro_torch.distributed.tensor_parallel`): the
+tensor axis splits what the JAX package's splits, heads that do not split
+over it included (recurrentgemma-2b's 10 heads on four ranks), and raises
+``ValueError`` only where the JAX package's placement does: a stored
+weight whose dim on that axis does not divide over it.  A relaunch
 on another mesh (another world size or ``--model-parallel``) restores the
 checkpoint onto its shardings and goes on.  World size 1 is the plain
 path.
@@ -111,8 +113,9 @@ def main(argv=None):
                     "many ranks")
     ap.epilog = ("Under torchrun (WORLD_SIZE > 1) the step runs on make_elastic_mesh() "
                  "with make_rules(mesh): tensor-parallel over its model axis (every block "
-                 "kind; heads or widths that do not split over it raise ValueError), "
-                 "data-parallel over the rest.")
+                 "kind; it splits what the JAX package splits, heads that do not divide "
+                 "over it included, and raises ValueError only for a stored weight whose "
+                 "dim on it does not divide), data-parallel over the rest.")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:

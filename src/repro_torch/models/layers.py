@@ -40,6 +40,12 @@ def rms_norm(x, weight, *, eps: float = 1e-6, offset: bool = False):
     return ops.rms_norm(x, weight, eps=eps, offset=offset)
 
 
+def wide(t):
+    """``t`` in at least f32 (bf16 and f32 -> f32; float64 stays float64,
+    so a float64 model computes its f32 parts in float64)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def rope(positions, head_dim: int, theta: float, dtype=torch.float32):
     """Rotary tables: positions (..., S) -> (sin, cos) each (..., S, head_dim // 2)
     in ``dtype`` (f32; float64 for a float64 model)."""

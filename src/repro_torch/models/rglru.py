@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.models import layers
 
 __all__ = [
     "rglru_init_spec",
@@ -90,10 +91,11 @@ def _depthwise_conv(x, conv_w, conv_b, tail=None):
 
 
 def _gates(params, x, tp=None):
-    """Decay a and gated input for the RG-LRU, f32.  x: (..., W) f32; the
-    gate weights are cast to f32, as JAX promotes ``f32 @ bf16``.  With
-    ``tp``, x is the rank's channels and the gates' rows too."""
-    ga, gx = x @ params["gate_a"].float(), x @ params["gate_x"].float()
+    """Decay a and gated input for the RG-LRU, f32 (float64 for a float64
+    model).  x: (..., W) f32; the gate weights are cast to x's dtype, as JAX
+    promotes ``f32 @ bf16``.  With ``tp``, x is the rank's channels and the
+    gates' rows too."""
+    ga, gx = x @ params["gate_a"].to(x.dtype), x @ params["gate_x"].to(x.dtype)
     if tp is not None:  # the rank's columns of the summed products
         ga, gx = tp.reduce_columns(ga), tp.reduce_columns(gx)
     r = torch.sigmoid(ga + params["gate_a_b"])
@@ -114,23 +116,25 @@ def rglru_apply(cfg, params, x, h0=None, conv_tail=None, tp=None):
     dtype = x.dtype
     if tp is not None:
         x = tp.enter(x)
-    y = F.gelu((x @ params["wy"]).float(), approximate="tanh")
+    y = F.gelu(layers.wide(x @ params["wy"]), approximate="tanh")
     u = x @ params["wx"]
     u, new_tail = _depthwise_conv(u, params["conv_w"], params["conv_b"], conv_tail)
-    a, bx = _gates(params, u.float(), tp)
+    a, bx = _gates(params, layers.wide(u), tp)
     if h0 is None:
-        h0 = torch.zeros((x.shape[0], a.shape[-1]), dtype=torch.float32, device=x.device)
+        h0 = torch.zeros((x.shape[0], a.shape[-1]), dtype=a.dtype, device=x.device)
     h = ops.rglru_scan(a, bx, h0)
     out = (h * y).to(dtype) @ params["wo"]
     return (out if tp is None else tp.leave(out)), (h[:, -1], new_tail)
 
 
 def rglru_init_cache(cfg, batch, dtype=torch.float32, device="cuda", lead=()):
-    """``h`` (*lead, B, W) f32 and ``conv_tail`` (*lead, B, K-1, W) in
-    ``dtype``; ``lead`` stacks them over periods."""
+    """``h`` (*lead, B, W) f32 (float64 for a float64 model) and
+    ``conv_tail`` (*lead, B, K-1, W) in ``dtype``; ``lead`` stacks them over
+    periods."""
     w = cfg.lru_width
     return {
-        "h": torch.zeros((*lead, batch, w), dtype=torch.float32, device=device),
+        "h": torch.zeros((*lead, batch, w), dtype=torch.promote_types(dtype, torch.float32),
+                         device=device),
         "conv_tail": torch.zeros((*lead, batch, cfg.conv_width - 1, w), dtype=dtype,
                                  device=device),
     }
@@ -141,10 +145,10 @@ def rglru_decode_step(cfg, params, x, cache, tp=None):
     (out, {"h", "conv_tail"}) as new tensors; with ``tp`` the cache and the
     new state are the rank's channels."""
     dtype = x.dtype
-    y = F.gelu((x @ params["wy"]).float(), approximate="tanh")
+    y = F.gelu(layers.wide(x @ params["wy"]), approximate="tanh")
     u = x @ params["wx"]
     u, new_tail = _depthwise_conv(u, params["conv_w"], params["conv_b"], cache["conv_tail"])
-    a, bx = _gates(params, u.float(), tp)
+    a, bx = _gates(params, layers.wide(u), tp)
     h = a[:, 0] * cache["h"] + bx[:, 0]  # (B, W)
     out = (h[:, None] * y).to(dtype) @ params["wo"]
     return (out if tp is None else tp.leave(out)), {"h": h, "conv_tail": new_tail}

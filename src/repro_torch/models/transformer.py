@@ -472,9 +472,10 @@ def _qkv(cfg, p, x, ctx: SeqContext, nq: int):
     hold, HD): projected, qk-normed where the config says, rotated."""
     B, S, _ = x.shape
     hd = cfg.head_dim
+    nkv = p["wk"].shape[-1] // hd  # none on a tensor-parallel rank with no head
     q = (x @ p["wq"]).reshape(B, S, nq, hd)
-    k = (x @ p["wk"]).reshape(B, S, -1, hd)
-    v = (x @ p["wv"]).reshape(B, S, -1, hd)
+    k = (x @ p["wk"]).reshape(B, S, nkv, hd)
+    v = (x @ p["wv"]).reshape(B, S, nkv, hd)
     if cfg.qk_norm:
         q = layers.rms_norm(q, p["q_norm"], eps=cfg.norm_eps)
         k = layers.rms_norm(k, p["k_norm"], eps=cfg.norm_eps)
@@ -486,9 +487,12 @@ def _attention(cfg, p, x, ctx: SeqContext, kind: str, cache):
         return _attention_split_cache(cfg, p, x, ctx, kind, cache)
     hd, nq, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     if ctx.tp is not None:  # this rank's q heads and the kv heads they read
-        x, p, nq, nkv = ctx.tp.attention_inputs(cfg, p, x)
+        x, p, heads = ctx.tp.attention_inputs(cfg, p, x)
+        nq, nkv = heads.nq, heads.nkv
     B, S, _ = x.shape
     q, k, v = _qkv(cfg, p, x, ctx, nq)
+    if ctx.tp is not None and heads.expand:
+        k, v = _per_q_head(cfg, heads, k, v)
     window = cfg.window if kind == "local" else 0
 
     if ctx.decode:
@@ -530,6 +534,14 @@ def _attention(cfg, p, x, ctx: SeqContext, kind: str, cache):
     return out if ctx.tp is None else ctx.tp.leave(out)
 
 
+def _per_q_head(cfg, heads, k, v):
+    """k / v of a rank's kv heads repeated per q head (one q head per kv
+    head), where its q heads are not whole groups of them (``expand``);
+    the repeats' gradients sum in the index's backward."""
+    idx = torch.tensor(heads.kv_index(cfg.n_heads // cfg.n_kv_heads), device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
 def _prefill_ring(cfg, cache, k, v, positions, ring: int, lo: int):
     """The prefill's cache write: prompt positions 0..S-1 land in one or two
     static slices of a ring of ``ring`` slots (the tail of the prompt if S
@@ -560,26 +572,32 @@ def _attention_split_cache(cfg, p, x, ctx: SeqContext, kind: str, cache):
     read (as training runs them); the prompt's k / v gathered over the kv
     heads (each rank computes every kv head when they do not split), and
     each rank writes its slots' part of the ring's slices.  Decode: the
-    token's q gathered over the heads and its k / v over the kv heads; the
-    slot ``pos % ring`` written by its owner alone (a select on the device,
-    no host read); the decode kernel over the rank's slots for every head,
-    with its log-sum-exp; the ranks' rows folded
-    (:meth:`TensorParallel.fold`); the rank's heads into its rows of ``wo``."""
+    token's q gathered over the heads (padded to the largest count where
+    they do not split: one all-gather of a few rows, where each rank
+    computing every head's q would read all of ``wq``) and its k / v over
+    the kv heads; the slot ``pos % ring`` written by its owner alone (a
+    select on the device, no host read); the decode kernel over the rank's
+    slots for every head, with its log-sum-exp; the ranks' rows folded
+    (:meth:`TensorParallel.fold`); the rank's heads into its rows of
+    ``wo``."""
     tp = ctx.tp
     if tp.seq:  # a prefill's rows of the sequence, gathered
         x = tp.enter(x)
     B, S, _ = x.shape
     h = tensor_parallel.local_heads(cfg, tp.rank, tp.size)
+    p = tp.head_slices(p, cfg.n_heads, cfg.head_dim, cols=("wq",), rows=("wo",))
     q, k, v = _qkv(cfg, p, x, ctx, h.nq)  # k / v: the rank's kv heads, or every one
     window = cfg.window if kind == "local" else 0
     if h.kv_split:
         k_all, v_all = (tensor_parallel.all_gather(t, tp.group, 2) for t in (k, v))
     else:
         k_all, v_all = k, v
-        k, v = (t[:, :, h.kv0:h.kv0 + 1] for t in (k_all, v_all))
+        k, v = (t[:, :, h.kv0:h.kv0 + h.nkv] for t in (k_all, v_all))
     lo, n = tp.rank * cache["k"].shape[1], cache["k"].shape[1]
     ring = n * tp.size
     if not ctx.decode:
+        if h.expand:
+            k, v = _per_q_head(cfg, h, k, v)
         out = flash_attention(q, k, v, causal=cfg.causal, window=window,
                               prefix_len=ctx.prefix_len)
         _prefill_ring(cfg, cache, k_all, v_all, ctx.positions, ring, lo)
@@ -598,7 +616,7 @@ def _attention_split_cache(cfg, p, x, ctx: SeqContext, kind: str, cache):
         if cfg.kv_cache_quant:
             kc = _kv_dequant(kc, cache["k_scale"], k.dtype)
             vc = _kv_dequant(vc, cache["v_scale"], v.dtype)
-        out, lse = decode_attention(tensor_parallel.all_gather(q, tp.group, 2), kc, vc,
+        out, lse = decode_attention(tp.gather_heads(q, cfg.n_heads, 2), kc, vc,
                                     cache["slot_pos"], pos, window=window, return_lse=True)
         out = tp.fold(out, lse[:, None])[:, :, h.q0:h.q0 + h.nq]
     return tp.leave(out.reshape(B, S, h.nq * cfg.head_dim) @ p["wo"])
@@ -646,7 +664,7 @@ def _xlstm_cell(cfg, kind, p, x, ctx: SeqContext, cache):
                 carry = tuple(t[:, tp.heads(cfg.xlstm_heads)] for t in carry)
             y, (C, n) = xlstm.mlstm_apply(cfg, p, x, carry=carry, tp=tp)
             if cache is not None and tp is not None:
-                C, n = (tensor_parallel.all_gather(t, tp.group, 1) for t in (C, n))
+                C, n = (tp.gather_heads(t, cfg.xlstm_heads, 1) for t in (C, n))
             new = {"C": C, "n": n}
     elif ctx.decode:
         y, new = xlstm.slstm_decode_step(cfg, p, x, cache, tp=tp)
@@ -763,7 +781,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
     if lay is None:
         return _whole_cache(cfg, batch, max_len, dev)
     if lay.tp is not None:
-        tensor_parallel.check_config(cfg, lay.tp.size)
+        tensor_parallel.check_config(cfg, lay.tp.size, cache=(batch, max_len))
 
     def local(t, axes):  # empty slots hold position -1, everything else 0
         fill = -1 if t.dtype == torch.int32 else 0
@@ -889,7 +907,7 @@ def forward_hidden(cfg, params, batch_inputs, cache=None, decode=False, position
     (updated in place; with ``page_tables``, decode only, a paged pool) and
     the stack's load-balancing loss (an f32 scalar, or None: see
     :func:`_run_stack`).  Under sequence parallelism x is this rank's rows
-    of the sequence, (B, S / size, D)."""
+    of the sequence, (B, ceil(S / size), D), zero-padded past S."""
     tp = tensor_parallel.context(decode=decode)
     if tp is not None and page_tables is not None:
         raise NotImplementedError(
@@ -901,12 +919,24 @@ def forward_hidden(cfg, params, batch_inputs, cache=None, decode=False, position
     sin, cos = layers.rope(pos, cfg.head_dim, cfg.rope_theta,
                            dtype=torch.promote_types(x.dtype, torch.float32))
     if tp is not None and tp.seq:  # the residual stream: this rank's rows
+        tp = dataclasses.replace(tp, seq_len=x.shape[1])
         x = tp.split(x)
     ctx = SeqContext(positions=pos, sin=sin, cos=cos, decode=decode,
                      page_tables=page_tables, page_size=page_size, prefix_len=prefix_len, tp=tp,
                      layout=tensor_parallel.layout() if cache is not None else None)
     x, aux = _run_stack(cfg, params, x, ctx, cache=cache)
     return _norm(cfg, params["final_norm"], x, tp), cache, aux
+
+
+def _seq_len(cfg, batch_inputs) -> int:
+    """The length of the hidden sequence of ``batch_inputs`` (a vision
+    model's patches before its tokens)."""
+    if cfg.frontend == "audio":
+        return batch_inputs["frames"].shape[1]
+    n = batch_inputs["tokens"].shape[1]
+    if cfg.frontend == "vision" and "patches" in batch_inputs:
+        n += batch_inputs["patches"].shape[1]
+    return n
 
 
 def _head_weight(cfg, params):
@@ -955,7 +985,7 @@ def loss_fn(cfg, params, batch):
     x, _, aux = forward_hidden(cfg, params, batch)
     labels = batch["labels"].long()
     B, S = labels.shape
-    tp, v0 = tensor_parallel.context(), 0
+    tp, v0 = tensor_parallel.context(seq_len=_seq_len(cfg, batch)), 0
     split = tp is not None and cfg.vocab_size >= tensor_parallel.VOCAB_SPLIT_MIN
     if tp is not None and tp.seq:  # the head reads every row of the sequence
         x = tp.enter(x) if split else tp.gather(x)
@@ -994,10 +1024,10 @@ def local_params(cfg, params, mesh):
     """The weights the model reads on this rank of ``mesh``: each leaf whole
     over every mesh axis but the tensor axis, and there this rank's slice
     of a leaf the model reads split (:func:`param_axes` with
-    :func:`tensor_parallel.reads_whole`: kv heads fewer than the ranks and
-    the sLSTM recurrence are read whole).  A DTensor leaf (placed on its
-    sharding) is gathered; a plain tensor is taken as the whole leaf and
-    cut (a view)."""
+    :func:`tensor_parallel.reads_whole`: attention, kv and xLSTM heads that
+    do not split over the ranks and the sLSTM recurrence are read whole).
+    A DTensor leaf (placed on its sharding) is gathered; a plain tensor is
+    taken as the whole leaf and cut (a view)."""
     names, sizes = mesh_axes(mesh)
     size = dict(zip(names, sizes)).get(tensor_parallel.TENSOR_AXIS, 1)
     model_dim = (names.index(tensor_parallel.TENSOR_AXIS)
@@ -1019,7 +1049,7 @@ def split_reads(cfg, size: int):
     axis of ``size`` ranks reads the leaf as its storage splits it (False:
     whole, :func:`tensor_parallel.reads_whole`)."""
     whole = tensor_parallel.reads_whole(cfg, size)
-    return _walk_axes(model_spec(cfg), _model_axes(cfg), lambda path, _, ax: not whole(path[-1], ax))
+    return _walk_axes(model_spec(cfg), _model_axes(cfg), lambda path, _, ax: not whole(path, ax))
 
 
 def _serving(cfg, params, rows):
@@ -1068,9 +1098,12 @@ def prefill(cfg, params, batch_inputs, max_len: int):
     lay, params, batch_inputs = _serving(cfg, params, batch_inputs)
     cache = init_cache(cfg, tokens.shape[0], max_len, device=tokens.device)
     x, _, _ = forward_hidden(cfg, params, batch_inputs, cache=cache)
-    x = x[:, -1:]
-    if lay is not None and lay.tp is not None and lay.tp.seq:  # the last rank's last row
-        x = tensor_parallel.all_gather(x, lay.tp.group, 1)[:, -1:]
+    if lay is not None and lay.tp is not None and lay.tp.seq:  # the last row, on its rank
+        per = x.shape[1]
+        r, j = divmod(_seq_len(cfg, batch_inputs) - 1, per)
+        x = tensor_parallel.all_gather(x[:, j:j + 1], lay.tp.group, 1)[:, r:r + 1]
+    else:
+        x = x[:, -1:]
     return cache, _serve_logits(cfg, params, x, lay)[:, 0]
 
 

@@ -22,8 +22,8 @@ floors are ``torch.maximum``, whose gradient splits a tie evenly as
 the mLSTM's decay matrix is masked before its ``exp``, so the masked
 entries' gradient is 0 where the reference's ``0 * inf`` can be NaN.
 
-Gates and states compute in f32 (:func:`_wide`: f32, or f64 for a float64
-model, which the card-vs-CPU checks use as their reference).
+Gates and states compute in f32 (:func:`layers.wide`: f32, or f64 for a
+float64 model, which the card-vs-CPU checks use as their reference).
 
 On a split tensor axis (``tp``, :mod:`~repro_torch.distributed.tensor_parallel`)
 a rank runs its whole heads of either cell, the JAX package's ``lru``
@@ -38,6 +38,18 @@ sLSTM: its channels of ``w{g}`` / ``b{g}`` / the state and rows of
 ``wo_proj``, and its heads of the block-diagonal recurrence ``r{g}``, which
 the rank reads whole and slices, so the time loop runs no collective.
 Either cell's output leaves the region summed over the axis.
+
+Heads that do not split over the axis (or are fewer than its ranks): a rank
+runs its contiguous heads (:meth:`TensorParallel.heads`, maybe none), their
+columns and rows cut from the cell's ``lru`` leaves read whole and shared
+(:meth:`TensorParallel.head_slices`).  The mLSTM's state is whole on every
+rank as before; its gathers over the heads pad to the largest count
+(:meth:`TensorParallel.gather_heads`).  The sLSTM's ``c, n, h, m`` stay
+stored as even channel chunks (``cache_axes``), which are not the rank's
+heads: a prefill or decode step all-gathers the four chunks (one call),
+the rank advances its heads' channels, and their new state is gathered over
+the heads (one call) before the rank keeps its chunk; two all-gathers of
+``4 * B * d_model`` entries a step.
 """
 from __future__ import annotations
 
@@ -45,6 +57,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed import tensor_parallel
+from repro_torch.models import layers
 
 __all__ = [
     "mlstm_init_spec",
@@ -60,11 +73,6 @@ __all__ = [
 ]
 
 _GATES = ("i", "f", "z", "o")
-
-
-def _wide(t):
-    """``t`` in at least f32 (bf16 and f32 -> f32, f64 stays)."""
-    return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
 def _floor(t, lo: float):
@@ -115,11 +123,12 @@ def _mlstm_qkvg(cfg, params, x):
     (every head, or a rank's), z, and every head's gates."""
     B, S, _ = x.shape
     _, _, dh = _dims(cfg)
-    q = (x @ params["wq"]).reshape(B, S, -1, dh)
-    k = (x @ params["wk"]).reshape(B, S, -1, dh) * (dh**-0.5)
-    v = (x @ params["wv"]).reshape(B, S, -1, dh)
+    nh = params["wq"].shape[-1] // dh  # none on a tensor-parallel rank with no head
+    q = (x @ params["wq"]).reshape(B, S, nh, dh)
+    k = (x @ params["wk"]).reshape(B, S, nh, dh) * (dh**-0.5)
+    v = (x @ params["wv"]).reshape(B, S, nh, dh)
     z = F.silu(x @ params["wz"])
-    xf = _wide(x)
+    xf = layers.wide(x)
     log_f = F.logsigmoid(xf @ params["wf"].to(xf.dtype) + params["bf"])
     gate_i = torch.sigmoid(xf @ params["wi"].to(xf.dtype) + params["bi"])
     return q, k, v, z, log_f, gate_i  # gates: (B, S, NH) f32
@@ -134,7 +143,7 @@ def _mlstm_chunk(q, k, v, log_f, gate_i, carry):
     diff = lf[:, :, None, :] - lf[:, None, :, :]  # (B, L, L, NH)
     mask = torch.ones((L, L), dtype=torch.bool, device=q.device).tril()[None, :, :, None]
     D = torch.exp(torch.where(mask, diff, float("-inf"))) * gate_i[:, None, :, :]
-    qf, kf, vf = _wide(q), _wide(k), _wide(v)
+    qf, kf, vf = layers.wide(q), layers.wide(k), layers.wide(v)
 
     scores = torch.einsum("blhd,bmhd->blmh", qf, kf) * D  # (B, L, L, NH)
     h_intra = torch.einsum("blmh,bmhd->blhd", scores, vf)
@@ -158,6 +167,9 @@ def _mlstm_chunk(q, k, v, log_f, gate_i, carry):
     return out, (C_new, n_new)
 
 
+_MLSTM_COLS, _MLSTM_ROWS = ("wq", "wk", "wv", "wz"), ("wo",)
+
+
 def mlstm_apply(cfg, params, x, carry=None, tp=None):
     """Chunkwise-parallel mLSTM.  x: (B, S, D) -> ((B, S, D), (C, n)).
     With ``tp``: this rank's heads (``carry`` and the carry returned are
@@ -166,6 +178,7 @@ def mlstm_apply(cfg, params, x, carry=None, tp=None):
     if tp is not None:
         x = tp.enter(x)
         params = dict(params, **{k: tp.share(params[k]) for k in ("wi", "wf", "bi", "bf")})
+        params = tp.head_slices(params, nh, dh, _MLSTM_COLS, _MLSTM_ROWS)
     B, S, _ = x.shape
     L = min(cfg.xlstm_chunk, S)
     if S % L:
@@ -203,11 +216,13 @@ def mlstm_decode_step(cfg, params, x, cache, tp=None):
     (the token's k / v gathered over the heads); the output is this rank's
     heads', summed over the axis."""
     B = x.shape[0]
-    _, nh, _ = _dims(cfg)
-    q, k, v, z, log_f, gate_i = _mlstm_qkvg(cfg, params, x)
-    qf, kf, vf = (_wide(t[:, 0]) for t in (q, k, v))  # (B, NH, dh)
+    _, nh, dh = _dims(cfg)
     if tp is not None:
-        kf, vf = (tensor_parallel.all_gather(t, tp.group, 1) for t in (kf, vf))
+        params = tp.head_slices(params, nh, dh, _MLSTM_COLS, _MLSTM_ROWS)
+    q, k, v, z, log_f, gate_i = _mlstm_qkvg(cfg, params, x)
+    qf, kf, vf = (layers.wide(t[:, 0]) for t in (q, k, v))  # (B, NH, dh)
+    if tp is not None:
+        kf, vf = (tp.gather_heads(t, nh, 1) for t in (kf, vf))
     f = torch.exp(log_f[:, 0])[..., None]  # (B, NH, 1)
     i = gate_i[:, 0][..., None]
     C = f[..., None] * cache["C"] + i[..., None] * torch.einsum("bhd,bhe->bhde", kf, vf)
@@ -254,15 +269,15 @@ def slstm_init_cache(cfg, batch, device="cuda", lead=(), dtype=torch.float32):
             for s in ("c", "n", "h", "m")}
 
 
-def _slstm_scan(params, nh, xf, state):
-    """The recurrence of ``nh`` heads (the heads ``params`` hold: every
-    one, or a rank's) over xf (B, S, D) f32 from ``state``: returns their
-    hidden states (B, S, nh * dh) f32 and the final state."""
+def _slstm_scan(params, dh, xf, state):
+    """The recurrence of the heads ``params`` hold (every one, or a rank's,
+    ``dh`` channels each) over xf (B, S, D) f32 from ``state``: returns
+    their hidden states (B, S, heads * dh) f32 and the final state."""
     B, S = xf.shape[:2]
     # Per gate, the input projection of every step plus the bias.
     pre = [xf @ params[f"w{g}"].to(xf.dtype) for g in _GATES]
     d = pre[0].shape[-1]
-    dh = d // nh
+    nh = d // dh
     bias = [params[f"b{g}"].to(xf.dtype) for g in _GATES]
     r = torch.cat([params[f"r{g}"].to(xf.dtype) for g in _GATES], dim=-1)  # (NH, dh, 4 dh)
     c, n, h, m = state["c"], state["n"], state["h"], state["m"]
@@ -284,21 +299,37 @@ def _slstm_scan(params, nh, xf, state):
     return torch.stack(hs, dim=1), {"c": c, "n": n, "h": h, "m": m}
 
 
+_STATE = ("c", "n", "h", "m")
+
+
 def slstm_apply(cfg, params, x, state=None, tp=None):
     """Sequential sLSTM over the sequence.  x: (B, S, D) -> ((B, S, D), state).
-    With ``tp``: this rank's heads (``state`` is their channels)."""
+    With ``tp``: this rank's heads; ``state`` and the state returned are
+    its channels as ``cache_axes`` store them (its heads' channels where
+    the heads split; else its even chunk, see the module docstring)."""
     nh = cfg.xlstm_heads
+    dh = cfg.d_model // nh
+    chunked = tp is not None and nh % tp.size != 0 and state is not None
     if tp is not None:
         x = tp.enter(x)
         params = dict(params, **{f"r{g}": tp.share(params[f"r{g}"])[tp.heads(nh)]
                                  for g in _GATES})
-        nh //= tp.size
-    xf = _wide(x)
+        params = tp.head_slices(params, nh, dh, [f"{w}{g}" for g in _GATES for w in "wb"],
+                                ("wo_proj",))
+        if chunked:  # every chunk, then the rank's heads' channels
+            whole = tensor_parallel.all_gather(torch.stack([state[s] for s in _STATE]),
+                                               tp.group, -1)
+            cut = tp.heads(nh)
+            state = dict(zip(_STATE, whole[..., cut.start * dh:cut.stop * dh]))
+    xf = layers.wide(x)
     if state is None:
         state = {s: torch.zeros((x.shape[0], params["wi"].shape[1]), dtype=xf.dtype,
-                                device=x.device) for s in ("c", "n", "h", "m")}
-    hs, state = _slstm_scan(params, nh, xf, state)
+                                device=x.device) for s in _STATE}
+    hs, state = _slstm_scan(params, dh, xf, state)
     out = hs.to(x.dtype) @ params["wo_proj"]
+    if chunked:  # the ranks' heads' new channels, then this rank's chunk
+        whole = tp.gather_heads(torch.stack([state[s] for s in _STATE]), nh, -1, dh)
+        state = dict(zip(_STATE, whole.chunk(tp.size, -1)[tp.rank]))
     return (out if tp is None else tp.leave(out)), state
 
 

@@ -28,6 +28,7 @@ from repro.training import train_loop as jtrain
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.archs import get_config, reduced
 from repro_torch.distributed import api
+from repro_torch.distributed import tensor_parallel as tpm
 from repro_torch.launch import mesh
 from repro_torch.models import transformer as T
 from repro_torch.training import (
@@ -243,23 +244,70 @@ def test_make_mesh_needs_a_process_group():
         mesh.make_mesh((1, 1), ("data", "model"), device="cpu")
 
 
+EMULATED_RTOL = 1e-10
+
+
 @pytest.mark.parametrize("arch,over,size,error,match", [
-    ("recurrentgemma-2b", {"lru_width": 66}, 4, ValueError, "lru width 66 does not split over 4"),
-    ("xlstm-350m", {"pattern": ("mlstm",)}, 3, ValueError, "4 xLSTM heads .* whole heads over 3"),
-    ("xlstm-350m", {"pattern": ("slstm",), "xlstm_heads": 2}, 4, ValueError,
-     "2 xLSTM heads .* whole heads over 4"),
-    ("llama3-8b", {"n_heads": 6, "n_kv_heads": 2}, 4, ValueError, "whole groups over 4"),
-    ("llama3-8b", {"n_heads": 8, "n_kv_heads": 8}, 3, ValueError, "whole groups over 3"),
-], ids=["recurrent", "mlstm", "slstm", "heads-6-over-4", "heads-8-over-3"])
+    ("recurrentgemma-2b", {"lru_width": 66}, 4, ValueError,
+     r"rec/\w+ dim \d \(lru, 66\) does not evenly divide over 4"),
+    ("xlstm-350m", {"pattern": ("mlstm",)}, 3, ValueError,
+     r"cell/wq dim 1 \(lru, 128\) does not evenly divide over 3"),
+    ("xlstm-350m", {"pattern": ("slstm",), "xlstm_heads": 2}, 4, None, None),
+    ("llama3-8b", {"n_heads": 6, "n_kv_heads": 2}, 4, None, None),
+    ("llama3-8b", {"n_heads": 8, "n_kv_heads": 8}, 3, ValueError,
+     r"attn/wq dim 1 \(heads, 128\) does not evenly divide over 3"),
+    ("llama3-8b", {"n_heads": 6, "n_kv_heads": 2}, 3, ValueError,
+     r"attn/wk dim 1 \(kv_heads, 32\) does not evenly divide over 3"),
+    ("llama3-8b", {"d_ff": 130}, 4, ValueError,
+     r"mlp/wi dim 1 \(ffn, 130\) does not evenly divide over 4"),
+    ("olmoe-1b-7b", {"expert_d_ff": 66}, 4, ValueError,
+     r"moe/\w+ dim \d \(expert_ffn, 66\) does not evenly divide over 4"),
+    ("llama3-8b", {"vocab_size": 1026}, 4, ValueError,
+     r"head dim 1 \(vocab, 1026\) does not evenly divide over 4"),
+], ids=["recurrent", "mlstm", "slstm", "heads-6-over-4", "heads-8-over-3", "kv-heads-2-over-3",
+        "ffn", "expert-ffn", "vocab"])
 def test_tensor_axis_raises(world1, arch, over, size, error, match):
-    """A ``model`` axis above 1 runs every block kind; an RG-LRU width,
-    attention heads that do not split into whole groups or xLSTM heads that
-    do not split into whole heads raise before the step is built."""
+    """A ``model`` axis above 1 runs every block kind.  A stored leaf whose
+    dim on the tensor axis does not divide over it (an RG-LRU or mLSTM
+    width, attention columns, kv columns, an MLP or expert width, a split
+    vocab), which the JAX package's placement refuses too, raises before
+    the step is built, naming the leaf and the dim.  Heads that do not
+    split over the ranks (6 q heads over 4 ranks; 2 sLSTM heads over 4,
+    two ranks holding none), which GSPMD pads, build the step, and the
+    block split over the ranks (emulated in one process,
+    ``torch_tp_worker.emulated_split``) is the unsharded block in float64:
+    its output and every gradient within ``EMULATED_RTOL`` of their largest
+    entry (the same float64 sums in another order) [5.7e-16 the attention
+    block at 6 over 4, 4.3e-16 the sLSTM cell at 2 over 4]."""
+    import torch_tp_worker
+
     m = mesh.make_mesh((1, 1), ("data", "model"), device="cpu")
-    wide = types.SimpleNamespace(mesh_dim_names=("data", "model"), shape=(1, size))
-    with pytest.raises(error, match=match):
-        make_train_step(reduced(arch, **over), None, TrainConfig(), mesh=wide,
-                        rules=mesh.make_rules(m))
+    wide = types.SimpleNamespace(mesh_dim_names=("data", "model"), shape=(1, size), ndim=2,
+                                 get_coordinate=lambda: (0, 0))
+    cfg = reduced(arch, **over)
+    if error is not None:
+        with pytest.raises(error, match=match):
+            make_train_step(cfg, None, TrainConfig(), mesh=wide, rules=mesh.make_rules(m))
+        return
+    assert callable(make_train_step(cfg, None, TrainConfig(), mesh=wide,
+                                    rules=mesh.make_rules(m)))
+    kind = cfg.pattern[0]
+    err = torch_tp_worker.emulated_block_error(cfg, kind, size)
+    assert err <= EMULATED_RTOL, f"{kind} over {size}: {err:.3g}"
+
+
+@pytest.mark.parametrize("max_len,ok", [(32, True), (30, False), (6, False)])
+def test_cache_axes_raise_where_slots_do_not_split(max_len, ok):
+    """Serving: a ring whose slots (``seq_kv``) do not divide over the
+    tensor axis raises, naming the cache leaf and the dim; the heads (6 q
+    over 2 kv on 4 ranks) do not."""
+    cfg = reduced("llama3-8b", n_heads=6, n_kv_heads=2)
+    if ok:
+        tpm.check_config(cfg, 4, cache=(2, max_len))
+        return
+    with pytest.raises(ValueError, match=rf"cache/periods/0/k dim 2 \(seq_kv, {max_len}\) "
+                                         "does not evenly divide over 4"):
+        tpm.check_config(cfg, 4, cache=(2, max_len))
 
 
 def test_reshard_on_restore(tmp_path, world1):

@@ -21,7 +21,11 @@ hold no valid slot in any step; qwen3-14b (qk-norm); olmoe-1b-7b (4
 experts top-2) with one MoE group (every data rank routes the whole batch)
 and with 4 (two on each data rank); recurrentgemma-2b (3 layers: two
 RG-LRU blocks, the ``lru`` width 64 split, and a local-attention block
-whose 32-slot window ring wraps in the prefill).
+whose 32-slot window ring wraps in the prefill).  Heads that do not split
+over the four ranks of (1, 4), which GSPMD pads: llama3-8b with 6 q heads
+over 2 kv heads and over 3, recurrentgemma-2b with 10 heads (3 / 3 / 2 / 2
+a rank) and gemma-2b with 2 heads (ranks 2 and 3 hold none); their decode
+steps gather the q rows over the heads padded to the largest count.
 
 Tolerances, each with its reason (measured worst in brackets); every one
 is of the largest entry of what it holds (the logits of a run, a cache
@@ -77,6 +81,10 @@ CASES = {
     "olmoe": ("olmoe-1b-7b", {}, 12, 32, 6),
     "olmoe_g4": ("olmoe-1b-7b", {"moe_groups": 4}, 12, 32, 6),
     "recurrentgemma": ("recurrentgemma-2b", {}, 40, 64, 6),
+    "llama_q6_kv2": ("llama3-8b", {"n_heads": 6, "n_kv_heads": 2}, 12, 32, 6),
+    "llama_q6_kv3": ("llama3-8b", {"n_heads": 6, "n_kv_heads": 3}, 12, 32, 6),
+    "recurrentgemma_q10": ("recurrentgemma-2b", {"n_heads": 10}, 40, 64, 6),
+    "gemma_q2": ("gemma-2b", {"n_heads": 2}, 5, 32, 6),
 }
 RUNS = [
     ("llama_kv2", (1, 4), "RULES_2D"), ("llama_kv2", (2, 2), "RULES_2D"),
@@ -86,6 +94,8 @@ RUNS = [
     ("olmoe", (2, 2), "RULES_2D_DEC"), ("olmoe", (2, 2), "RULES_2D"),
     ("olmoe_g4", (2, 2), "RULES_2D"),
     ("recurrentgemma", (1, 4), "RULES_2D"), ("recurrentgemma", (2, 2), "RULES_2D_DEC"),
+    ("llama_q6_kv2", (1, 4), "RULES_2D"), ("llama_q6_kv3", (1, 4), "RULES_2D_DEC"),
+    ("recurrentgemma_q10", (1, 4), "RULES_2D"), ("gemma_q2", (1, 4), "RULES_2D"),
 ]
 UNSHARDED_RTOL = 1e-4
 JAX_RTOL = 2e-4

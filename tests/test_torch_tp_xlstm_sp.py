@@ -23,10 +23,15 @@ blocks quadruples the JAX package's compile time for the same code) on
 ``RULES_2D_SP``; llama3-8b (8 q heads over 2 kv heads, each read whole by
 two ranks) and recurrentgemma-2b (two RG-LRU blocks and a local-attention
 block whose 32-slot window ring wraps in the prefill) on (1, 4) under
-``RULES_2D_SP``, beside their ``RULES_2D`` runs.  The JAX package runs
-every run but the ``RULES_2D`` runs of llama3-8b and recurrentgemma-2b
-and the xLSTM's ``RULES_2D_SP`` run (each held to the port's run of the
-other table).
+``RULES_2D_SP``, beside their ``RULES_2D`` runs.  Splits that GSPMD pads:
+xlstm-350m with 6 heads at d 96 (2 / 2 / 1 / 1 heads a rank) and with 2
+heads (ranks 2 and 3 hold none) on (1, 4), in float64, their sLSTM state
+stored as even channel chunks that are not the ranks' heads; llama3-8b
+under ``RULES_2D_SP`` at a sequence of 30 and a prompt of 30, which do not
+split over 4 ranks (blocks of 8 rows, the last with 2 rows of padding),
+beside its ``RULES_2D`` run.  The JAX package runs every run but the
+``RULES_2D`` runs of the attention stacks and the xLSTM's ``RULES_2D_SP``
+run (each held to the port's run of the other table).
 
 Tolerances, each with its reason (measured worst in brackets):
 
@@ -87,28 +92,43 @@ import torch_tp_worker as worker  # noqa: E402
 WORLD = 4
 VOCAB = 1024
 B, S_TRAIN = 4, 32
-F64 = ("xlstm",)
+_XLSTM = {"pattern": ("mlstm", "slstm"), "n_layers": 4}
+F64 = ("xlstm", "xlstm_h6", "xlstm_h2")
 CASES = {  # name: (arch, overrides, prompt length, max_len, decode steps)
-    "xlstm": ("xlstm-350m", {"pattern": ("mlstm", "slstm"), "n_layers": 4}, 16, 32, 6),
+    "xlstm": ("xlstm-350m", _XLSTM, 16, 32, 6),
     "llama": ("llama3-8b", {"n_heads": 8, "n_kv_heads": 2}, 16, 32, 6),
     "recurrentgemma": ("recurrentgemma-2b", {}, 40, 64, 6),
+    "xlstm_h6": ("xlstm-350m", {**_XLSTM, "xlstm_heads": 6, "d_model": 96}, 16, 32, 6),
+    "xlstm_h2": ("xlstm-350m", {**_XLSTM, "xlstm_heads": 2}, 16, 32, 6),
+    "llama_s30": ("llama3-8b", {"n_heads": 8, "n_kv_heads": 2}, 30, 64, 6),
 }
+TRAIN_S = {"llama_s30": 30}  # a training sequence other than S_TRAIN
 TRAIN_RUNS = [
     ("xlstm", (1, 4), "RULES_2D"), ("xlstm", (1, 2), "RULES_2D"), ("xlstm", (2, 2), "RULES_2D"),
     ("xlstm", (1, 4), "RULES_2D_SP"),
     ("llama", (1, 4), "RULES_2D_SP"), ("llama", (1, 4), "RULES_2D"),
     ("recurrentgemma", (1, 4), "RULES_2D_SP"), ("recurrentgemma", (1, 4), "RULES_2D"),
+    ("xlstm_h6", (1, 4), "RULES_2D"), ("xlstm_h2", (1, 4), "RULES_2D"),
+    ("llama_s30", (1, 4), "RULES_2D_SP"), ("llama_s30", (1, 4), "RULES_2D"),
 ]
 SERVE_RUNS = [
     ("xlstm", (1, 4), "RULES_2D"), ("xlstm", (1, 2), "RULES_2D"), ("xlstm", (2, 2), "RULES_2D"),
     ("llama", (1, 4), "RULES_2D_SP"), ("llama", (1, 4), "RULES_2D"),
     ("recurrentgemma", (1, 4), "RULES_2D_SP"), ("recurrentgemma", (1, 4), "RULES_2D"),
+    ("xlstm_h6", (1, 4), "RULES_2D"), ("xlstm_h2", (1, 4), "RULES_2D"),
+    ("llama_s30", (1, 4), "RULES_2D_SP"), ("llama_s30", (1, 4), "RULES_2D"),
 ]
 RUNS = [("train", *r) for r in TRAIN_RUNS] + [("serve", *r) for r in SERVE_RUNS]
-# The JAX package runs the xLSTM's RULES_2D runs and every RULES_2D_SP run
-# but the xLSTM's (which the port's RULES_2D run holds).
-JAX_TRAIN = [r for r in TRAIN_RUNS if (r[0] == "xlstm") == (r[2] == "RULES_2D")]
-JAX_SERVE = [r for r in SERVE_RUNS if (r[0] == "xlstm") == (r[2] == "RULES_2D")]
+
+
+def _jax_runs(runs):
+    """The JAX package runs the xLSTM's RULES_2D runs and every RULES_2D_SP
+    run but the xLSTM's (which the port's RULES_2D run holds)."""
+    return [r for r in runs if (r[0] in F64) == (r[2] == "RULES_2D")]
+
+
+JAX_TRAIN = _jax_runs(TRAIN_RUNS)
+JAX_SERVE = _jax_runs(SERVE_RUNS)
 JAX_RUNS = [("train", *r) for r in JAX_TRAIN] + [("serve", *r) for r in JAX_SERVE]
 SP_TRAIN = [r for r in TRAIN_RUNS if r[2] == "RULES_2D_SP"]
 SP_SERVE = [r for r in SERVE_RUNS if r[2] == "RULES_2D_SP"]
@@ -157,19 +177,17 @@ def _spawn(out):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """{(who, kind, run): npz dict}: the JAX package's run ("jax") and each
-    port rank's ("torch", rank); "probe": the message of the odd sequence's
-    error."""
+    port rank's ("torch", rank)."""
     out = tmp_path_factory.mktemp("tp_xsp")
     train, serve = {}, {}
     for i, (name, (arch, over, S, max_len, steps)) in enumerate(CASES.items()):
         over = {"vocab_size": VOCAB, **over}
-        train[name] = (arch, over, _train_state(name, i), _batch(10 + i))
+        train[name] = (arch, over, _train_state(name, i),
+                       _batch(10 + i, S=TRAIN_S.get(name, S_TRAIN)))
         params = jax.tree.map(np.asarray, JT.init_params(_jcfg(name), jax.random.key(i)))
         prompt = np.random.default_rng(100 + i).integers(0, VOCAB, (B, S)).astype(np.int32)
         serve[name] = (arch, over, params, prompt, max_len, steps)
-    probe = train["llama"][:3] + (_batch(20, S=30),)
-    spec = {"train": train, "serve": serve, "runs": RUNS, "jax_runs": JAX_RUNS, "f64": F64,
-            "probe": probe}
+    spec = {"train": train, "serve": serve, "runs": RUNS, "jax_runs": JAX_RUNS, "f64": F64}
     (out / "xsp.pkl").write_bytes(pickle.dumps(spec))
     t0 = time.time()
     procs = _spawn(out)
@@ -180,7 +198,7 @@ def runs(tmp_path_factory):
             p.kill()
     assert all(p.returncode == 0 for p in procs), "\n".join(logs)[-6000:]
     print(f"xLSTM / sequence-parallel processes: {time.time() - t0:.1f} s")
-    res = {"probe": (out / "xsp_probe.txt").read_text()}
+    res = {}
     for kind, *run in RUNS:
         run = tuple(run)
         if (kind, *run) in JAX_RUNS:
@@ -253,11 +271,12 @@ def test_sequence_parallel_gradients_match_rules_2d(runs, run):
 
 @pytest.mark.parametrize("run", TRAIN_RUNS, ids=_tag)
 def test_residual_stream_between_blocks(runs, run):
-    """Every block reads (B / data, S / model, D) under RULES_2D_SP and
-    (B / data, S, D) under RULES_2D."""
+    """Every block reads (B / data, ceil(S / model), D) under RULES_2D_SP
+    and (B / data, S, D) under RULES_2D."""
     (data, model), sp = run[1], run[2] == "RULES_2D_SP"
     shapes = runs[(("torch", 0), "train", run)]["residual"]
-    want = (B // data, S_TRAIN // (model if sp else 1), 64)
+    S = TRAIN_S.get(run[0], S_TRAIN)
+    want = (B // data, -(-S // (model if sp else 1)), _jcfg(run[0]).d_model)
     assert [tuple(s) for s in shapes] == [want]
 
 
@@ -326,17 +345,44 @@ def test_xlstm_cache_layout(runs):
 
 
 def test_odd_sequence_raises(runs):
-    assert "sequence 30 does not split over 4" in runs["probe"]
+    """A sequence of 30 under RULES_2D_SP on (1, 4), which does not split
+    over the ranks (GSPMD pads it), no longer raises: every block reads
+    blocks of 8 rows (the last rank's ending in 2 rows of padding), and the
+    gradients and metrics are the unsharded step's."""
+    run = ("llama_s30", (1, 4), "RULES_2D_SP")
+    got = runs[(("torch", 0), "train", run)]
+    assert [tuple(s) for s in got["residual"]] == [(B, 8, 64)]
+    _hold_grads(_leaves(got, "grad"), _leaves(got, "plain"), GRAD_RTOL, f"{_tag(run)}")
+    for key in ("loss", "xent", "tokens"):
+        np.testing.assert_allclose(got[f"metric/{key}"], got[f"plain_metric/{key}"],
+                                   rtol=METRIC_RTOL, err_msg=f"{_tag(run)} {key}")
+    assert float(got["metric/tokens"]) == B * 30 - 3
 
 
 @pytest.mark.parametrize("size,over,match", [
-    (3, {}, "4 xLSTM heads .* whole heads over 3"),
-    (8, {}, "4 xLSTM heads .* whole heads over 8"),
-    (2, {"xlstm_heads": 3, "d_model": 96}, "3 xLSTM heads .* whole heads over 2"),
-], ids=["heads-4-over-3", "heads-4-over-8", "heads-3-over-2"])
-def test_xlstm_heads_that_do_not_split_raise(size, over, match):
-    with pytest.raises(ValueError, match=match):
-        tpm.check_config(reduced("xlstm-350m", **over), size)
+    (3, {}, r"periods/0/cell/wq dim 1 \(lru, 128\) does not evenly divide over 3"),
+    (8, {}, None),
+    (2, {"xlstm_heads": 3, "d_model": 96}, None),
+    (16, {"pattern": ("slstm",), "d_model": 96},
+     r"periods/0/cell/ri dim 1 \(lru, 24\) does not evenly divide over 16"),
+], ids=["heads-4-over-3", "heads-4-over-8", "heads-3-over-2", "recurrence-dh-24-over-16"])
+def test_xlstm_heads_that_do_not_split_raise(world1, size, over, match):
+    """Where the JAX package's placement refuses a stored leaf (the mLSTM
+    width 128 over 3 ranks, the sLSTM recurrence's dh 24 over 16),
+    ``check_config`` raises naming the leaf and the dim.  Heads that do not
+    split but whose leaves do (4 heads over 8 ranks, 3 over 2), which GSPMD
+    pads, run: each cell split over the ranks (emulated in one process,
+    ``torch_tp_worker.emulated_split``) is the unsharded cell in float64,
+    its output and every gradient within ``F64_RTOL``."""
+    cfg = reduced("xlstm-350m", **over)
+    if match is not None:
+        with pytest.raises(ValueError, match=match):
+            tpm.check_config(cfg, size)
+        return
+    tpm.check_config(cfg, size)
+    for kind in sorted(set(cfg.pattern)):
+        err = worker.emulated_block_error(cfg, kind, size)
+        assert err <= F64_RTOL, f"{kind} over {size}: {err:.3g}"
 
 
 @pytest.mark.parametrize("size", [1, 2, 4])

@@ -12,9 +12,14 @@ ranks of the port, or the JAX package on four forced host devices.
 Training (``rank`` / ``jax``):
 
 Both read ``OUT_DIR/cases.pkl``: ``{"cases": {name: (arch, overrides,
-state, batch)}, "meshes": [(data, model), ...]}`` with the JAX package's
-``init_train_state`` as numpy and a numpy batch.  For every case and mesh,
-with ``make_rules`` and one AdamW step of :func:`opt_kwargs`:
+state, batch)}, "meshes": [(data, model), ...], "case_meshes": {name:
+[meshes]}, "f64": [names]}`` with the JAX package's ``init_train_state`` as
+numpy and a numpy batch; a case named in ``case_meshes`` runs on those
+meshes instead of ``meshes``, one named in ``f64`` in float64 on both sides
+(every floating leaf of the state widened; the JAX modules' ``jnp`` seen
+through ``jax_f64.Jnp64`` under ``jax.enable_x64``, :func:`jax_float64`).
+For every case and mesh, with ``make_rules`` and one AdamW step of
+:func:`opt_kwargs`:
 
 * a port rank places the state on ``state_shardings``, takes the sharded
   gradients (``make_grads_fn(..., mesh=, rules=)``) and one sharded train
@@ -52,9 +57,8 @@ The xLSTM split and sequence parallelism (``xsp-rank`` / ``xsp-jax``) read
 ``OUT_DIR/xsp.pkl``: ``{"train": {name: (arch, overrides, state, batch)},
 "serve": {name: (arch, overrides, params, prompt, max_len, steps)},
 "runs": [(kind, name, (data, model), table), ...], "jax_runs": [the runs
-the JAX process takes too], "f64": [names], "probe": (arch, overrides,
-state, batch)}``; ``kind`` is ``train`` or ``serve``, ``table`` a rule
-table of ``distributed/api.py``.  A case named
+the JAX process takes too], "f64": [names]}``; ``kind`` is ``train`` or
+``serve``, ``table`` a rule table of ``distributed/api.py``.  A case named
 in ``f64`` runs in float64 on both sides (every parameter widened; the
 JAX modules' ``jnp`` seen through ``jax_f64.Jnp64`` under
 ``jax.enable_x64``).  A mesh of fewer ranks than the world runs as
@@ -71,11 +75,10 @@ devices.  Per run:
   ``serve-rank`` writes, to ``OUT_DIR/xsp_torch_serve_{run}_r{rank}.npz``;
 * the JAX process writes ``grad/PATH`` and ``metric/NAME`` (``train``) or
   ``logits`` and ``tokens`` (``serve``) to
-  ``OUT_DIR/xsp_jax_{kind}_{run}.npz``;
-* every port rank also runs the ``probe``'s gradients on (1, 4) under
-  ``RULES_2D_SP``, a sequence that does not split over the 4 ranks, and
-  rank 0 writes the ``ValueError``'s message to ``OUT_DIR/xsp_probe.txt``.
+  ``OUT_DIR/xsp_jax_{kind}_{run}.npz``.
 """
+import contextlib
+import dataclasses
 import os
 import pickle
 import sys
@@ -98,16 +101,61 @@ def _save(path, grads, metrics, params):
              **{f"param/{k}": v for k, v in params.items()})
 
 
+def case_meshes(spec, name):
+    """The meshes a training case of ``cases.pkl`` runs on."""
+    return spec.get("case_meshes", {}).get(name, spec["meshes"])
+
+
+def port_case(spec, name):
+    """``(cfg, state, batch)`` of a training case of ``cases.pkl`` for the
+    port, on the CPU: in float64 where ``f64`` names it."""
+    import torch
+
+    from repro_torch.configs.archs import reduced
+    from repro_torch.training import train_state_from_numpy
+
+    arch, over, state_np, batch_np = spec["cases"][name]
+    cfg = reduced(arch, **over)
+    state = train_state_from_numpy(cfg, state_np, device="cpu")
+    if name in spec.get("f64", ()):
+        cfg, state = dataclasses.replace(cfg, dtype="float64"), _f64_tree(state)
+    return cfg, state, {k: torch.from_numpy(v) for k, v in batch_np.items()}
+
+
+@contextlib.contextmanager
+def jax_float64(on):
+    """Within the block (when ``on``), the JAX package in float64: every
+    loaded ``repro`` module's ``jnp`` replaced by ``jax_f64.Jnp64`` (its
+    explicit f32 casts then keep float64) under ``jax.enable_x64``."""
+    if not on:
+        yield
+        return
+    import jax
+    import jax.numpy as jnp
+
+    from jax_f64 import Jnp64
+
+    mods = [m for name, m in list(sys.modules.items())
+            if name.startswith("repro.") and getattr(m, "jnp", None) is jnp]
+    for m in mods:
+        m.jnp = Jnp64()
+    try:
+        with jax.enable_x64(True):
+            yield
+    finally:
+        for m in mods:
+            m.jnp = jnp
+
+
 def run_ranks(rank, world, store, out):
     import torch
     import torch.distributed as dist
 
-    from repro_torch.configs.archs import reduced
     from repro_torch.distributed.tensor_parallel import gather
     from repro_torch.launch.mesh import make_mesh, make_rules
     from repro_torch.training import (
         OptimizerConfig, TrainConfig, make_grads_fn, make_train_step, place_state,
-        state_shardings, train_state_from_numpy,
+        state_shardings,
     )
     from repro_torch.tree import named_leaves
 
@@ -118,13 +166,14 @@ def run_ranks(rank, world, store, out):
     try:
         meshes = {shape: make_mesh(shape, ("data", "model"), device="cpu")
                   for shape in spec["meshes"]}
-        for name, (arch, over, state_np, batch_np) in spec["cases"].items():
-            cfg = reduced(arch, **over)
-            batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
-            for shape, mesh in meshes.items():
+        for name in spec["cases"]:
+            for shape in case_meshes(spec, name):
+                t0 = time.perf_counter()
+                cfg, state, batch = port_case(spec, name)
+                mesh = meshes[shape]
                 rules = make_rules(mesh)
                 shardings = state_shardings(cfg, mesh, rules)
-                state = place_state(train_state_from_numpy(cfg, state_np, device="cpu"), shardings)
+                state = place_state(state, shardings)
                 _, _, grads = make_grads_fn(cfg, TrainConfig(), mesh=mesh, rules=rules)(
                     state["params"], batch)
                 grads = {k: gather(g).numpy() for k, g in named_leaves(grads)}
@@ -135,6 +184,7 @@ def run_ranks(rank, world, store, out):
                 if rank == 0:
                     _save(Path(out) / f"torch_{name}_{shape[0]}x{shape[1]}.npz", grads,
                           {k: v.numpy() for k, v in metrics.items()}, params)
+                print(f"{name} {shape}: {time.perf_counter() - t0:.1f} s", flush=True)
     finally:
         dist.destroy_process_group()
 
@@ -160,30 +210,115 @@ def run_jax(out):
         return {"/".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path):
                 np.asarray(v) for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
 
+    def wide(a):  # float64 for every floating leaf
+        return np.asarray(a, np.float64) if np.issubdtype(np.asarray(a).dtype, np.floating) else a
+
     for name, (arch, over, state_np, batch_np) in spec["cases"].items():
+        f64 = name in spec.get("f64", ())
         cfg = reduced(arch, **over)
-        for shape in spec["meshes"]:
+        if f64:
+            cfg, state_np = dataclasses.replace(cfg, dtype="float64"), jax.tree.map(wide, state_np)
+        for shape in case_meshes(spec, name):
             if shape[1] == 1:
                 continue
+            t0 = time.perf_counter()
             mesh = make_mesh(shape, ("data", "model"))
             rules = make_rules(mesh)
             st_sh = state_shardings(cfg, mesh, rules)
             b_sh = named_sharding(mesh, rules, ("batch",))
-            state = jax.device_put(jax.tree.map(jnp.asarray, state_np), st_sh)
-            batch = jax.device_put({k: jnp.asarray(v) for k, v in batch_np.items()}, b_sh)
+            with jax_float64(f64):
+                state = jax.device_put(jax.tree.map(jnp.asarray, state_np), st_sh)
+                batch = jax.device_put({k: jnp.asarray(v) for k, v in batch_np.items()}, b_sh)
 
-            def loss_grads(params, batch, cfg=cfg, rules=rules):
-                with axis_rules(rules):
-                    return jax.value_and_grad(lambda p: JT.loss_fn(cfg, p, batch),
-                                              has_aux=True)(params)
+                def loss_grads(params, batch, cfg=cfg, rules=rules):
+                    with axis_rules(rules):
+                        return jax.value_and_grad(lambda p: JT.loss_fn(cfg, p, batch),
+                                                  has_aux=True)(params)
 
-            (_, _), grads = jax.jit(loss_grads, in_shardings=(st_sh["params"], b_sh))(
-                state["params"], batch)
-            grads = flat(grads)
-            step = make_train_step(cfg, OptimizerConfig(**opt_kwargs()), mesh=mesh, rules=rules)
-            new_state, metrics = step(state, batch)
-            _save(Path(out) / f"jax_{name}_{shape[0]}x{shape[1]}.npz", grads,
-                  {k: np.asarray(v) for k, v in metrics.items()}, flat(new_state["params"]))
+                (_, _), grads = jax.jit(loss_grads, in_shardings=(st_sh["params"], b_sh))(
+                    state["params"], batch)
+                grads = flat(grads)
+                step = make_train_step(cfg, OptimizerConfig(**opt_kwargs()), mesh=mesh,
+                                       rules=rules)
+                new_state, metrics = step(state, batch)
+                _save(Path(out) / f"jax_{name}_{shape[0]}x{shape[1]}.npz", grads,
+                      {k: np.asarray(v) for k, v in metrics.items()}, flat(new_state["params"]))
+            print(f"{name} {shape}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def emulated_split(cfg, block, leaves, axes, x, size, cot, prefix=()):
+    """One block's tensor split emulated in this process, over a one-rank
+    gloo group whose collectives are the identity: the partial outputs
+    ``block(p, x, tp)`` of ``size`` ranks, each from the leaves as
+    ``local_params`` reads them (whole where ``reads_whole`` says, at path
+    ``prefix + (name,)``; else its slice of the ``RULES_2D`` tensor-axis
+    dims), summed as ``leave`` sums them, and the vjp of the sum with
+    ``cot``, whose gradients sum over the ranks as ``share`` and ``enter``
+    sum them.  Returns (output, {"x" or leaf name: gradient})."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import api
+    from repro_torch.distributed import tensor_parallel as tpm
+
+    on_axis = tpm._tensor_logical(api.RULES_2D)
+    whole = tpm.reads_whole(cfg, size)
+    xin = x.detach().clone().requires_grad_(True)
+    held = {k: t.detach().clone().requires_grad_(True) for k, t in leaves.items()}
+    total = 0
+    for r in range(size):
+        p = {}
+        for k, t in held.items():
+            if not whole((*prefix, k), axes[k]):
+                for d, ax in enumerate(axes[k]):
+                    if ax in on_axis:
+                        per = t.shape[d] // size
+                        t = t.narrow(d, r * per, per)
+            p[k] = t
+        total = total + block(p, xin, tpm.TensorParallel(dist.group.WORLD, r, size))
+    grads = torch.autograd.grad(total, [xin, *held.values()], cot)
+    return total.detach(), dict(zip(["x", *held], grads))
+
+
+def emulated_block_error(cfg, kind, size, seed=0, B=2, S=16):
+    """The largest error, over a leaf's (or the output's) largest entry, of
+    one block of ``kind`` split over ``size`` ranks (:func:`emulated_split`)
+    against the unsharded block, in float64: its output and the vjp's
+    gradients of the input and of every leaf.  ``kind`` is an attention
+    kind (the block's ``attn``) or an xLSTM cell (its ``cell``)."""
+    import torch
+
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as T
+
+    c = dataclasses.replace(cfg, dtype="float64")
+    key = "cell" if kind in ("mlstm", "slstm") else "attn"
+    period = T.init_params(c, torch.Generator().manual_seed(seed), "cpu")["periods"]
+    leaves = T._unstack(period[list(cfg.pattern).index(kind)], cfg.n_periods)[0][key]
+    axes = T.block_axes(cfg, kind)[key]
+    gen = torch.Generator().manual_seed(seed + 1)
+    x = torch.randn((B, S, cfg.d_model), generator=gen, dtype=torch.float64)
+    cot = torch.randn((B, S, cfg.d_model), generator=gen, dtype=torch.float64)
+    pos = torch.arange(S, dtype=torch.int32).expand(B, S)
+    sin, cos = layers.rope(pos, cfg.head_dim, cfg.rope_theta, dtype=torch.float64)
+
+    def block(p, x, tp):
+        ctx = T.SeqContext(positions=pos, sin=sin, cos=cos, tp=tp)
+        if key == "cell":
+            return T._xlstm_cell(c, kind, p, x, ctx, None)
+        return T._attention(c, p, x, ctx, kind, None)
+
+    got, grads = emulated_split(c, block, leaves, axes, x, size, cot, prefix=(key,))
+    xin = x.clone().requires_grad_(True)
+    held = {k: t.detach().clone().requires_grad_(True) for k, t in leaves.items()}
+    want = block(held, xin, None)
+    plain = dict(zip(["x", *held], torch.autograd.grad(want, [xin, *held.values()], cot)))
+    want = want.detach()
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-300)
+
+    return max([rel(got, want)] + [rel(grads[k], plain[k]) for k in plain])
 
 
 def run_tag(name, shape, table):
@@ -334,8 +469,6 @@ def _xsp_mesh(shape, world, cache):
 
 
 def run_xsp_ranks(rank, world, store, out):
-    import dataclasses
-
     import torch
     import torch.distributed as dist
 
@@ -422,21 +555,6 @@ def run_xsp_ranks(rank, world, store, out):
                            plain_logits=plain[0].numpy(), plain_tokens=plain[1].numpy())
             np.savez(Path(out) / f"xsp_torch_serve_{tag}_r{rank}.npz", **res)
             print(f"{kind} {tag}: {time.perf_counter() - t0:.1f} s", flush=True)
-        # A sequence that does not split over the tensor axis.
-        arch, over, state_np, batch_np = spec["probe"]
-        cfg = reduced(arch, **over)
-        mesh = _xsp_mesh((1, 4), world, meshes)
-        rules = api.AxisRules(mesh, api.RULES_2D_SP)
-        state = place_state(train_state_from_numpy(cfg, state_np, device="cpu"),
-                            state_shardings(cfg, mesh, rules))
-        try:
-            make_grads_fn(cfg, TrainConfig(), mesh=mesh, rules=rules)(
-                state["params"], {k: torch.from_numpy(v) for k, v in batch_np.items()})
-            said = "no error"
-        except ValueError as e:
-            said = str(e)
-        if rank == 0:
-            (Path(out) / "xsp_probe.txt").write_text(said)
     finally:
         dist.destroy_process_group()
 
@@ -446,18 +564,12 @@ def run_xsp_jax(out):
     os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=4 "
                                "--xla_cpu_multi_thread_eigen=false intra_op_parallelism_threads=1")
     os.environ["JAX_PLATFORMS"] = "cpu"
-    import contextlib
-    import dataclasses
-
     import jax
     import jax.numpy as jnp
 
-    from jax_f64 import Jnp64
     from repro.configs.archs import reduced
     from repro.distributed import api
-    from repro.models import layers as jlayers
     from repro.models import transformer as JT
-    from repro.models import xlstm as jxlstm
 
     spec = pickle.loads((Path(out) / "xsp.pkl").read_bytes())
 
@@ -467,22 +579,6 @@ def run_xsp_jax(out):
     def flat(tree):
         return {"/".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path):
                 np.asarray(v) for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
-
-    @contextlib.contextmanager
-    def float64(on):
-        if not on:
-            yield
-            return
-        mods = (jlayers, jxlstm, JT)
-        saved = [m.jnp for m in mods]
-        for m in mods:
-            m.jnp = Jnp64()
-        try:
-            with jax.enable_x64(True):
-                yield
-        finally:
-            for m, j in zip(mods, saved):
-                m.jnp = j
 
     for kind, name, shape, table in spec["jax_runs"]:
         t0 = time.perf_counter()
@@ -499,7 +595,7 @@ def run_xsp_jax(out):
 
         p_sh = sharding(JT.param_axes(cfg))
         b_sh = api.named_sharding(mesh, rules, ("batch",))
-        with float64(f64):
+        with jax_float64(f64):
             if f64:
                 cfg = dataclasses.replace(cfg, dtype="float64")
             wide = (lambda a: np.asarray(a, np.float64)) if f64 else jnp.asarray
